@@ -1,0 +1,320 @@
+"""Card smoke test of the PyTorch port (smafa_tpu_torch) on one GPU.
+
+Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
+Phases, one line each:
+
+0. device: the card's name and power limit (nvidia-smi) and the
+   torch/CUDA versions; fails when no CUDA device is visible.
+1. build: compiles the CUDA kernels from smafa_tpu_torch/csrc with nvcc.
+2. kernel parity: each kernel against its plain PyTorch version on the
+   card, exact equality (all values are integers), with both times.
+3. end to end through the CLI: makedb --format native over a seeded
+   2^20-window 60 bp db, then best-hit query of 65,536 reads at
+   --max-divergence 5; checks the exit codes, that both kernels launched
+   during the run, and 512 sampled queries' lines against a numpy
+   brute force.
+
+Before the last line it prints the kernels' JSON summary and the card's
+name and power limit; the last line is the run's JSON verdict. Any
+failure raises, which exits non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+import types
+
+import numpy as np
+import torch
+
+L_SMOKE = 60
+MIN2_SOURCE = "smafa_tpu_torch/csrc/min2.cu"
+COMPACT_SOURCE = "smafa_tpu_torch/csrc/compact.cu"
+MIN2_REPLACES = "smafa_tpu/ops/pallas_scan.py:311"     # _min2_kernel
+COMPACT_REPLACES = "smafa_tpu/ops/pallas_scan.py:463"  # _compact_kernel
+
+
+def smoke_sizes(query_mod) -> types.SimpleNamespace:
+    """The run's shapes: the db and query stream of BASELINE.json config 3
+    (1M-sequence db, 60 bp windows) cut to 65,536 reads, and the issue's
+    kernel parity shapes."""
+    db_rows = 1 << 20
+    return types.SimpleNamespace(
+        db_rows=db_rows, queries=65536, sample=512, reps=10,
+        parity_rows=(1 << 20) + 37, parity_queries=4096,
+        parity_rows_compact=1 << 20, compact_rows=4096,
+        # the query batch the CLI picks for this db
+        main_batch=query_mod._auto_batch(
+            types.SimpleNamespace(n_windows=db_rows)))
+
+
+def log(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of fn() over reps launches, after one
+    warm-up call."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def random_db(rng, n: int, L: int) -> np.ndarray:
+    """ACGT windows with planted exact duplicates: 20% of the rows sit in
+    duplicate groups of 2, 5 and 40 (an equal share of rows each)."""
+    codes = rng.integers(0, 4, (n, L), dtype=np.uint8)
+    perm = rng.permutation(n)
+    used = 0
+    for g in (2, 5, 40):
+        k = (n // 5 // 3) // g
+        pos = perm[used:used + k * g].reshape(k, g)
+        used += k * g
+        codes[pos[:, 1:]] = codes[pos[:, :1]]
+    return codes
+
+
+def mutate(rng, rows: np.ndarray, max_subs: int) -> np.ndarray:
+    """Copies of ``rows`` with 0..max_subs random substitutions each."""
+    q = rows.copy()
+    n, L = q.shape
+    k = rng.integers(0, max_subs + 1, n)
+    pos = rng.integers(0, L, (n, max_subs))
+    shift = rng.integers(1, 4, (n, max_subs)).astype(np.uint8)
+    for s in range(max_subs):
+        sel = np.nonzero(k > s)[0]
+        q[sel, pos[sel, s]] = (q[sel, pos[sel, s]] + shift[sel, s]) % 4
+    return q
+
+
+def kernel_parity(sizes, dev, D, K, min2_mod, compact_mod, rng) -> dict:
+    """Phase 2: kernels vs plain versions on the card, exact. Timed at
+    the issue's parity shapes and at the shapes the main path gives the
+    kernels (min2: one query batch of phase A; compact_mask: a
+    compaction sub-batch of tied rows); the summary keeps the latter."""
+    timings = {}
+    b_main, w_main = sizes.main_batch, sizes.db_rows
+    cases = [(L_SMOKE, sizes.parity_queries, sizes.parity_rows, "parity"),
+             (L_SMOKE, b_main, w_main, "main"),
+             (3, 1000, sizes.parity_rows // 8 + 5, None),
+             (150, 1000, sizes.parity_rows // 8 + 5, None)]
+    for L, b, n, timed in cases:
+        codes = random_db(rng, n, L) if L > 3 else rng.integers(
+            0, 5, (n, L), dtype=np.uint8)
+        q = mutate(rng, codes[rng.integers(0, n, b)], 6)
+        q[: b // 8] = codes[rng.integers(0, n, b // 8)]  # exact copies
+        wp = -(-n // D.WP_MULTIPLE) * D.WP_MULTIPLE
+        shift = K.packing_shift(L, wp)
+        db_emb, zc = D.embed_db(torch.from_numpy(codes).to(dev), L, wp)
+        q_emb = D.expand_embed_query(torch.from_numpy(q).to(dev), L)
+        for with_count in (True, False):
+            got = min2_mod.min2(q_emb, db_emb, zc, L, shift, with_count)
+            want = D.min2_reference(q_emb, db_emb, zc, L, shift, with_count)
+            torch.cuda.synchronize()
+            err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+            if err != 0:
+                raise AssertionError(
+                    f"min2 kernel differs from its plain version at L={L} "
+                    f"B={b} W={n} with_count={with_count} (max |err| {err})")
+        log("kernel_parity", kernel="min2", L=L, B=b, W=n, exact=True)
+        if timed:
+            ms = time_ms(lambda: min2_mod.min2(q_emb, db_emb, zc, L, shift), sizes.reps)
+            plain_ms = time_ms(lambda: D.min2_reference(q_emb, db_emb, zc, L, shift), 2)
+            timings[("min2", timed)] = {"ms": ms, "plain_ms": plain_ms}
+            log("kernel_time", kernel="min2", L=L, B=b, W=n, ms=ms,
+                plain_ms=plain_ms, comparisons_per_s=b * n / (ms / 1e3))
+        del db_emb, zc, q_emb, got, want
+    codes = random_db(rng, sizes.parity_rows_compact, L_SMOKE)
+    n = codes.shape[0]
+    wp = -(-n // D.WP_MULTIPLE) * D.WP_MULTIPLE
+    db_emb, zc = D.embed_db(torch.from_numpy(codes).to(dev), L_SMOKE, wp)
+    for b, timed in ((512, "parity"), (sizes.compact_rows, "main")):
+        q = mutate(rng, codes[rng.integers(0, n, b)], 6)
+        th = rng.integers(0, 7, b).astype(np.int32)
+        th[rng.random(b) < 0.1] = -1
+        q_emb = D.expand_embed_query(torch.from_numpy(q).to(dev), L_SMOKE)
+        thresh = torch.from_numpy(th).to(dev)
+        got = compact_mod.compact_mask(q_emb, db_emb, zc, thresh, L_SMOKE)
+        want = D.compact_mask_reference(q_emb, db_emb, zc, thresh, L_SMOKE)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(f"compact_mask kernel differs from its plain "
+                                 f"version in {bad} words at B={b}")
+        log("kernel_parity", kernel="compact_mask", L=L_SMOKE, B=b, W=n,
+            exact=True)
+        ms = time_ms(lambda: compact_mod.compact_mask(
+            q_emb, db_emb, zc, thresh, L_SMOKE), sizes.reps)
+        plain_ms = time_ms(lambda: D.compact_mask_reference(
+            q_emb, db_emb, zc, thresh, L_SMOKE), 2)
+        timings[("compact_mask", timed)] = {"ms": ms, "plain_ms": plain_ms}
+        log("kernel_time", kernel="compact_mask", L=L_SMOKE, B=b, W=n, ms=ms,
+            plain_ms=plain_ms, comparisons_per_s=b * n / (ms / 1e3))
+    return {name: {"max_abs_err": 0, **t}
+            for (name, which), t in timings.items() if which == "main"}
+
+
+def write_fasta(path: str, codes: np.ndarray, prefix: str) -> None:
+    seqs = np.frombuffer(b"ACGTN", np.uint8)[codes]
+    with open(path, "w") as f:
+        for i, s in enumerate(seqs):
+            f.write(f">{prefix}{i}\n{s.tobytes().decode()}\n")
+
+
+def brute_force_lines(codes: np.ndarray, q: np.ndarray, qnum: int,
+                      max_div: int) -> list[str]:
+    """The reference best-hit lines of one query (lib.rs:306-313)."""
+    L = codes.shape[1]
+    match = np.zeros(codes.shape[0], np.int32)
+    for c in range(L):
+        match += codes[:, c] == q[c]
+    dist = L - match
+    mind = int(dist.min())
+    if mind > max_div:
+        return []
+    return [f"{qnum}\t{i}\t{mind}\t{np.frombuffer(b'ACGTN', np.uint8)[codes[i]].tobytes().decode()}"
+            for i in np.nonzero(dist == mind)[0]]
+
+
+def end_to_end(sizes, cli, query_mod, min2_mod, compact_mod, rng) -> dict:
+    """Phase 3: makedb + best-hit query through the CLI."""
+    n, nq, max_div = sizes.db_rows, sizes.queries, 5
+    codes = random_db(rng, n, L_SMOKE)
+    src = rng.integers(0, n, nq)
+    q = mutate(rng, codes[src], 6)
+    with tempfile.TemporaryDirectory(prefix="smafa_smoke_") as tmp:
+        db_fa, q_fa = os.path.join(tmp, "db.fna"), os.path.join(tmp, "q.fna")
+        db, out = os.path.join(tmp, "db.native"), os.path.join(tmp, "hits.tsv")
+        write_fasta(db_fa, codes, "s")
+        write_fasta(q_fa, q, "r")
+        captured = []
+        run_query = query_mod.query
+
+        def spy(*a, **kw):  # keep the stage timers of the CLI's query run
+            captured.append(run_query(*a, **kw))
+            return captured[-1]
+
+        query_mod.query = spy
+        min2_mod.launches = 0
+        compact_mod.launches = 0
+        t0 = time.perf_counter()
+        rc_db = cli.main(["makedb", "-i", db_fa, "-d", db, "--format", "native",
+                          "--quiet"])
+        t1 = time.perf_counter()
+        rc_q = cli.main(["query", "-d", db, "-q", q_fa, "--max-divergence",
+                         str(max_div), "-o", out, "--quiet"])
+        t2 = time.perf_counter()
+        launches = {"min2": min2_mod.launches,
+                    "compact_mask": compact_mod.launches}
+        query_mod.query = run_query
+        if rc_db != 0 or rc_q != 0:
+            raise AssertionError(f"CLI failed: makedb rc={rc_db}, query rc={rc_q}")
+        for name, k in launches.items():
+            if k <= 0:
+                raise AssertionError(f"the {name} kernel never launched on the main path")
+        with open(out) as f:
+            lines = f.read().splitlines()
+    by_q: dict[int, list[str]] = {}
+    for line in lines:
+        by_q.setdefault(int(line.split("\t", 1)[0]), []).append(line)
+    # Every read lies within its number of substitutions of its source.
+    to_src = (q != codes[src]).sum(axis=1)
+    for i in np.nonzero(to_src <= max_div)[0]:
+        got = by_q.get(int(i))
+        if not got or int(got[0].split("\t")[2]) > to_src[i]:
+            raise AssertionError(f"query {i}: best hit missing or worse than "
+                                 f"its source window at distance {to_src[i]}")
+    sample = rng.choice(nq, size=min(sizes.sample, nq), replace=False)
+    for i in sorted(sample.tolist()):
+        want = brute_force_lines(codes, q[i], i, max_div)
+        if by_q.get(i, []) != want:
+            raise AssertionError(f"query {i}: lines differ from brute force:\n"
+                                 f"got {by_q.get(i, [])[:3]}\nwant {want[:3]}")
+    timers = captured[0]
+    # Host seconds spent launching and waiting for the device; device work
+    # that overlaps the next batch's parse is not in it, so the wall-time
+    # rate is the end-to-end figure.
+    scan_s = timers.seconds.get("dispatch", 0.0) + timers.seconds.get("scan", 0.0)
+    res = {"makedb_s": t1 - t0, "query_wall_s": t2 - t1,
+           "queries_per_s": nq / (t2 - t1), "scan_s": scan_s,
+           "comparisons_per_s_scan": nq * n / scan_s,
+           "comparisons_per_s_wall": nq * n / (t2 - t1),
+           "stage_s": timers.seconds, "hit_lines": len(lines),
+           "sampled_exact": int(sample.size), "launches": launches}
+    log("end_to_end", db_rows=n, queries=nq, **res)
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of every generated db, query and threshold")
+    seed = ap.parse_args().seed
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from smafa_tpu_torch import cli
+    from smafa_tpu_torch.engine import query as query_mod
+    from smafa_tpu_torch.ops import _build, compact as compact_mod
+    from smafa_tpu_torch.ops import distance as D, keys as K, min2 as min2_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions exact
+    card = nvidia_smi()
+    log("device", nvidia_smi=card, torch=torch.__version__,
+        cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
+        count=torch.cuda.device_count())
+
+    t0 = time.perf_counter()
+    _build.load()
+    log("build", seconds=time.perf_counter() - t0, library=str(_build.library_path().name))
+
+    # the query batch the CLI picks for this db (engine.query._auto_batch)
+    sizes = smoke_sizes(query_mod)
+    rng = np.random.default_rng(seed)
+    timing = kernel_parity(sizes, torch.device("cuda"), D, K, min2_mod, compact_mod, rng)
+    e2e = end_to_end(sizes, cli, query_mod, min2_mod, compact_mod, rng)
+
+    kernels = [
+        {"name": "min2", "route": "cuda", "source": MIN2_SOURCE,
+         "replaces": MIN2_REPLACES, "launches": e2e["launches"]["min2"],
+         "max_abs_err": timing["min2"]["max_abs_err"],
+         "ms": timing["min2"]["ms"], "plain_ms": timing["min2"]["plain_ms"]},
+        {"name": "compact_mask", "route": "cuda", "source": COMPACT_SOURCE,
+         "replaces": COMPACT_REPLACES,
+         "launches": e2e["launches"]["compact_mask"],
+         "max_abs_err": timing["compact_mask"]["max_abs_err"],
+         "ms": timing["compact_mask"]["ms"],
+         "plain_ms": timing["compact_mask"]["plain_ms"]},
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,49 @@
+"""Wrapper of the compact_mask kernel (``csrc/compact.cu``), the hit
+bitmask of best-hit tie enumeration.
+
+CPU tensors take the plain version (``distance.compact_mask_reference``);
+CUDA tensors launch the kernel on the current stream, or raise.
+``launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from smafa_tpu_torch.ops import _build
+from smafa_tpu_torch.ops import distance as D
+from smafa_tpu_torch.ops.min2 import check_operands
+
+launches = 0
+MAX_ROWS = 65535 * 32  # the kernel's grid.y limit times its query tile
+
+
+def compact_mask(q_emb: torch.Tensor, db_emb: torch.Tensor,
+                 zc: torch.Tensor, thresh: torch.Tensor,
+                 seq_len: int) -> torch.Tensor:
+    """int32 [B, Wp/32] hit mask: see ``distance.compact_mask_reference``."""
+    global launches
+    check_operands(q_emb, db_emb, zc, seq_len)
+    b, wp = q_emb.shape[0], db_emb.shape[0]
+    if (thresh.dtype != torch.int32 or thresh.shape != (b,)
+            or thresh.device != q_emb.device or not thresh.is_contiguous()):
+        raise ValueError("thresh must be a contiguous int32 [B] tensor "
+                         "on the operands' device")
+    if b > MAX_ROWS:
+        raise ValueError(f"at most {MAX_ROWS} query rows per call")
+    if q_emb.device.type == "cpu":
+        return D.compact_mask_reference(q_emb, db_emb, zc, thresh, seq_len)
+    if not q_emb.is_cuda:
+        raise ValueError(f"no compact_mask kernel for device {q_emb.device}")
+    mask = torch.empty((b, wp // 32), dtype=torch.int32, device=q_emb.device)
+    if b == 0:
+        return mask
+    lib = _build.load()
+    stream = torch.cuda.current_stream(q_emb.device).cuda_stream
+    rc = lib.smafa_compact_mask(q_emb.data_ptr(), db_emb.data_ptr(),
+                                zc.data_ptr(), thresh.data_ptr(),
+                                mask.data_ptr(), b, wp, q_emb.shape[1],
+                                seq_len, stream)
+    _build.check(rc, "compact_mask")
+    launches += 1
+    return mask

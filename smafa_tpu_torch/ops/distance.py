@@ -1,0 +1,164 @@
+"""Scan operands and the plain PyTorch versions of the two kernels.
+
+Counterpart of ``smafa_tpu.ops.distance`` and of the operand constructors in
+``smafa_tpu.ops.pallas_scan``. For one-hot encodings the reference's
+per-pair ``popcount(a ^ b) / 2`` (reference lib.rs:80-88) equals
+``L - matches``; the matches come from a rank-4 embedding of the two
+sides (see ``smafa_tpu.ops.distance``, "Rank-4 match embedding"):
+
+    query side  q_l = onehot_{1..4}(code)            (code 0 -> zeros)
+    db side     d_l = onehot_{1..4}(code), or (-1,-1,-1,-1) for code 0
+    matches     = q . d + zc,  zc = number of code-0 positions of the db row
+
+Operands, as the kernels take them:
+
+- ``q_emb`` int8 [B, EP] and ``db_emb`` int8 [Wp, EP], EP = 4L rounded up
+  to 32 bytes (one ``mma.sync`` k-step). The TPU's 128-lane padding and
+  its zc column are gone, so any L whose keys pack into 31 bits works.
+- ``zc`` int32 [Wp], added in the epilogue. Padding rows (>= the number
+  of real windows) are poisoned: zero embedding and zc = -1, so their
+  distance is exactly L + 1, above every real distance and threshold.
+
+The plain versions run on CPU and CUDA tensors alike. The dot is taken
+in float32, which is exact here (entries in {-1, 0, 1}, |dot| <= 4L,
+far below 2^24); int8 @ int8 is never used, because on the CPU it
+returns int8 and wraps. TF32 would round the products, so it is switched
+off before every float32 product on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from smafa_tpu_torch.core.alphabet import N_CHANNELS
+from smafa_tpu_torch.ops.keys import BIG_KEY
+
+K_STEP = 32          # embed width granularity in bytes
+WP_MULTIPLE = 64     # db rows per kernel tile: the runner pads Wp to this
+CHUNK = 8192         # db rows per step of the plain versions
+
+
+def embed_width(seq_len: int) -> int:
+    return -(-4 * seq_len // K_STEP) * K_STEP
+
+
+def _pad_cols(x: torch.Tensor, width: int) -> torch.Tensor:
+    if x.shape[-1] == width:
+        return x.contiguous()
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+
+
+def _channels(codes: torch.Tensor) -> torch.Tensor:
+    return torch.arange(1, N_CHANNELS, dtype=codes.dtype, device=codes.device)
+
+
+def expand_embed_query(codes: torch.Tensor, seq_len: int) -> torch.Tensor:
+    """uint8 [..., L] channel codes -> int8 [..., EP] query embedding."""
+    oh = (codes.unsqueeze(-1) == _channels(codes)).to(torch.int8)
+    return _pad_cols(oh.reshape(*codes.shape[:-1], 4 * seq_len),
+                     embed_width(seq_len))
+
+
+def expand_embed_db(codes: torch.Tensor,
+                    seq_len: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """uint8 [..., L] -> (int8 [..., EP] db embedding, int32 [...] zc)."""
+    is0 = (codes.unsqueeze(-1) == 0).to(torch.int8)
+    emb = (codes.unsqueeze(-1) == _channels(codes)).to(torch.int8) - is0
+    zc = (codes == 0).sum(dim=-1, dtype=torch.int32)
+    return (_pad_cols(emb.reshape(*codes.shape[:-1], 4 * seq_len),
+                      embed_width(seq_len)), zc)
+
+
+def embed_db(codes: torch.Tensor, seq_len: int,
+             wp: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The db twin the kernels scan: [n, L] codes -> (int8 [wp, EP],
+    int32 [wp]) with rows n..wp-1 poisoned to distance L + 1."""
+    n = codes.shape[0]
+    emb = torch.zeros((wp, embed_width(seq_len)), dtype=torch.int8,
+                      device=codes.device)
+    zc = torch.full((wp,), -1, dtype=torch.int32, device=codes.device)
+    for off in range(0, n, CHUNK * 16):  # bound the one-hot temporaries
+        e, z = expand_embed_db(codes[off:off + CHUNK * 16], seq_len)
+        emb[off:off + e.shape[0]] = e
+        zc[off:off + e.shape[0]] = z
+    return emb, zc
+
+
+def _distances(q_f: torch.Tensor, d_emb: torch.Tensor, zc: torch.Tensor,
+               seq_len: int) -> torch.Tensor:
+    """int32 [B, w] distances of float32 query rows vs db rows."""
+    if q_f.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dots = (q_f @ d_emb.to(torch.float32).T).to(torch.int32)
+    return seq_len - dots - zc.unsqueeze(0)
+
+
+def min2_reference(q_emb: torch.Tensor, db_emb: torch.Tensor,
+                   zc: torch.Tensor, seq_len: int, shift: int,
+                   with_count: bool = True) -> tuple[torch.Tensor, ...]:
+    """Plain version of the min2 kernel (the semantics of
+    ``min2_scan_pallas`` and ``min2_scan`` with span = Wp): per query row
+    lo = min (dist << shift) | w, hi = min (dist << shift) | (Wp-1-w),
+    and with_count the number of windows at the row's min distance.
+    Returns (lo, hi[, cnt]) int32 [B]."""
+    b, wp = q_emb.shape[0], db_emb.shape[0]
+    dev = q_emb.device
+    lo = torch.full((b,), BIG_KEY, dtype=torch.int32, device=dev)
+    hi = lo.clone()
+    cnt = torch.zeros((b,), dtype=torch.int32, device=dev)
+    dmin = torch.full((b,), 2**30, dtype=torch.int32, device=dev)
+    q_f = q_emb.to(torch.float32)
+    for off in range(0, wp, CHUNK):
+        d_emb = db_emb[off:off + CHUNK]
+        dist = _distances(q_f, d_emb, zc[off:off + CHUNK], seq_len)
+        idx = torch.arange(off, off + d_emb.shape[0], dtype=torch.int32,
+                           device=dev)
+        sh = dist << shift
+        lo = torch.minimum(lo, (sh | idx).amin(dim=1))
+        hi = torch.minimum(hi, (sh | (wp - 1 - idx)).amin(dim=1))
+        if with_count:
+            cd = dist.amin(dim=1)
+            cc = (dist == cd.unsqueeze(1)).sum(dim=1, dtype=torch.int32)
+            cnt = torch.where(cd < dmin, cc,
+                              torch.where(cd == dmin, cnt + cc, cnt))
+            dmin = torch.minimum(dmin, cd)
+    return (lo, hi, cnt) if with_count else (lo, hi)
+
+
+_BIT_WEIGHTS = [1 << j for j in range(32)]
+
+
+def compact_mask_reference(q_emb: torch.Tensor, db_emb: torch.Tensor,
+                           zc: torch.Tensor, thresh: torch.Tensor,
+                           seq_len: int) -> torch.Tensor:
+    """Plain version of the compact_mask kernel (the semantics of
+    ``compact_mask_pallas``): int32 [B, Wp/32] words whose bit j of word
+    w in row r is set iff window 32w+j has dist <= thresh[r]."""
+    b, wp = q_emb.shape[0], db_emb.shape[0]
+    dev = q_emb.device
+    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.int64, device=dev)
+    mask = torch.empty((b, wp // 32), dtype=torch.int32, device=dev)
+    q_f = q_emb.to(torch.float32)
+    for off in range(0, wp, CHUNK):
+        dist = _distances(q_f, db_emb[off:off + CHUNK],
+                          zc[off:off + CHUNK], seq_len)
+        hit = (dist <= thresh.unsqueeze(1)).to(torch.int64)
+        words = (hit.view(b, -1, 32) * weights).sum(dim=2)
+        words = torch.where(words >= 2**31, words - 2**32, words)
+        mask[:, off // 32:off // 32 + words.shape[1]] = words.to(torch.int32)
+    return mask
+
+
+def extract_mask_hits(mask: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """int32 [B, Wp/32] hit mask -> (rows, idx, counts), int64: every set
+    bit as (row, window index) in (row, index) order, and the exact hit
+    count of each of the B rows (the contract of
+    ``smafa_tpu.ops.distance.extract_mask_hits``). Only the nonzero words
+    expand to bits, so the cost follows the hits, not the mask."""
+    r, wi = torch.nonzero(mask, as_tuple=True)  # row-major order
+    shifts = torch.arange(32, dtype=torch.int32, device=mask.device)
+    bits = (mask[r, wi].unsqueeze(1) >> shifts) & 1  # `& 1` masks the sign
+    k, j = torch.nonzero(bits, as_tuple=True)
+    rows = r[k]
+    counts = torch.bincount(rows, minlength=mask.shape[0])
+    return rows, wi[k] * 32 + j, counts

@@ -1,0 +1,73 @@
+"""Wrapper of the min2 kernel (``csrc/min2.cu``), best-hit phase A.
+
+CPU tensors take the plain version (``distance.min2_reference``); CUDA
+tensors launch the kernel on the current stream, or raise. ``launches``
+counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from smafa_tpu_torch.ops import _build
+from smafa_tpu_torch.ops import distance as D
+
+launches = 0
+
+
+def check_operands(q_emb: torch.Tensor, db_emb: torch.Tensor,
+                   zc: torch.Tensor, seq_len: int) -> None:
+    """Raise on operands the kernels do not take (shared with compact)."""
+    if not (q_emb.device == db_emb.device == zc.device):
+        raise ValueError("operands must lie on one device")
+    if q_emb.dtype != torch.int8 or db_emb.dtype != torch.int8:
+        raise TypeError("q_emb and db_emb must be int8")
+    if zc.dtype != torch.int32:
+        raise TypeError("zc must be int32")
+    if q_emb.ndim != 2 or db_emb.ndim != 2 or zc.ndim != 1:
+        raise ValueError("q_emb, db_emb must be 2-D and zc 1-D")
+    ep = D.embed_width(seq_len)
+    if q_emb.shape[1] != ep or db_emb.shape[1] != ep:
+        raise ValueError(f"embed width must be {ep} for seq_len {seq_len}")
+    wp = db_emb.shape[0]
+    if wp == 0 or wp % D.WP_MULTIPLE or zc.shape[0] != wp:
+        raise ValueError(
+            f"db rows ({wp}) must be a positive multiple of "
+            f"{D.WP_MULTIPLE}, with one zc entry each")
+    if not (q_emb.is_contiguous() and db_emb.is_contiguous()
+            and zc.is_contiguous()):
+        raise ValueError("operands must be contiguous")
+    if q_emb.is_cuda and (q_emb.data_ptr() % 16 or db_emb.data_ptr() % 16):
+        raise ValueError("q_emb and db_emb must be 16-byte aligned")
+    if q_emb.shape[0] >= 2**31 or wp >= 2**31:
+        raise ValueError("operands exceed the kernels' int32 sizes")
+
+
+def min2(q_emb: torch.Tensor, db_emb: torch.Tensor, zc: torch.Tensor,
+         seq_len: int, shift: int,
+         with_count: bool = True) -> tuple[torch.Tensor, ...]:
+    """(lo, hi[, cnt]) int32 [B]: see ``distance.min2_reference``."""
+    global launches
+    check_operands(q_emb, db_emb, zc, seq_len)
+    wp = db_emb.shape[0]
+    if wp > (1 << shift) or (seq_len + 1) << shift >= 2**31:
+        raise ValueError(f"shift {shift} cannot pack {wp} rows at L={seq_len}")
+    if q_emb.device.type == "cpu":
+        return D.min2_reference(q_emb, db_emb, zc, seq_len, shift, with_count)
+    if not q_emb.is_cuda:
+        raise ValueError(f"no min2 kernel for device {q_emb.device}")
+    b = q_emb.shape[0]
+    lo = torch.empty((b,), dtype=torch.int32, device=q_emb.device)
+    hi = torch.empty_like(lo)
+    cnt = torch.empty_like(lo) if with_count else lo  # unused when off
+    if b == 0:
+        return (lo, hi, cnt) if with_count else (lo, hi)
+    lib = _build.load()
+    stream = torch.cuda.current_stream(q_emb.device).cuda_stream
+    rc = lib.smafa_min2(q_emb.data_ptr(), db_emb.data_ptr(), zc.data_ptr(),
+                        lo.data_ptr(), hi.data_ptr(), cnt.data_ptr(), b, wp,
+                        q_emb.shape[1], seq_len, shift, int(with_count),
+                        stream)
+    _build.check(rc, "min2")
+    launches += 1
+    return (lo, hi, cnt) if with_count else (lo, hi)

@@ -1,0 +1,105 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``gpu``: each test skips where no CUDA device is visible. On a
+machine with a card (which need not have jax) run them with
+``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
+This file imports no jax; torch is imported by the ``cuda`` fixture, not
+at collection (see test_torch_min2.py).
+"""
+
+from __future__ import annotations
+
+import types
+
+import numpy as np
+import pytest
+
+pytestmark = pytest.mark.gpu
+
+WP_MULTIPLE = 64  # smafa_tpu_torch.ops.distance.WP_MULTIPLE
+
+
+@pytest.fixture
+def cuda():
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from smafa_tpu_torch.ops import compact, distance, keys, min2
+    from smafa_tpu_torch.parallel.runner import ScanRunner
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return types.SimpleNamespace(
+        dev=torch.device("cuda"), torch=torch, C=compact, D=distance,
+        K=keys, M=min2, ScanRunner=ScanRunner)
+
+
+def _operands(g, seq_len, nw, b, seed):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 5, (nw, seq_len), dtype=np.uint8)
+    codes[rng.integers(0, nw, nw // 10)] = codes[3]  # ties
+    q = codes[rng.integers(0, nw, b)].copy()
+    mut = rng.random(q.shape) < 0.05
+    q[mut] = rng.integers(0, 5, int(mut.sum())).astype(np.uint8)
+    q[:4] = codes[3]
+    wp = -(-nw // WP_MULTIPLE) * WP_MULTIPLE
+    emb, zc = g.D.embed_db(g.torch.from_numpy(codes).to(g.dev), seq_len, wp)
+    q_emb = g.D.expand_embed_query(g.torch.from_numpy(q).to(g.dev), seq_len)
+    return emb, zc, q_emb, g.K.packing_shift(seq_len, wp)
+
+
+@pytest.mark.parametrize("seq_len,nw,b", [(3, 5000, 77), (60, 70001, 300),
+                                          (60, 64, 1), (150, 9000, 129),
+                                          (300, 4000, 40)])
+@pytest.mark.parametrize("with_count", [True, False])
+def test_min2_kernel_equals_plain(cuda, seq_len, nw, b, with_count):
+    """L = 300 takes the kernel's K-streaming branch."""
+    emb, zc, q_emb, shift = _operands(cuda, seq_len, nw, b, nw)
+    before = cuda.M.launches
+    got = cuda.M.min2(q_emb, emb, zc, seq_len, shift, with_count)
+    want = cuda.D.min2_reference(q_emb, emb, zc, seq_len, shift, with_count)
+    cuda.torch.cuda.synchronize()
+    assert cuda.M.launches == before + 1
+    for a, w in zip(got, want):
+        assert cuda.torch.equal(a, w)
+
+
+@pytest.mark.parametrize("seq_len,nw,b", [(3, 4096, 40), (60, 70016, 300),
+                                          (150, 9024, 33)])
+def test_compact_kernel_equals_plain(cuda, seq_len, nw, b):
+    rng = np.random.default_rng(b)
+    emb, zc, q_emb, _ = _operands(cuda, seq_len, nw, b, nw)
+    th = cuda.torch.from_numpy(
+        rng.integers(-1, 7, b).astype(np.int32)).to(cuda.dev)
+    before = cuda.C.launches
+    got = cuda.C.compact_mask(q_emb, emb, zc, th, seq_len)
+    want = cuda.D.compact_mask_reference(q_emb, emb, zc, th, seq_len)
+    cuda.torch.cuda.synchronize()
+    assert cuda.C.launches == before + 1
+    assert cuda.torch.equal(got, want)
+
+
+def test_runner_on_card_equals_cpu(cuda):
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, 4, (3000, 60)).astype(np.uint8)
+    codes = np.concatenate([base, base[:500], base[:50], base[:50]])
+    q = codes[rng.integers(0, codes.shape[0], 1000)].copy()
+    q[::3, :3] = 0
+    for maxdiv in (None, 0, 2):
+        got = cuda.ScanRunner(codes, 60, cuda.dev).best_hit(q, maxdiv)
+        want = cuda.ScanRunner(codes, 60, cuda.torch.device("cpu")).best_hit(
+            q, maxdiv)
+        for a, w in zip(got, want):
+            np.testing.assert_array_equal(a, w)
+
+
+def test_cuda_operands_checked(cuda):
+    torch = cuda.torch
+    emb, zc, q_emb, shift = _operands(cuda, 13, 200, 8, 1)
+    with pytest.raises(TypeError):
+        cuda.M.min2(q_emb.to(torch.int32), emb, zc, 13, shift)
+    with pytest.raises(ValueError):
+        cuda.M.min2(q_emb[:, :16], emb, zc, 13, shift)
+    with pytest.raises(ValueError):
+        cuda.C.compact_mask(q_emb, emb, zc, torch.zeros(
+            3, dtype=torch.int32, device=cuda.dev), 13)
