@@ -13,6 +13,13 @@ Phases, one line each:
    --max-divergence 5; checks the exit codes, that both kernels launched
    during the run, and 512 sampled queries' lines against a numpy
    brute force.
+4. cluster through the CLI at BASELINE.json config 4: 1M 60 bp records
+   from tools/cluster_bench.py's generator (4000 ancestors, 0-4
+   mutations, seed 0) at -d 5; checks the exit code, that the min_count
+   kernel launched, one line per distinct record, every centroid within
+   5 of its record, the centroid count and output hash smafa_tpu gives
+   on this input, and a greedy oracle on 512 sampled records. Then
+   ``count`` on the same file.
 
 Before the last line it prints the kernels' JSON summary and the card's
 name and power limit; the last line is the run's JSON verdict. Any
@@ -38,6 +45,14 @@ MIN2_SOURCE = "smafa_tpu_torch/csrc/min2.cu"
 COMPACT_SOURCE = "smafa_tpu_torch/csrc/compact.cu"
 MIN2_REPLACES = "smafa_tpu/ops/pallas_scan.py:311"     # _min2_kernel
 COMPACT_REPLACES = "smafa_tpu/ops/pallas_scan.py:463"  # _compact_kernel
+MIN_COUNT_SOURCE = "smafa_tpu_torch/csrc/min_count.cu"
+MIN_COUNT_REPLACES = "smafa_tpu/ops/pallas_scan.py:152"  # _min_kernel
+
+# What smafa_tpu prints for the cluster phase's input (tools/cluster_bench.py
+# defaults, -d 5), from its CPU run: distinct centroids and the sha256
+# of stdout (docs/PERFORMANCE.md:61-63 pins the count).
+CLUSTER_CENTROIDS = 29321
+CLUSTER_SHA256 = "0fd93d0c300d7934aa77c9fda8ce32d48be143d92890382f88098c3b444f6db2"
 
 
 def smoke_sizes(query_mod) -> types.SimpleNamespace:
@@ -49,6 +64,12 @@ def smoke_sizes(query_mod) -> types.SimpleNamespace:
         db_rows=db_rows, queries=65536, sample=512, reps=10,
         parity_rows=(1 << 20) + 37, parity_queries=4096,
         parity_rows_compact=1 << 20, compact_rows=4096,
+        # min_count: a centroid buffer below / at its row count, and the
+        # cluster path's batch x centroid-buffer shapes (late, early)
+        min_count_rows=16384, min_count_below=10007,
+        # (B, W, which, reps): the short early launch takes more reps
+        min_count_times=((32768, 32768, "main", 10), (2048, 4096, "early", 100)),
+        cluster_records=1_000_000, cluster_div=5,
         # the query batch the CLI picks for this db
         main_batch=query_mod._auto_batch(
             types.SimpleNamespace(n_windows=db_rows)))
@@ -174,6 +195,58 @@ def kernel_parity(sizes, dev, D, K, min2_mod, compact_mod, rng) -> dict:
             for (name, which), t in timings.items() if which == "main"}
 
 
+def min_count_parity(sizes, dev, D, K, mc_mod, rng) -> dict:
+    """Phase 2, min_count: kernel vs plain version on the card, exact,
+    over a buffer whose rows are all live (the scan must stop at
+    n_valid), with and without the count; then both timed at the cluster
+    path's shapes (with_count off, as the path calls it)."""
+    wp = sizes.min_count_rows
+    for L in (3, 60, 150, 300):
+        buf = random_db(rng, wp, L) if L > 3 else rng.integers(
+            0, 5, (wp, L), dtype=np.uint8)
+        q = mutate(rng, buf[rng.integers(0, wp, 1000)], 6) if L > 3 else \
+            buf[rng.integers(0, wp, 1000)]
+        emb, zc = D.embed_db(torch.from_numpy(buf).to(dev), L, wp)
+        q_emb = D.expand_embed_query(torch.from_numpy(q).to(dev), L)
+        shift = K.packing_shift(L, wp)
+        for n_valid in (sizes.min_count_below, wp):
+            for with_count in (True, False):
+                got = mc_mod.min_count(q_emb, emb, zc, n_valid, L, shift, with_count)
+                want = D.min_count_reference(q_emb, emb, zc, n_valid, L, shift,
+                                             with_count)
+                torch.cuda.synchronize()
+                err = max(int((g.long() - w.long()).abs().max())
+                          for g, w in zip(got, want))
+                if err != 0:
+                    raise AssertionError(
+                        f"min_count kernel differs from its plain version at "
+                        f"L={L} n_valid={n_valid} with_count={with_count} "
+                        f"(max |err| {err})")
+        log("kernel_parity", kernel="min_count", L=L, B=1000, W=wp,
+            n_valid=[sizes.min_count_below, wp], exact=True)
+    timings = {}
+    for b, w, which, reps in sizes.min_count_times:
+        buf = random_db(rng, w, L_SMOKE)
+        q = mutate(rng, buf[rng.integers(0, w, b)], 6)
+        emb, zc = D.embed_db(torch.from_numpy(buf).to(dev), L_SMOKE, w)
+        q_emb = D.expand_embed_query(torch.from_numpy(q).to(dev), L_SMOKE)
+        shift = K.packing_shift(L_SMOKE, w)
+        got = mc_mod.min_count(q_emb, emb, zc, w, L_SMOKE, shift, False)
+        want = D.min_count_reference(q_emb, emb, zc, w, L_SMOKE, shift, False)
+        torch.cuda.synchronize()
+        err = int((got[0].long() - want[0].long()).abs().max())
+        if err != 0:
+            raise AssertionError(f"min_count differs at B={b} W={w} (max |err| {err})")
+        ms = time_ms(lambda: mc_mod.min_count(
+            q_emb, emb, zc, w, L_SMOKE, shift, False), reps)
+        plain_ms = time_ms(lambda: D.min_count_reference(
+            q_emb, emb, zc, w, L_SMOKE, shift, False), max(2, reps // 5))
+        timings[which] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        log("kernel_time", kernel="min_count", L=L_SMOKE, B=b, W=w, ms=ms,
+            plain_ms=plain_ms, comparisons_per_s=b * w / (ms / 1e3))
+    return timings["main"]
+
+
 def write_fasta(path: str, codes: np.ndarray, prefix: str) -> None:
     seqs = np.frombuffer(b"ACGTN", np.uint8)[codes]
     with open(path, "w") as f:
@@ -265,6 +338,120 @@ def end_to_end(sizes, cli, query_mod, min2_mod, compact_mod, rng) -> dict:
     return res
 
 
+def load_cluster_bench():
+    """tools/cluster_bench.py as a module (its make_input is pure numpy)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tools", "cluster_bench.py")
+    spec = importlib.util.spec_from_file_location("cluster_bench", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def fasta_codes(path: str, L: int) -> np.ndarray:
+    """ASCII rows [n, L] of a one-line-per-sequence FASTA."""
+    with open(path, "rb") as f:
+        seqs = f.read().split(b"\n")[1::2]
+    return np.frombuffer(b"".join(seqs), np.uint8).reshape(-1, L)
+
+
+def greedy_oracle(records: np.ndarray, cents: np.ndarray, cent_line: np.ndarray,
+                  max_div: int, j: int) -> bytes:
+    """The reference's centroid for output line j (cluster.rs:51-74):
+    the lowest-index centroid created before it at the min distance, or
+    the record itself when that minimum exceeds max_div."""
+    before = cents[cent_line < j]
+    if before.shape[0]:
+        dist = (before != records[j]).sum(axis=1)
+        k = int(dist.argmin())
+        if dist[k] <= max_div:
+            return before[k].tobytes()
+    return records[j].tobytes()
+
+
+def cluster_end_to_end(sizes, cli, cluster_mod, mc_mod, rng) -> dict:
+    """Phase 4: cluster 1M records through the CLI, then count."""
+    import contextlib
+    import hashlib
+    import io
+
+    bench = load_cluster_bench()
+    L, max_div = L_SMOKE, sizes.cluster_div
+    with tempfile.TemporaryDirectory(prefix="smafa_smoke_") as tmp:
+        inp, out = os.path.join(tmp, "in.fna"), os.path.join(tmp, "clusters.tsv")
+        t0 = time.perf_counter()
+        bench.make_input(inp, sizes.cluster_records, 4000, L, 4, 0)
+        gen_s = time.perf_counter() - t0
+        captured = []
+        run_cluster = cluster_mod.cluster
+
+        def spy(*a, **kw):  # keep the stage timers of the CLI's cluster run
+            captured.append(run_cluster(*a, **kw))
+            return captured[-1]
+
+        cluster_mod.cluster = spy
+        mc_mod.launches = 0
+        t1 = time.perf_counter()
+        rc = cli.main(["cluster", "-i", inp, "-d", str(max_div), "-o", out,
+                       "--quiet"])
+        wall = time.perf_counter() - t1
+        launches = mc_mod.launches
+        cluster_mod.cluster = run_cluster
+        if rc != 0:
+            raise AssertionError(f"cluster CLI failed: rc={rc}")
+        if launches <= 0:
+            raise AssertionError("the min_count kernel never launched on the cluster path")
+        with open(out, "rb") as f:
+            text = f.read()
+        buf = io.StringIO()
+        t2 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc_count = cli.main(["count", "-i", inp, "--quiet"])
+        count_s = time.perf_counter() - t2
+        want_count = json.dumps([{"path": inp, "num_reads": sizes.cluster_records,
+                                  "num_bases": sizes.cluster_records * L}],
+                                separators=(",", ":")) + "\n"
+        if rc_count != 0 or buf.getvalue() != want_count:
+            raise AssertionError(f"count: rc={rc_count}, printed {buf.getvalue()!r}")
+        inputs = fasta_codes(inp, L)
+    sha = hashlib.sha256(text).hexdigest()
+    rows = np.frombuffer(text, np.uint8).reshape(-1, 2 * L + 2)
+    records, cent_of = rows[:, :L], rows[:, L + 1:2 * L + 1]
+    n_distinct = np.unique(inputs.view(np.dtype((np.void, L)))).shape[0]
+    is_cent = (records == cent_of).all(axis=1)
+    cent_line = np.nonzero(is_cent)[0]
+    cents = records[cent_line]
+    far = int(((records != cent_of).sum(axis=1) > max_div).sum())
+    n_cent = int(np.unique(cent_of.view(np.dtype((np.void, L)))).shape[0])
+    sample = np.sort(rng.choice(rows.shape[0], size=sizes.sample, replace=False))
+    bad = [int(j) for j in sample
+           if greedy_oracle(records, cents, cent_line, max_div, int(j))
+           != cent_of[j].tobytes()]
+    timers = captured[0]
+    res = {"records": sizes.cluster_records, "divergence": max_div,
+           "gen_s": gen_s, "wall_s": wall,
+           "records_per_s": sizes.cluster_records / wall,
+           "stage_s": timers.seconds,
+           "comparisons": timers.counters.get("comparisons", 0),
+           "lines": int(rows.shape[0]), "distinct_records": int(n_distinct),
+           "centroids": n_cent, "centroids_as_own_line": int(cent_line.size),
+           "far_lines": far, "sampled_oracle": int(sample.size),
+           "oracle_mismatches": bad[:5], "sha256": sha,
+           "sha256_equals_smafa_tpu": sha == CLUSTER_SHA256,
+           "count_s": count_s, "launches": {"min_count": launches}}
+    log("cluster_end_to_end", **res)
+    if (rows.shape[0] != n_distinct or far or n_cent != CLUSTER_CENTROIDS
+            or cent_line.size != n_cent or bad or sha != CLUSTER_SHA256):
+        raise AssertionError(
+            f"cluster output wrong: {rows.shape[0]} lines for {n_distinct} "
+            f"distinct records, {far} lines beyond {max_div}, {n_cent} "
+            f"centroids (want {CLUSTER_CENTROIDS}), oracle mismatches at "
+            f"{bad[:5]}, sha256 {sha}")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -276,9 +463,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from smafa_tpu_torch import cli
-    from smafa_tpu_torch.engine import query as query_mod
+    from smafa_tpu_torch.engine import cluster as cluster_mod, query as query_mod
     from smafa_tpu_torch.ops import _build, compact as compact_mod
     from smafa_tpu_torch.ops import distance as D, keys as K, min2 as min2_mod
+    from smafa_tpu_torch.ops import min_count as mc_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions exact
     card = nvidia_smi()
@@ -294,7 +482,10 @@ def main() -> int:
     sizes = smoke_sizes(query_mod)
     rng = np.random.default_rng(seed)
     timing = kernel_parity(sizes, torch.device("cuda"), D, K, min2_mod, compact_mod, rng)
+    timing["min_count"] = min_count_parity(sizes, torch.device("cuda"), D, K,
+                                           mc_mod, rng)
     e2e = end_to_end(sizes, cli, query_mod, min2_mod, compact_mod, rng)
+    clu = cluster_end_to_end(sizes, cli, cluster_mod, mc_mod, rng)
 
     kernels = [
         {"name": "min2", "route": "cuda", "source": MIN2_SOURCE,
@@ -307,6 +498,12 @@ def main() -> int:
          "max_abs_err": timing["compact_mask"]["max_abs_err"],
          "ms": timing["compact_mask"]["ms"],
          "plain_ms": timing["compact_mask"]["plain_ms"]},
+        {"name": "min_count", "route": "cuda", "source": MIN_COUNT_SOURCE,
+         "replaces": MIN_COUNT_REPLACES,
+         "launches": clu["launches"]["min_count"],
+         "max_abs_err": timing["min_count"]["max_abs_err"],
+         "ms": timing["min_count"]["ms"],
+         "plain_ms": timing["min_count"]["plain_ms"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -10,9 +10,9 @@ of ``smafa_tpu.cli`` (itself the reference's, main.rs:64-116):
 - no subcommand -> print help, exit 0
 
 Errors print their message to stderr and exit 101; usage errors exit 2.
-``makedb`` and best-hit ``query`` on one device run here. The other
-paths (K-mode, ``--resume-state``, multi-host, ``cluster``, ``count``)
-exit 101 with a message that points to ROADMAP.md.
+``makedb``, best-hit ``query``, ``cluster`` and ``count`` on one device
+run here. The other paths (K-mode, ``--resume-state``, multi-host) exit
+101 with a message that points to ROADMAP.md.
 
 The device is resolved once, here: ``cuda`` when
 ``torch.cuda.is_available()``, else ``cpu``; ``SMAFA_TPU_TORCH_DEVICE``
@@ -194,8 +194,6 @@ def resolve_device():
 
 
 def _not_ported_option(args) -> str | None:
-    if args.subcommand in ("cluster", "count"):
-        return f"The {args.subcommand} subcommand"
     if getattr(args, "coordinator", None) or getattr(args, "num_processes", None):
         return "Multi-host (--coordinator/--num-processes)"
     if getattr(args, "resume_state", None):
@@ -223,7 +221,7 @@ def main(argv: list[str] | None = None) -> int:
             from smafa_tpu_torch.engine.makedb import makedb
 
             makedb(args.input, args.database, fmt=args.format)
-        else:
+        elif args.subcommand == "query":
             from smafa_tpu_torch.engine.query import query
 
             device = resolve_device()
@@ -237,6 +235,23 @@ def main(argv: list[str] | None = None) -> int:
                 batch_size=args.batch_size,
                 out=out_stream,
             )
+        elif args.subcommand == "cluster":
+            if args.max_divergence is None:
+                # Reference: .unwrap() on the absent flag (main.rs:43).
+                print("called `Option::unwrap()` on a `None` value",
+                      file=sys.stderr)
+                return 101
+            from smafa_tpu_torch.engine.cluster import cluster
+
+            device = resolve_device()
+            if args.output:
+                out_stream = open(args.output, "w")
+            cluster(args.input, args.max_divergence, device, out=out_stream,
+                    batch_size=args.batch_size)
+        else:
+            from smafa_tpu_torch.engine.count import count
+
+            count(args.input)
     except BrokenPipeError:
         return 0
     except Exception as exc:  # parity: reference panics print message + die

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
 Every ``smafa_tpu_torch/csrc/*.cu`` compiles with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, under
+``sm_90a`` (one ``nvcc`` per source, all started together), and the
+objects link into one shared library with a plain C interface, under
 ``smafa_tpu_torch/_build/`` (git-ignored). The build runs at first use
-and again whenever a source changes (the library's file name carries a
-hash of the sources). The library loads with ``ctypes``; every pointer
-and the stream are passed as ``c_void_p``. A failed build raises.
+and again whenever a source or header changes (the library's file name
+carries a hash of them). The library loads with ``ctypes``; every
+pointer and the stream are passed as ``c_void_p``. A failed build
+raises.
 """
 
 from __future__ import annotations
@@ -24,8 +26,9 @@ logger = logging.getLogger("smafa")
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+LINK_FLAGS = [*ARCH_FLAGS, "-shared"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,6 +37,8 @@ _SIGNATURES = {
     "smafa_min2": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # q, db, zc, thresh, mask, B, W, EP, seq_len, stream
     "smafa_compact_mask": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # q, db, zc, key, cnt, B, n_valid, EP, seq_len, shift, with_count, stream
+    "smafa_min_count": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -51,6 +56,10 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def _hashed_files() -> list[Path]:
+    return sorted([*_sources(), *CSRC.glob("*.cuh")])
+
+
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     cand = Path(cuda_home or "/usr/local/cuda") / "bin" / "nvcc"
@@ -65,11 +74,32 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _hashed_files():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"libsmafa_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with the output of each that
+    failed. No process outlives the call."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    try:
+        for cmd, proc in zip(cmds, procs):
+            text, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n(exit {proc.returncode})\n{text}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise KernelBuildError("nvcc failed:\n" + "\n".join(failed))
 
 
 def build() -> Path:
@@ -78,15 +108,20 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    logger.info("Building CUDA kernels: %s", " ".join(cmd))
+    nvcc, sources = _nvcc(), _sources()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    logger.info("Building CUDA kernels: %s", " ".join(s.name for s in sources))
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build never sees a torn file
+    try:
+        _run_all([[nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(sources, objs)])
+        _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, out)  # atomic: a concurrent build never sees a torn file
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     logger.info("CUDA kernels built in %.1fs", time.perf_counter() - t0)
     return out
 

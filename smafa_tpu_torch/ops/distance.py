@@ -1,4 +1,4 @@
-"""Scan operands and the plain PyTorch versions of the two kernels.
+"""Scan operands and the plain PyTorch versions of the kernels.
 
 Counterpart of ``smafa_tpu.ops.distance`` and of the operand constructors in
 ``smafa_tpu.ops.pallas_scan``. For one-hot encodings the reference's
@@ -84,9 +84,10 @@ def embed_db(codes: torch.Tensor, seq_len: int,
     return emb, zc
 
 
-def _distances(q_f: torch.Tensor, d_emb: torch.Tensor, zc: torch.Tensor,
-               seq_len: int) -> torch.Tensor:
-    """int32 [B, w] distances of float32 query rows vs db rows."""
+def distances(q_f: torch.Tensor, d_emb: torch.Tensor, zc: torch.Tensor,
+              seq_len: int) -> torch.Tensor:
+    """int32 [B, w] distances of float32 query rows vs db rows (exact
+    Hamming distances for real rows: N against N is a match)."""
     if q_f.is_cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
     dots = (q_f @ d_emb.to(torch.float32).T).to(torch.int32)
@@ -110,7 +111,7 @@ def min2_reference(q_emb: torch.Tensor, db_emb: torch.Tensor,
     q_f = q_emb.to(torch.float32)
     for off in range(0, wp, CHUNK):
         d_emb = db_emb[off:off + CHUNK]
-        dist = _distances(q_f, d_emb, zc[off:off + CHUNK], seq_len)
+        dist = distances(q_f, d_emb, zc[off:off + CHUNK], seq_len)
         idx = torch.arange(off, off + d_emb.shape[0], dtype=torch.int32,
                            device=dev)
         sh = dist << shift
@@ -123,6 +124,44 @@ def min2_reference(q_emb: torch.Tensor, db_emb: torch.Tensor,
                               torch.where(cd == dmin, cnt + cc, cnt))
             dmin = torch.minimum(dmin, cd)
     return (lo, hi, cnt) if with_count else (lo, hi)
+
+
+def min_count_reference(q_emb: torch.Tensor, db_emb: torch.Tensor,
+                        zc: torch.Tensor, n_valid: int, seq_len: int,
+                        shift: int,
+                        with_count: bool = True) -> tuple[torch.Tensor, ...]:
+    """Plain version of the min_count kernel (the semantics of
+    ``min_count_scan`` and of ``min1_scan`` with index offset 0): per
+    query row, key = min over db rows w < n_valid of (dist << shift) | w,
+    BIG_KEY when n_valid == 0; with_count also the number of those rows
+    at the row's min distance (0 when n_valid == 0). Rows at or past
+    n_valid are never read. Returns (key[, cnt]) int32 [B]."""
+    b = q_emb.shape[0]
+    dev = q_emb.device
+    key = torch.full((b,), BIG_KEY, dtype=torch.int32, device=dev)
+    cnt = torch.zeros((b,), dtype=torch.int32, device=dev)
+    q_f = q_emb.to(torch.float32)
+    for off in range(0, n_valid, CHUNK):
+        end = min(off + CHUNK, n_valid)
+        dist = distances(q_f, db_emb[off:end], zc[off:end], seq_len)
+        idx = torch.arange(off, end, dtype=torch.int32, device=dev)
+        new_key = torch.minimum(key, ((dist << shift) | idx).amin(dim=1))
+        if with_count:
+            cd = new_key >> shift  # this chunk's or an earlier min distance
+            cc = (dist == cd.unsqueeze(1)).sum(dim=1, dtype=torch.int32)
+            cnt = torch.where(cd < key >> shift, cc, cnt + cc)
+        key = new_key
+    return (key, cnt) if with_count else (key,)
+
+
+def unpack_min_key(key: torch.Tensor,
+                   shift: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Packed min keys -> (dist, idx) int32, with ``min_count_scan``'s
+    sentinels for empty rows: dist 2**30, idx 2**31 - 1."""
+    empty = key == BIG_KEY
+    dist = torch.where(empty, 2**30, key >> shift)
+    idx = torch.where(empty, BIG_KEY, key & ((1 << shift) - 1))
+    return dist.to(torch.int32), idx.to(torch.int32)
 
 
 _BIT_WEIGHTS = [1 << j for j in range(32)]
@@ -140,7 +179,7 @@ def compact_mask_reference(q_emb: torch.Tensor, db_emb: torch.Tensor,
     mask = torch.empty((b, wp // 32), dtype=torch.int32, device=dev)
     q_f = q_emb.to(torch.float32)
     for off in range(0, wp, CHUNK):
-        dist = _distances(q_f, db_emb[off:off + CHUNK],
+        dist = distances(q_f, db_emb[off:off + CHUNK],
                           zc[off:off + CHUNK], seq_len)
         hit = (dist <= thresh.unsqueeze(1)).to(torch.int64)
         words = (hit.view(b, -1, 32) * weights).sum(dim=2)

@@ -25,13 +25,14 @@ def cuda():
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from smafa_tpu_torch.ops import compact, distance, keys, min2
+    from smafa_tpu_torch.engine import cluster
+    from smafa_tpu_torch.ops import compact, distance, keys, min2, min_count
     from smafa_tpu_torch.parallel.runner import ScanRunner
 
     torch.backends.cuda.matmul.allow_tf32 = False
     return types.SimpleNamespace(
         dev=torch.device("cuda"), torch=torch, C=compact, D=distance,
-        K=keys, M=min2, ScanRunner=ScanRunner)
+        K=keys, M=min2, MC=min_count, ScanRunner=ScanRunner, CL=cluster)
 
 
 def _operands(g, seq_len, nw, b, seed):
@@ -79,6 +80,76 @@ def test_compact_kernel_equals_plain(cuda, seq_len, nw, b):
     assert cuda.torch.equal(got, want)
 
 
+@pytest.mark.parametrize("seq_len", [3, 60, 150, 300])
+def test_min_count_kernel_equals_plain(cuda, seq_len):
+    """A 5056-row buffer whose every row is live: the scan sees only the
+    first n_valid (3001 is not a multiple of the 64-row tile; 0 gives the
+    empty-row sentinels). B = 300 is not a multiple of the 128-row block;
+    L = 300 streams K."""
+    torch = cuda.torch
+    rng = np.random.default_rng(seq_len)
+    wp, b = 5056, 300
+    buf = rng.integers(0, 5, (wp, seq_len), dtype=np.uint8)
+    buf[rng.integers(0, 3001, 40)] = buf[5]  # ties
+    q = buf[rng.integers(0, wp, b)].copy()  # copies of rows past n_valid too
+    mut = rng.random(q.shape) < 0.05
+    q[mut] = rng.integers(0, 5, int(mut.sum())).astype(np.uint8)
+    q[:4] = buf[5]
+    emb, zc = cuda.D.embed_db(torch.from_numpy(buf).to(cuda.dev), seq_len, wp)
+    q_emb = cuda.D.expand_embed_query(torch.from_numpy(q).to(cuda.dev), seq_len)
+    shift = cuda.K.packing_shift(seq_len, wp)
+    for n_valid in (3001, wp, 0):
+        for with_count in (True, False):
+            before = cuda.MC.launches
+            got = cuda.MC.min_count(q_emb, emb, zc, n_valid, seq_len, shift,
+                                    with_count)
+            want = cuda.D.min_count_reference(q_emb, emb, zc, n_valid, seq_len,
+                                              shift, with_count)
+            torch.cuda.synchronize()
+            assert cuda.MC.launches == before + 1
+            assert len(got) == len(want) == (2 if with_count else 1)
+            for a, w in zip(got, want):
+                assert torch.equal(a, w), (n_valid, with_count)
+            if n_valid == 0:
+                assert (got[0] == 2**31 - 1).all()
+
+
+def _cluster_text(g, path, device, max_div, batch_size):
+    import io
+
+    buf = io.StringIO()
+    g.CL.cluster(path, max_div, device, out=buf, batch_size=batch_size)
+    return buf.getvalue()
+
+
+def test_cluster_on_card_equals_cpu(cuda, tmp_path):
+    """The cluster op on the card prints what it prints on the CPU, on
+    mutated copies of 300 ancestors and on 20,000 random records that
+    nearly all promote, so the centroid buffer doubles past 16384."""
+    rng = np.random.default_rng(1)
+    anc = rng.integers(0, 4, (300, 60), dtype=np.uint8)
+    mutated = anc[rng.integers(0, 300, 20000)]
+    k = rng.integers(0, 5, 20000)
+    for s in range(4):
+        sel = np.nonzero(k > s)[0]
+        mutated[sel, rng.integers(0, 60, sel.size)] = rng.integers(
+            0, 5, sel.size).astype(np.uint8)
+    cases = [(mutated, 5, (None, 777)),
+             (rng.integers(0, 4, (20000, 20), dtype=np.uint8), 1, (2048,))]
+    for i, (codes, max_div, batch_sizes) in enumerate(cases):
+        path = tmp_path / f"in{i}.fna"
+        with open(path, "w") as f:
+            for j, row in enumerate(np.frombuffer(b"ACGTN", np.uint8)[codes]):
+                f.write(f">s{j}\n{row.tobytes().decode()}\n")
+        for bs in batch_sizes:
+            before = cuda.MC.launches
+            got = _cluster_text(cuda, path, cuda.dev, max_div, bs)
+            assert cuda.MC.launches > before
+            want = _cluster_text(cuda, path, cuda.torch.device("cpu"), max_div,
+                                 bs)
+            assert got == want and got, (i, bs)
+
+
 def test_runner_on_card_equals_cpu(cuda):
     rng = np.random.default_rng(0)
     base = rng.integers(0, 4, (3000, 60)).astype(np.uint8)
@@ -103,3 +174,5 @@ def test_cuda_operands_checked(cuda):
     with pytest.raises(ValueError):
         cuda.C.compact_mask(q_emb, emb, zc, torch.zeros(
             3, dtype=torch.int32, device=cuda.dev), 13)
+    with pytest.raises(ValueError):
+        cuda.MC.min_count(q_emb, emb, zc, emb.shape[0] + 1, 13, shift)

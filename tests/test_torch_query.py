@@ -2,7 +2,7 @@
 byte for byte what smafa_tpu's print, on the golden data and on a seeded
 fuzz db with heavy ties; errors keep their texts and exit codes; paths
 not ported yet exit 101 pointing to ROADMAP.md; importing the port
-loads neither jax nor triton."""
+(cluster included) loads neither jax nor triton."""
 
 from __future__ import annotations
 
@@ -200,8 +200,11 @@ def test_not_ported_query_paths(capsys, argv, what):
     assert what in err and "ROADMAP.md" in err
 
 
-@pytest.mark.parametrize("argv", [["cluster", "-i", f"{D}/cluster_bug1.fna", "-d", "2"],
-                                  ["count", "-i", f"{D}/random_3_2.fna"]])
+@pytest.mark.parametrize("argv", [
+    ["cluster", "-i", f"{D}/cluster_bug1.fna", "-d", "2", "--resume-state",
+     "st.json"],
+    ["cluster", "-i", f"{D}/cluster_bug1.fna", "-d", "2", "--coordinator",
+     "localhost:1", "--num-processes", "2", "--process-id", "0"]])
 def test_not_ported_subcommands(capsys, argv):
     code, out, err = run(capsys, main1, *argv)
     assert code == 101 and out == "" and "ROADMAP.md" in err
@@ -292,7 +295,9 @@ def test_import_loads_no_jax_or_triton():
     code = ("import sys, smafa_tpu_torch, smafa_tpu_torch.cli, "
             "smafa_tpu_torch.engine.query, smafa_tpu_torch.engine.makedb, "
             "smafa_tpu_torch.parallel.runner, smafa_tpu_torch.ops.min2, "
-            "smafa_tpu_torch.ops.compact; "
+            "smafa_tpu_torch.ops.compact, smafa_tpu_torch.ops.min_count, "
+            "smafa_tpu_torch.engine.cluster, smafa_tpu_torch.engine.count; "
+            "smafa_tpu_torch.cluster, smafa_tpu_torch.count; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'triton', 'smafa_tpu')); print(bad)")
     root = pathlib.Path(__file__).resolve().parent.parent
