@@ -13,7 +13,20 @@ Phases, one line each:
    --max-divergence 5; checks the exit codes, that both kernels launched
    during the run, and 512 sampled queries' lines against a numpy
    brute force.
-4. cluster through the CLI at BASELINE.json config 4: 1M 60 bp records
+4. K-mode: the kstats kernel against its plain version on the card,
+   exact, at B = 16384 and 4096 against 2^20 + 37 db rows; compact_mask
+   against its plain version, exact, at the K-mode compaction's shape
+   (8192 reads x phase 3's 2^20-window db, per-row thresholds the K = 99
+   cutoffs); then K-mode query through the CLI on phase 3's db: (a)
+   16,384 reads at --max-num-hits 99 (one batch), (b) 4,096 reads at
+   --max-num-hits 99 --max-divergence 5 --limit-per-sequence 1, (c)
+   65,536 reads at --max-num-hits 99 --max-divergence 5 in 4 batches
+   (the next batch's cutoff passes overlap the current one's compaction
+   and emit); checks the exit codes, kstats_steps(60) = 3 kstats
+   launches per batch, that compact_mask launched, and 256 sampled
+   reads' lines of each run against a numpy brute force of the reference
+   rule (lib.rs:241-295).
+5. cluster through the CLI at BASELINE.json config 4: 1M 60 bp records
    from tools/cluster_bench.py's generator (4000 ancestors, 0-4
    mutations, seed 0) at -d 5; checks the exit code, that the min_count
    kernel launched, one line per distinct record, every centroid within
@@ -47,6 +60,9 @@ MIN2_REPLACES = "smafa_tpu/ops/pallas_scan.py:311"     # _min2_kernel
 COMPACT_REPLACES = "smafa_tpu/ops/pallas_scan.py:463"  # _compact_kernel
 MIN_COUNT_SOURCE = "smafa_tpu_torch/csrc/min_count.cu"
 MIN_COUNT_REPLACES = "smafa_tpu/ops/pallas_scan.py:152"  # _min_kernel
+KSTATS_SOURCE = "smafa_tpu_torch/csrc/kstats.cu"
+# not a Pallas kernel: the XLA pass _statsN_pass of the K-mode cutoff search
+KSTATS_REPLACES = "smafa_tpu/ops/distance.py:1302"
 
 # What smafa_tpu prints for the cluster phase's input (tools/cluster_bench.py
 # defaults, -d 5), from its CPU run: distinct centroids and the sha256
@@ -70,6 +86,14 @@ def smoke_sizes(query_mod) -> types.SimpleNamespace:
         # (B, W, which, reps): the short early launch takes more reps
         min_count_times=((32768, 32768, "main", 10), (2048, 4096, "early", 100)),
         cluster_records=1_000_000, cluster_div=5,
+        # kstats parity (the K-mode batches of runs a/c and b x db) and
+        # the K-mode runs: (name, reads, max_divergence,
+        # limit_per_sequence, batch size)
+        kstats_queries=((16384, "main"), (4096, "run_b")),
+        kstats_rows=(1 << 20) + 37, kmode_k=99,
+        kmode_runs=(("a", 16384, None, None, 16384), ("b", 4096, 5, 1, None),
+                    ("c", 65536, 5, None, 16384)),
+        kmode_sample=256,
         # the query batch the CLI picks for this db
         main_batch=query_mod._auto_batch(
             types.SimpleNamespace(n_windows=db_rows)))
@@ -247,6 +271,83 @@ def min_count_parity(sizes, dev, D, K, mc_mod, rng) -> dict:
     return timings["main"]
 
 
+def kstats_parity(sizes, dev, D, K, ks_mod, rng) -> dict:
+    """Phase 4, kstats: kernel vs plain version on the card, exact, at the
+    K-mode batches of the CLI runs (B = 16384 and 4096) against 2^20 + 37
+    real db rows in a buffer padded to the 64-row tile, per-row
+    thresholds in [-1, 60]; both timed at each shape. The summary keeps
+    B = 16384."""
+    n = sizes.kstats_rows
+    codes = random_db(rng, n, L_SMOKE)
+    wp = -(-n // D.WP_MULTIPLE) * D.WP_MULTIPLE
+    db_emb, zc = D.embed_db(torch.from_numpy(codes).to(dev), L_SMOKE, wp)
+    timings = {}
+    for b, which in sizes.kstats_queries:
+        q = mutate(rng, codes[rng.integers(0, n, b)], 6)
+        q_emb = D.expand_embed_query(torch.from_numpy(q).to(dev), L_SMOKE)
+        ts = torch.from_numpy(rng.integers(
+            -1, L_SMOKE + 1, (K.KSTATS_PROBES, b)).astype(np.int32)).to(dev)
+        got = ks_mod.kstats(q_emb, db_emb, zc, ts, n, L_SMOKE)
+        want = D.stats_reference(q_emb, db_emb, zc, ts, n, L_SMOKE)
+        torch.cuda.synchronize()
+        err = max(int((g.long() - w.long()).abs().max())
+                  for g, w in zip(got, want))
+        if err != 0:
+            raise AssertionError(f"kstats kernel differs from its plain version "
+                                 f"at B={b} W={n} (max |err| {err})")
+        log("kernel_parity", kernel="kstats", L=L_SMOKE, B=b, W=n, n_valid=n,
+            exact=True)
+        ms = time_ms(lambda: ks_mod.kstats(q_emb, db_emb, zc, ts, n, L_SMOKE),
+                     sizes.reps)
+        plain_ms = time_ms(lambda: D.stats_reference(q_emb, db_emb, zc, ts, n,
+                                                     L_SMOKE), 2)
+        log("kernel_time", kernel="kstats", L=L_SMOKE, B=b, W=n, ms=ms,
+            plain_ms=plain_ms, comparisons_per_s=b * n / (ms / 1e3))
+        timings[which] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return timings["main"]
+
+
+def kmode_compact_parity(sizes, dev, D, K, ks_mod, compact_mod, hitops,
+                         codes, rng) -> None:
+    """Phase 4, compact_mask at the K-mode compaction's shape: one
+    dispatch of mask_row_cap(2^20) = 8192 reads against phase 3's db, at
+    each read's K = 99 cutoff (from the cutoff search over the kstats
+    kernel, already held to its plain version), exact against the plain
+    version and timed; the mask's per-row hit counts must equal the
+    search's."""
+    n = codes.shape[0]
+    b = hitops.mask_row_cap(n)
+    wp = -(-n // D.WP_MULTIPLE) * D.WP_MULTIPLE
+    db_emb, zc = D.embed_db(torch.from_numpy(codes).to(dev), L_SMOKE, wp)
+    q = mutate(rng, codes[rng.integers(0, n, b)], 6)
+    q_emb = D.expand_embed_query(torch.from_numpy(q).to(dev), L_SMOKE)
+    thresh, hits = D.kmode_phase1(
+        lambda ts: ks_mod.kstats(q_emb, db_emb, zc, ts, n, L_SMOKE),
+        sizes.kmode_k, L_SMOKE + 1, n, L_SMOKE, b, dev)
+    got = compact_mod.compact_mask(q_emb, db_emb, zc, thresh, L_SMOKE)
+    want = D.compact_mask_reference(q_emb, db_emb, zc, thresh, L_SMOKE)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"compact_mask kernel differs from its plain "
+                             f"version in {bad} words at the K-mode shape")
+    if not torch.equal(D.extract_mask_hits(got)[2].to(torch.int32), hits):
+        raise AssertionError("K-mode compaction counts differ from the "
+                             "cutoff search's")
+    th = thresh.cpu().numpy()
+    log("kernel_parity", kernel="compact_mask", L=L_SMOKE, B=b, W=n,
+        k=sizes.kmode_k, thresh_min=int(th.min()),
+        thresh_median=float(np.median(th)), thresh_max=int(th.max()),
+        hits=int(hits.sum()), exact=True)
+    ms = time_ms(lambda: compact_mod.compact_mask(
+        q_emb, db_emb, zc, thresh, L_SMOKE), sizes.reps)
+    plain_ms = time_ms(lambda: D.compact_mask_reference(
+        q_emb, db_emb, zc, thresh, L_SMOKE), 2)
+    log("kernel_time", kernel="compact_mask", L=L_SMOKE, B=b, W=n,
+        k=sizes.kmode_k, ms=ms, plain_ms=plain_ms,
+        comparisons_per_s=b * n / (ms / 1e3))
+
+
 def write_fasta(path: str, codes: np.ndarray, prefix: str) -> None:
     seqs = np.frombuffer(b"ACGTN", np.uint8)[codes]
     with open(path, "w") as f:
@@ -269,44 +370,58 @@ def brute_force_lines(codes: np.ndarray, q: np.ndarray, qnum: int,
             for i in np.nonzero(dist == mind)[0]]
 
 
-def end_to_end(sizes, cli, query_mod, min2_mod, compact_mod, rng) -> dict:
-    """Phase 3: makedb + best-hit query through the CLI."""
+def cli_query(cli, query_mod, argv: list[str]):
+    """Run ``query`` through the CLI: (exit code, wall seconds, the stage
+    timers of the engine's run)."""
+    captured = []
+    run_query = query_mod.query
+
+    def spy(*a, **kw):
+        captured.append(run_query(*a, **kw))
+        return captured[-1]
+
+    query_mod.query = spy
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        query_mod.query = run_query
+    return rc, wall, captured[0] if captured else None
+
+
+def end_to_end(sizes, cli, query_mod, min2_mod, compact_mod, rng,
+               tmp: str) -> tuple[dict, np.ndarray, str]:
+    """Phase 3: makedb + best-hit query through the CLI. The db stays in
+    ``tmp`` for the K-mode phase; returns (result, db codes, db path)."""
     n, nq, max_div = sizes.db_rows, sizes.queries, 5
     codes = random_db(rng, n, L_SMOKE)
     src = rng.integers(0, n, nq)
     q = mutate(rng, codes[src], 6)
-    with tempfile.TemporaryDirectory(prefix="smafa_smoke_") as tmp:
-        db_fa, q_fa = os.path.join(tmp, "db.fna"), os.path.join(tmp, "q.fna")
-        db, out = os.path.join(tmp, "db.native"), os.path.join(tmp, "hits.tsv")
-        write_fasta(db_fa, codes, "s")
-        write_fasta(q_fa, q, "r")
-        captured = []
-        run_query = query_mod.query
-
-        def spy(*a, **kw):  # keep the stage timers of the CLI's query run
-            captured.append(run_query(*a, **kw))
-            return captured[-1]
-
-        query_mod.query = spy
-        min2_mod.launches = 0
-        compact_mod.launches = 0
-        t0 = time.perf_counter()
-        rc_db = cli.main(["makedb", "-i", db_fa, "-d", db, "--format", "native",
-                          "--quiet"])
-        t1 = time.perf_counter()
-        rc_q = cli.main(["query", "-d", db, "-q", q_fa, "--max-divergence",
-                         str(max_div), "-o", out, "--quiet"])
-        t2 = time.perf_counter()
-        launches = {"min2": min2_mod.launches,
-                    "compact_mask": compact_mod.launches}
-        query_mod.query = run_query
-        if rc_db != 0 or rc_q != 0:
-            raise AssertionError(f"CLI failed: makedb rc={rc_db}, query rc={rc_q}")
-        for name, k in launches.items():
-            if k <= 0:
-                raise AssertionError(f"the {name} kernel never launched on the main path")
-        with open(out) as f:
-            lines = f.read().splitlines()
+    db_fa, q_fa = os.path.join(tmp, "db.fna"), os.path.join(tmp, "q.fna")
+    db, out = os.path.join(tmp, "db.native"), os.path.join(tmp, "hits.tsv")
+    write_fasta(db_fa, codes, "s")
+    write_fasta(q_fa, q, "r")
+    min2_mod.launches = 0
+    compact_mod.launches = 0
+    t0 = time.perf_counter()
+    rc_db = cli.main(["makedb", "-i", db_fa, "-d", db, "--format", "native",
+                      "--quiet"])
+    t1 = time.perf_counter()
+    rc_q, wall, timers = cli_query(cli, query_mod, [
+        "query", "-d", db, "-q", q_fa, "--max-divergence", str(max_div),
+        "-o", out, "--quiet"])
+    launches = {"min2": min2_mod.launches,
+                "compact_mask": compact_mod.launches}
+    if rc_db != 0 or rc_q != 0:
+        raise AssertionError(f"CLI failed: makedb rc={rc_db}, query rc={rc_q}")
+    for name, k in launches.items():
+        if k <= 0:
+            raise AssertionError(f"the {name} kernel never launched on the main path")
+    with open(out) as f:
+        lines = f.read().splitlines()
+    for path in (db_fa, q_fa, out):
+        os.remove(path)
     by_q: dict[int, list[str]] = {}
     for line in lines:
         by_q.setdefault(int(line.split("\t", 1)[0]), []).append(line)
@@ -323,19 +438,107 @@ def end_to_end(sizes, cli, query_mod, min2_mod, compact_mod, rng) -> dict:
         if by_q.get(i, []) != want:
             raise AssertionError(f"query {i}: lines differ from brute force:\n"
                                  f"got {by_q.get(i, [])[:3]}\nwant {want[:3]}")
-    timers = captured[0]
     # Host seconds spent launching and waiting for the device; device work
     # that overlaps the next batch's parse is not in it, so the wall-time
     # rate is the end-to-end figure.
     scan_s = timers.seconds.get("dispatch", 0.0) + timers.seconds.get("scan", 0.0)
-    res = {"makedb_s": t1 - t0, "query_wall_s": t2 - t1,
-           "queries_per_s": nq / (t2 - t1), "scan_s": scan_s,
+    res = {"makedb_s": t1 - t0, "query_wall_s": wall,
+           "queries_per_s": nq / wall, "scan_s": scan_s,
            "comparisons_per_s_scan": nq * n / scan_s,
-           "comparisons_per_s_wall": nq * n / (t2 - t1),
+           "comparisons_per_s_wall": nq * n / wall,
            "stage_s": timers.seconds, "hit_lines": len(lines),
            "sampled_exact": int(sample.size), "launches": launches}
     log("end_to_end", db_rows=n, queries=nq, **res)
-    return res
+    return res, codes, db
+
+
+def brute_force_kmode(codes_t: np.ndarray, codes: np.ndarray, q: np.ndarray,
+                      qnum: int, k: int, max_div: int | None,
+                      limit: int | None) -> list[str]:
+    """The reference K-mode lines of one query (lib.rs:241-295): every
+    window at distance <= min(K-th smallest distance, max_div), the row
+    max when K exceeds the windows, in (distance, index) order, cutoff
+    ties included; a run of consecutive hits with one sequence prints at
+    most ``limit`` lines. ``codes_t`` is the db transposed ([L, W])."""
+    match = np.zeros(codes_t.shape[1], np.uint8)
+    for c in range(codes_t.shape[0]):
+        match += codes_t[c] == q[c]
+    dist = codes_t.shape[0] - match.astype(np.int32)
+    cutoff = dist.max() if k > dist.size else np.partition(dist, k - 1)[k - 1]
+    eff = cutoff if max_div is None else min(cutoff, max_div)
+    sel = np.nonzero(dist <= eff)[0]
+    lines, last = [], None
+    for i in sel[np.lexsort((sel, dist[sel]))]:
+        s = np.frombuffer(b"ACGTN", np.uint8)[codes[i]].tobytes().decode()
+        if limit is not None:
+            if last is not None and last[0] == s:
+                if last[1] >= limit:
+                    continue
+                last = (s, last[1] + 1)
+            else:
+                last = (s, 1)
+        lines.append(f"{qnum}\t{i}\t{dist[i]}\t{s}")
+    return lines
+
+
+def kmode_end_to_end(sizes, cli, query_mod, K, ks_mod, compact_mod, codes,
+                     db, tmp, rng) -> dict:
+    """Phase 4, K-mode query through the CLI on phase 3's db: each run's
+    kernel counts set to 0 just before it and read just after; sampled
+    reads checked against a brute force; the output file deleted."""
+    n = codes.shape[0]
+    codes_t = np.ascontiguousarray(codes.T)
+    results = {}
+    for name, nq, max_div, limit, batch in sizes.kmode_runs:
+        q = mutate(rng, codes[rng.integers(0, n, nq)], 6)
+        q_fa, out = os.path.join(tmp, "kq.fna"), os.path.join(tmp, "khits.tsv")
+        write_fasta(q_fa, q, "r")
+        argv = ["query", "-d", db, "-q", q_fa, "--max-num-hits",
+                str(sizes.kmode_k), "-o", out, "--quiet"]
+        if max_div is not None:
+            argv += ["--max-divergence", str(max_div)]
+        if limit is not None:
+            argv += ["--limit-per-sequence", str(limit)]
+        if batch is not None:
+            argv += ["--batch-size", str(batch)]
+        ks_mod.launches = compact_mod.launches = 0
+        rc, wall, timers = cli_query(cli, query_mod, argv)
+        launches = {"kstats": ks_mod.launches,
+                    "compact_mask": compact_mod.launches}
+        batches = -(-nq // (batch or sizes.main_batch))
+        if rc != 0:
+            raise AssertionError(f"K-mode run {name}: query rc={rc}")
+        if (launches["kstats"] != K.kstats_steps(L_SMOKE) * batches
+                or launches["compact_mask"] < 1):
+            raise AssertionError(f"K-mode run {name}: launches {launches} "
+                                 f"for {batches} batch(es)")
+        sample = set(rng.choice(nq, size=sizes.kmode_sample,
+                                replace=False).tolist())
+        by_q: dict[int, list[str]] = {}
+        n_lines = 0
+        with open(out) as f:
+            for line in f:
+                n_lines += 1
+                qnum = int(line[:line.index("\t")])
+                if qnum in sample:
+                    by_q.setdefault(qnum, []).append(line.rstrip("\n"))
+        os.remove(out)
+        os.remove(q_fa)
+        for i in sorted(sample):
+            want = brute_force_kmode(codes_t, codes, q[i], i, sizes.kmode_k,
+                                     max_div, limit)
+            if by_q.get(i, []) != want:
+                raise AssertionError(
+                    f"K-mode run {name}, query {i}: lines differ from brute "
+                    f"force:\ngot {by_q.get(i, [])[:3]}\nwant {want[:3]}")
+        res = {"reads": nq, "k": sizes.kmode_k, "max_divergence": max_div,
+               "limit_per_sequence": limit, "batches": batches,
+               "wall_s": wall, "reads_per_s": nq / wall,
+               "hit_lines": n_lines, "stage_s": timers.seconds,
+               "sampled_exact": len(sample), "launches": launches}
+        log("kmode_end_to_end", run=name, db_rows=n, **res)
+        results[name] = res
+    return results
 
 
 def load_cluster_bench():
@@ -372,7 +575,7 @@ def greedy_oracle(records: np.ndarray, cents: np.ndarray, cent_line: np.ndarray,
 
 
 def cluster_end_to_end(sizes, cli, cluster_mod, mc_mod, rng) -> dict:
-    """Phase 4: cluster 1M records through the CLI, then count."""
+    """Phase 5: cluster 1M records through the CLI, then count."""
     import contextlib
     import hashlib
     import io
@@ -466,7 +669,8 @@ def main() -> int:
     from smafa_tpu_torch.engine import cluster as cluster_mod, query as query_mod
     from smafa_tpu_torch.ops import _build, compact as compact_mod
     from smafa_tpu_torch.ops import distance as D, keys as K, min2 as min2_mod
-    from smafa_tpu_torch.ops import min_count as mc_mod
+    from smafa_tpu_torch.ops import kstats as ks_mod, min_count as mc_mod
+    from smafa_tpu_torch.parallel import hitops
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions exact
     card = nvidia_smi()
@@ -481,10 +685,21 @@ def main() -> int:
     # the query batch the CLI picks for this db (engine.query._auto_batch)
     sizes = smoke_sizes(query_mod)
     rng = np.random.default_rng(seed)
-    timing = kernel_parity(sizes, torch.device("cuda"), D, K, min2_mod, compact_mod, rng)
-    timing["min_count"] = min_count_parity(sizes, torch.device("cuda"), D, K,
-                                           mc_mod, rng)
-    e2e = end_to_end(sizes, cli, query_mod, min2_mod, compact_mod, rng)
+    # the K-mode phases draw from a stream of their own, so the others
+    # see the same data as before K-mode was added
+    rng_k = np.random.default_rng([seed, 4])
+    dev = torch.device("cuda")
+    timing = kernel_parity(sizes, dev, D, K, min2_mod, compact_mod, rng)
+    timing["min_count"] = min_count_parity(sizes, dev, D, K, mc_mod, rng)
+    timing["kstats"] = kstats_parity(sizes, dev, D, K, ks_mod, rng_k)
+    with tempfile.TemporaryDirectory(prefix="smafa_smoke_") as tmp:
+        e2e, codes, db = end_to_end(sizes, cli, query_mod, min2_mod,
+                                    compact_mod, rng, tmp)
+        kmode_compact_parity(sizes, dev, D, K, ks_mod, compact_mod, hitops,
+                             codes, rng_k)
+        kmode = kmode_end_to_end(sizes, cli, query_mod, K, ks_mod,
+                                 compact_mod, codes, db, tmp, rng_k)
+    del codes
     clu = cluster_end_to_end(sizes, cli, cluster_mod, mc_mod, rng)
 
     kernels = [
@@ -504,6 +719,12 @@ def main() -> int:
          "max_abs_err": timing["min_count"]["max_abs_err"],
          "ms": timing["min_count"]["ms"],
          "plain_ms": timing["min_count"]["plain_ms"]},
+        {"name": "kstats", "route": "cuda", "source": KSTATS_SOURCE,
+         "replaces": KSTATS_REPLACES,
+         "launches": kmode["a"]["launches"]["kstats"],
+         "max_abs_err": timing["kstats"]["max_abs_err"],
+         "ms": timing["kstats"]["ms"],
+         "plain_ms": timing["kstats"]["plain_ms"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

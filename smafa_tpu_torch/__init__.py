@@ -4,8 +4,8 @@ Searches databases of pre-aligned, equal-length nucleotide sequences
 (SingleM marker windows) on one NVIDIA GPU, or on the CPU. The JAX
 package ``smafa_tpu`` beside it is the reference the port is held to:
 same CLI, same db formats, byte-identical output. ``makedb``,
-best-hit ``query``, ``cluster`` and ``count`` are ported; ROADMAP.md
-lists what is still to come.
+``query`` (best-hit and K-mode), ``cluster`` and ``count`` are ported;
+ROADMAP.md lists what is still to come.
 
 The package imports torch and numpy, and never jax. ``cluster`` and
 ``count`` load their modules on first access (PEP 562), so importing

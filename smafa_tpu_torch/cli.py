@@ -10,9 +10,10 @@ of ``smafa_tpu.cli`` (itself the reference's, main.rs:64-116):
 - no subcommand -> print help, exit 0
 
 Errors print their message to stderr and exit 101; usage errors exit 2.
-``makedb``, best-hit ``query``, ``cluster`` and ``count`` on one device
-run here. The other paths (K-mode, ``--resume-state``, multi-host) exit
-101 with a message that points to ROADMAP.md.
+``makedb``, ``query`` (best-hit and K-mode, with ``--max-divergence``
+and ``--limit-per-sequence``), ``cluster`` and ``count`` on one device
+run here. The other paths (``--resume-state``, multi-host) exit 101
+with a message that points to ROADMAP.md.
 
 The device is resolved once, here: ``cuda`` when
 ``torch.cuda.is_available()``, else ``cpu``; ``SMAFA_TPU_TORCH_DEVICE``

@@ -1,18 +1,26 @@
-"""query op, best-hit mode: scan a query FASTX stream against a db.
+"""query op: scan a query FASTX stream against a db.
 
-Port of ``smafa_tpu.engine.query`` for best-hit mode (no
-``--max-num-hits``, or ``--max-num-hits 1``; reference lib.rs:224), with
-the same pinned semantics:
+Port of ``smafa_tpu.engine.query`` in both of its modes, with the same
+pinned semantics:
 
-- every window at the minimum distance prints, in subject-index order
-  (lib.rs:306-313), unless the minimum exceeds ``--max-divergence``;
+- best-hit (no ``--max-num-hits``, or ``--max-num-hits 1``; reference
+  lib.rs:224): every window at the minimum distance prints, in
+  subject-index order (lib.rs:306-313), unless the minimum exceeds
+  ``--max-divergence``;
+- K-mode (``--max-num-hits K``, K > 1): every window at distance <=
+  min(K-th smallest distance, ``--max-divergence``) prints, in
+  (distance, index) order, cutoff ties included (lib.rs:241-295);
+  ``--limit-per-sequence`` caps consecutive runs of one decoded
+  sequence (lib.rs:269-289);
 - output line ``{query_number}\\t{subject_idx}\\t{distance}\\t{decoded}``
   with query_number counting records from 0 (lib.rs:231, 310).
 
-One batch is in flight: phase A of batch k+1 is launched on the device
-before batch k is resolved and emitted, so the device scans while the
-host parses and formats. K-mode and ``--resume-state`` are not ported
-yet (ROADMAP.md).
+One batch is in flight: the first pass of batch k+1 (best-hit phase A,
+or the K-mode cutoff passes) is launched before batch k is resolved and
+emitted, on a stream of its own on a GPU (``ScanRunner._ahead``), so
+batch k's compaction and read-back do not wait for it and the device
+scans while the host parses and formats.
+``--resume-state`` is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -59,6 +67,14 @@ class _DbOnDevice:
         self.seq_len = windows.length
         self.runner = ScanRunner.from_codes(windows.codes, self.seq_len or 1,
                                             device)
+        self._decoded: dict[int, str] = {}
+
+    def decoded(self, idx: int) -> str:
+        s = self._decoded.get(idx)
+        if s is None:
+            s = self.windows.get_as_string(idx)
+            self._decoded[idx] = s
+        return s
 
 
 def _auto_batch(db: _DbOnDevice) -> int:
@@ -104,8 +120,6 @@ def query(
             "limit_per_sequence is implemented unless max_num_hits > 1. "
             "It can be implemented by analogy, just haven't gotten around to it."
         )
-    if k_mode is not None:
-        raise NotPortedError("K-mode (--max-num-hits > 1)")
     db = _DbOnDevice(windows, device)
     if batch_size is None:
         batch_size = _auto_batch(db)
@@ -135,7 +149,10 @@ def query(
                 if db.n_windows == 0:
                     raise QueryError("Cannot query an empty database")
                 with timers.stage("dispatch"):
-                    handle = db.runner.min_count_async(codes)
+                    handle = (db.runner.min_count_async(codes)
+                              if k_mode is None else
+                              db.runner.kmode_stats_async(codes, k_mode,
+                                                          max_divergence))
                 timers.count("comparisons", nq_batch * db.n_windows)
                 current = (query_number, nq_batch, codes, handle)
                 query_number += nq_batch
@@ -143,10 +160,12 @@ def query(
                 current = None
         except Exception:
             if pending is not None:
-                _drain_batch(out, db, pending, max_divergence, timers)
+                _drain_batch(out, db, pending, k_mode, max_divergence,
+                             limit_per_sequence, timers)
             raise
         if pending is not None:
-            _drain_batch(out, db, pending, max_divergence, timers)
+            _drain_batch(out, db, pending, k_mode, max_divergence,
+                         limit_per_sequence, timers)
         pending = current
         if current is None:
             break
@@ -155,9 +174,25 @@ def query(
     return timers
 
 
-def _drain_batch(out, db, pending, max_divergence, timers):
+def _drain_batch(out, db, pending, k_mode, max_divergence,
+                 limit_per_sequence, timers):
     """Resolve one launched batch and emit its hits."""
-    qnum0, _nq, p_codes, p_handle = pending
+    qnum0, nq, p_codes, p_handle = pending
+    if k_mode is not None:
+        with timers.stage("scan"):
+            counts, rows, idx, dv = db.runner.kmode_flat(
+                p_codes, k_mode, max_divergence, stats_handle=p_handle)
+        with timers.stage("emit"):
+            if limit_per_sequence is None:
+                if rows.size:
+                    _emit_bulk(out, qnum0 + rows.astype(np.int64), idx, dv, db)
+            else:
+                starts = np.cumsum(counts.astype(np.int64)) - counts
+                for row in range(nq):
+                    s, n = int(starts[row]), int(counts[row])
+                    _emit_kmode_row(out, qnum0 + row, dv[s:s + n],
+                                    idx[s:s + n], db, limit_per_sequence)
+        return
     with timers.stage("scan"):
         dist, _counts, rows, idx = db.runner.best_hit(
             p_codes, max_divergence, handle=p_handle)
@@ -197,3 +232,22 @@ def _emit_bulk(out, qnums, subj, d, db):
         for k, (q, s, dd) in enumerate(zip(qnums.tolist(), subj.tolist(), d.tolist()))
     )
     _write_bytes(out, text.encode("ascii"))
+
+
+def _emit_kmode_row(out, qnum, dists, idxs, db, limit_per_sequence):
+    """Emit one row's sorted K-mode hit list under the reference's
+    limit-per-sequence rule: a run of consecutive hits with one decoded
+    sequence prints at most ``limit_per_sequence`` lines, and the run
+    resets when another sequence comes between (lib.rs:269-289)."""
+    last_seq: tuple[str, int] | None = None
+    lines = []
+    for i, d in zip(idxs.tolist(), dists.tolist()):
+        s = db.decoded(i)
+        if last_seq is not None and last_seq[0] == s:
+            if last_seq[1] >= limit_per_sequence:
+                continue
+            last_seq = (s, last_seq[1] + 1)
+        else:
+            last_seq = (s, 1)
+        lines.append(f"{qnum}\t{i}\t{d}\t{s}\n")
+    out.write("".join(lines))

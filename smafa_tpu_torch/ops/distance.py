@@ -31,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from smafa_tpu_torch.core.alphabet import N_CHANNELS
-from smafa_tpu_torch.ops.keys import BIG_KEY
+from smafa_tpu_torch.ops.keys import BIG_KEY, KSTATS_PROBES, kstats_steps
 
 K_STEP = 32          # embed width granularity in bytes
 WP_MULTIPLE = 64     # db rows per kernel tile: the runner pads Wp to this
@@ -201,3 +201,92 @@ def extract_mask_hits(mask: torch.Tensor) -> tuple[torch.Tensor, ...]:
     rows = r[k]
     counts = torch.bincount(rows, minlength=mask.shape[0])
     return rows, wi[k] * 32 + j, counts
+
+
+def hit_distances(q_codes: torch.Tensor, db_codes: torch.Tensor,
+                  rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """int32 distance of each hit (query row ``rows[h]`` vs db window
+    ``idx[h]``) from the channel codes, N against N a match: the gather
+    and compare of ``smafa_tpu``'s ``compactd`` program."""
+    L = db_codes.shape[1]
+    return (q_codes[rows, :L] != db_codes[idx]).sum(dim=1, dtype=torch.int32)
+
+
+def sort_hit_keys(rows: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """Per-hit keys ``(dist << shift) | idx`` (non-negative, below 2^31)
+    sorted by (row, key), so each row's hits come in the reference's
+    (distance, index) order (``smafa_tpu.ops.distance.sort_hit_keys``)."""
+    comp = (rows.to(torch.int64) << 31) | keys.to(torch.int64)
+    return torch.sort(comp).values & (2**31 - 1)
+
+
+def stats_reference(q_emb: torch.Tensor, db_emb: torch.Tensor,
+                    zc: torch.Tensor, ts: torch.Tensor, n_valid: int,
+                    seq_len: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the kstats kernel (the semantics of
+    ``smafa_tpu.ops.distance._statsN_pass``): per query row r over db
+    rows w < n_valid, cnt[p, r] = #{w : dist <= ts[p, r]} and mx[r] the
+    max distance, -1 when n_valid == 0. Rows at or past n_valid are never
+    read. Returns (cnt int32 [P, B], mx int32 [B])."""
+    b = q_emb.shape[0]
+    dev = q_emb.device
+    cnt = torch.zeros(tuple(ts.shape), dtype=torch.int32, device=dev)
+    mx = torch.full((b,), -1, dtype=torch.int32, device=dev)
+    q_f = q_emb.to(torch.float32)
+    for off in range(0, n_valid, CHUNK):
+        end = min(off + CHUNK, n_valid)
+        dist = distances(q_f, db_emb[off:end], zc[off:end], seq_len)
+        for p in range(ts.shape[0]):
+            cnt[p] += (dist <= ts[p].unsqueeze(1)).sum(dim=1, dtype=torch.int32)
+        mx = torch.maximum(mx, dist.amax(dim=1))
+    return cnt, mx
+
+
+def kmode_phase1(scan_stats, k: int, maxdiv: int, n_windows: int,
+                 seq_len: int, b: int,
+                 device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """K-mode cutoff search (``smafa_tpu.ops.distance.kmode_phase1``):
+    per query row, the effective cutoff ``eff`` and the exact number of
+    windows at distance <= eff, by the reference rule (lib.rs:253-265):
+    the cutoff is the K-th smallest distance, or the row max when K
+    exceeds the window count, and eff = min(cutoff, maxdiv).
+
+    ``scan_stats(ts [P, B]) -> (cnt [P, B], mx [B])`` is one db pass at P
+    = KSTATS_PROBES per-row thresholds: P - 1 interior probes of a P-way
+    partition search for the smallest t with count(<= t) >= k, and
+    min(maxdiv, L) as the last. kstats_steps(L) passes; ``maxdiv`` is
+    L + 1 when unused. Everything stays on the device: the passes queue
+    on the stream and nothing is read back. Returns (eff, hits) int32 [B].
+    """
+    P = KSTATS_PROBES
+
+    def full(v: int) -> torch.Tensor:
+        return torch.full((b,), v, dtype=torch.int32, device=device)
+
+    md_c = min(maxdiv, seq_len)
+    lo, hi = full(0), full(seq_len)
+    # count(<= L) == n_windows: the upper bound's count is known before
+    # any pass; it only ever tightens.
+    cnt_hi = full(n_windows)
+    cnt_md, mx = full(0), full(-1)
+    for _ in range(kstats_steps(seq_len)):
+        ms = [(lo * (P - i) + hi * i) // P for i in range(1, P)]
+        cnts, mx = scan_stats(torch.stack(ms + [full(md_c)]))
+        # the smallest probe with count >= k bounds the answer from
+        # above; fold the cascade from the last interior probe down
+        new_hi, new_cnt, new_lo = hi, cnt_hi, ms[-1] + 1
+        for i in range(P - 2, -1, -1):
+            ge = cnts[i] >= k
+            new_hi = torch.where(ge, ms[i], new_hi)
+            new_cnt = torch.where(ge, cnts[i], new_cnt)
+            new_lo = torch.where(ge, lo if i == 0 else ms[i - 1] + 1, new_lo)
+        lo, hi, cnt_hi, cnt_md = (torch.minimum(new_lo, new_hi), new_hi,
+                                  new_cnt, cnts[P - 1])
+    kth = hi  # smallest t with count(<= t) >= k (L if none)
+    eff = torch.clamp(mx if k > n_windows else kth, max=maxdiv)
+    # hits at eff with no extra pass: eff is md_c (probed every pass),
+    # kth (tracked) or the row max (count(<= max) == n_windows); where
+    # these coincide the counts agree, so the branch order is free.
+    hits = torch.where(eff == md_c, cnt_md,
+                       torch.where(eff == kth, cnt_hi, full(n_windows)))
+    return eff, hits

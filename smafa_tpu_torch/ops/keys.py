@@ -1,4 +1,4 @@
-"""Packed-key and batch-shape helpers, pure numpy.
+"""Packed-key, batch-shape and K-mode search constants, pure numpy.
 
 Copies of the numpy helpers in ``smafa_tpu.ops.distance`` (which imports
 jax, so the port cannot import them); tests pin them equal to the
@@ -18,6 +18,19 @@ import numpy as np
 
 BIG = np.int32(2**30)  # sentinel distance for padded / masked-out windows
 BIG_KEY = 2**31 - 1    # empty-row key
+KSTATS_PROBES = 4      # per-row thresholds probed per K-mode cutoff pass
+
+
+def kstats_steps(seq_len: int) -> int:
+    """Passes of the K-mode cutoff search: each pass cuts the candidate
+    range [lo, hi] to <= (hi - lo) // KSTATS_PROBES with KSTATS_PROBES - 1
+    interior probes, so at 60 bp ranges shrink 60 -> 15 -> 3 -> 0 in 3
+    passes."""
+    steps, n = 0, seq_len
+    while n > 0:
+        n //= KSTATS_PROBES
+        steps += 1
+    return max(1, steps)
 
 
 def packing_shift(seq_len: int, wp: int) -> int | None:

@@ -1,5 +1,5 @@
-"""Best-hit hit selection on one device — a trimmed port of
-``smafa_tpu.parallel.hitops.HitModesMixin`` (best-hit mode only).
+"""Hit selection on one device — a trimmed port of
+``smafa_tpu.parallel.hitops.HitModesMixin`` (best-hit and K-mode).
 
 Best-hit (reference lib.rs:296-313) prints every window at the row's
 minimum distance, in index order:
@@ -13,15 +13,29 @@ minimum distance, in index order:
   buffered hit of such a row sits at its minimum, so (row, index) order
   is the emission order (as in the JAX package's ``compactd``).
 
+K-mode (reference lib.rs:241-295) prints every window at distance <=
+min(cutoff, max_divergence), cutoff the K-th smallest distance (the row
+max when K exceeds the window count), in (distance, index) order:
+
+- the cutoff search is kstats_steps(L) kstats kernel passes, queued on
+  the device with nothing read back (``distance.kmode_phase1``); it
+  gives each row's effective cutoff and exact hit count;
+- one compaction per row group at thresh = the row's cutoff, with the
+  hits' distances recomputed from the codes and sorted by (row,
+  distance, index) on the device (the JAX package's ``compactd``).
+
 The JAX package's latency-driven variants (``miditer``, ``tcount``,
 ``bestfull``, the tie-EMA switch, ``_SharedFetch``) give byte-identical
-output under its own tests and are left out here.
+output under its own tests and are left out here, as are the K-mode
+histogram variant (``SMAFA_TPU_KMODE_HIST=1``) and the top-M fallback.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from smafa_tpu_torch.ops import distance as D
 from smafa_tpu_torch.ops import keys as K
 
 # One compaction dispatch never enumerates more than this many hits;
@@ -44,10 +58,14 @@ def mask_row_cap(span_rows: int) -> int:
 
 
 class HitModesMixin:
-    """Best-hit host orchestration over the runner's primitives:
-    ``_pad``, ``_embed_queries``, ``_phase_a(q_emb) -> (lo, hi, cnt)``,
-    ``_compact(q_emb, row_ids, thresh) -> (rows, idx, counts)``, and the
-    attributes seq_len, n_windows, wp, shift, _codes_host."""
+    """Host orchestration over the runner's primitives: ``_pad``,
+    ``_embed_queries``, ``_ahead(q_emb, launch) -> Ahead`` (a batch's
+    first pass, read back without waiting for later work),
+    ``_phase_a(q_emb) -> (lo, hi, cnt)``,
+    ``_compact(q_emb, row_ids, thresh) -> (rows, idx, counts)``,
+    ``_kstats(q_emb, ts) -> (cnt, mx)``, ``_compactd(q_padded, q_emb,
+    row_ids, thresh) -> (rows, idx, dist, counts)``, and the attributes
+    seq_len, n_windows, wp, shift, _codes_host."""
 
     def _require_windows(self) -> None:
         if self.n_windows == 0:
@@ -58,8 +76,8 @@ class HitModesMixin:
         self._require_windows()
         q_padded, nq = self._pad(q_codes)
         q_emb = self._embed_queries(q_padded)
-        lo, hi, cnt = self._phase_a(q_emb)
-        return lo, hi, cnt, nq, q_padded, q_emb
+        keys = self._ahead(q_emb, lambda: self._phase_a(q_emb))
+        return keys, nq, q_padded, q_emb
 
     def _min2_unpack(self, lo: np.ndarray, hi: np.ndarray):
         """Packed keys -> (dist, idx_lo, idx_hi, found) per row."""
@@ -76,9 +94,8 @@ class HitModesMixin:
         is 0 for rows filtered by max_divergence."""
         if handle is None:
             handle = self.min_count_async(q_codes)
-        lo, hi, cnt, nq, q_padded, q_emb = handle
-        lo = lo.cpu().numpy()[:nq]
-        hi = hi.cpu().numpy()[:nq]
+        keys, nq, q_padded, q_emb = handle
+        lo, hi, cnt = (a[:nq] for a in keys.numpy())
         dist, idx_lo, idx_hi, keep = self._min2_unpack(lo, hi)
         if max_divergence is not None:
             keep = keep & (dist <= max_divergence)
@@ -88,7 +105,7 @@ class HitModesMixin:
             return (dist, counts, np.nonzero(keep)[0].astype(np.int32),
                     idx_lo[keep].astype(np.int32))
         tied_ids = np.nonzero(tied)[0].astype(np.int32)
-        tie_cnt = cnt.cpu().numpy()[:nq][tied_ids].astype(np.int64)
+        tie_cnt = cnt[tied_ids].astype(np.int64)
         counts = keep.astype(np.int64)
         counts[tied_ids] = tie_cnt
         # 2-tie rows are complete from the lowest and highest tied index
@@ -109,38 +126,51 @@ class HitModesMixin:
                 all_rows[order].astype(np.int32),
                 all_idx[order].astype(np.int32))
 
-    def _compact_grouped_rows(self, q_padded, q_emb, row_ids, thresh_vals,
-                              counts):
-        """Greedy row groups under two bounds: COMPACT_MAX hits per
-        dispatch and the mask-memory row cap. A single row whose count
-        exceeds COMPACT_MAX is enumerated on the host. Every count is
-        known exactly, so each dispatch is checked against it. Returns
-        flat (rows, idx) sorted by (row, index)."""
+    def _row_groups(self, counts: np.ndarray):
+        """Greedy groups of consecutive rows under two bounds: COMPACT_MAX
+        hits per dispatch and the mask-memory row cap. Yields (start,
+        end, on_host): a single row whose count exceeds COMPACT_MAX is a
+        group of its own, enumerated on the host."""
         cap = mask_row_cap(self.wp)
-        n = int(row_ids.shape[0])
-        out_r, out_i = [], []
+        n = int(counts.shape[0])
         start = 0
         while start < n:
-            c0 = int(counts[start])
-            if c0 > COMPACT_MAX:
-                gid = int(row_ids[start])
-                hit_idx = self._host_enumerate_row(
-                    q_padded[gid], int(thresh_vals[start]))
-                if hit_idx.shape[0] != c0:
-                    raise RuntimeError(
-                        f"host enumeration found {hit_idx.shape[0]} hits, "
-                        f"expected {c0}")
-                out_r.append(np.full(c0, gid, np.int32))
-                out_i.append(hit_idx)
+            acc = int(counts[start])
+            if acc > COMPACT_MAX:
+                yield start, start + 1, True
                 start += 1
                 continue
             end = start + 1
-            acc = c0
             while (end < n and end - start < cap
-                   and int(counts[end]) <= COMPACT_MAX
                    and acc + int(counts[end]) <= COMPACT_MAX):
                 acc += int(counts[end])
                 end += 1
+            yield start, end, False
+            start = end
+
+    def _host_row(self, q_row: np.ndarray, thresh: int, count: int):
+        """Host enumeration of one giant row, checked against its known
+        exact count."""
+        hit_idx = self._host_enumerate_row(q_row, thresh)
+        if hit_idx.shape[0] != count:
+            raise RuntimeError(f"host enumeration found {hit_idx.shape[0]} "
+                               f"hits, expected {count}")
+        return hit_idx
+
+    def _compact_grouped_rows(self, q_padded, q_emb, row_ids, thresh_vals,
+                              counts):
+        """Enumerate rows with known exact counts, one compaction per
+        group of ``_row_groups``; each dispatch is checked against the
+        counts. Returns flat (rows, idx) sorted by (row, index)."""
+        out_r, out_i = [], []
+        for start, end, on_host in self._row_groups(counts):
+            if on_host:
+                gid = int(row_ids[start])
+                c0 = int(counts[start])
+                out_r.append(np.full(c0, gid, np.int32))
+                out_i.append(self._host_row(q_padded[gid],
+                                            int(thresh_vals[start]), c0))
+                continue
             ids = row_ids[start:end]
             rows, idx, got = self._compact(
                 q_emb, ids, thresh_vals[start:end].astype(np.int32))
@@ -149,11 +179,77 @@ class HitModesMixin:
                                    "the phase-A tie counts")
             out_r.append(ids[rows].astype(np.int32))
             out_i.append(idx.astype(np.int32))
-            start = end
         rows = np.concatenate(out_r) if out_r else np.empty(0, np.int32)
         idx = np.concatenate(out_i) if out_i else np.empty(0, np.int32)
         order = np.lexsort((idx, rows))
         return rows[order], idx[order]
+
+    # -- K-mode ------------------------------------------------------------
+
+    def kmode_stats_async(self, q_codes: np.ndarray, k: int,
+                          max_divergence: int | None):
+        """Launch the K-mode cutoff search without waiting; opaque handle
+        for kmode_flat."""
+        self._require_windows()
+        q_padded, nq = self._pad(q_codes)
+        q_emb = self._embed_queries(q_padded)
+        # Both flags take any u32 (reference main.rs:87-97) and meet int32
+        # counts and distances on the device: every K above the window
+        # count acts alike, and no distance exceeds L, so L + 1 stands
+        # for "no divergence filter".
+        k = min(k, self.n_windows + 1)
+        maxdiv = self.seq_len + 1
+        if max_divergence is not None:
+            maxdiv = min(maxdiv, max_divergence)
+        stats = self._ahead(q_emb, lambda: D.kmode_phase1(
+            lambda ts: self._kstats(q_emb, ts), k, maxdiv, self.n_windows,
+            self.seq_len, q_emb.shape[0], q_emb.device))
+        return stats, nq, q_padded, q_emb
+
+    def kmode_flat(self, q_codes: np.ndarray, k: int,
+                   max_divergence: int | None, stats_handle=None):
+        """Exact K-mode hit lists, flat: (counts [nq], flat_rows,
+        flat_idx, flat_dist) int32 with each row's segment sorted by
+        (distance, subject index) — the reference's print set and order
+        (lib.rs:241-295 before limit-per-sequence), cutoff ties
+        included."""
+        if stats_handle is None:
+            stats_handle = self.kmode_stats_async(q_codes, k, max_divergence)
+        stats, nq, q_padded, q_emb = stats_handle
+        eff, hits = (a[:nq] for a in stats.numpy())
+        counts = hits.astype(np.int64)
+        sel = np.nonzero(counts > 0)[0].astype(np.int32)
+        out_r, out_i, out_d = [], [], []
+        for start, end, on_host in self._row_groups(counts[sel]):
+            if on_host:
+                gid = int(sel[start])
+                c0 = int(counts[gid])
+                hit_idx = self._host_row(q_padded[gid], int(eff[gid]), c0)
+                dv = D.hit_distances(
+                    torch.from_numpy(q_padded[gid:gid + 1]),
+                    torch.from_numpy(np.asarray(self._codes_host[hit_idx])),
+                    torch.zeros(c0, dtype=torch.int64),
+                    torch.arange(c0)).numpy()
+                order = np.lexsort((hit_idx, dv))
+                out_r.append(np.full(c0, gid, np.int32))
+                out_i.append(hit_idx[order])
+                out_d.append(dv[order])
+                continue
+            ids = sel[start:end]
+            rows, idx, dv, got = self._compactd(q_padded, q_emb, ids, eff[ids])
+            if not np.array_equal(got, counts[ids]):
+                raise RuntimeError("compaction hit counts disagree with "
+                                   "the kstats hit counts")
+            out_r.append(rows)
+            out_i.append(idx)
+            out_d.append(dv)
+        e = np.empty(0, np.int32)
+        # groups cover ascending disjoint row ranges, each sorted by
+        # (row, distance, index): the concatenation is in emission order
+        return (counts.astype(np.int32),
+                np.concatenate(out_r) if out_r else e,
+                np.concatenate(out_i) if out_i else e,
+                np.concatenate(out_d) if out_d else e)
 
     def _host_enumerate_row(self, q_row: np.ndarray, thresh: int) -> np.ndarray:
         """All window indices with distance <= thresh for ONE query row,

@@ -4,9 +4,10 @@ Counterpart of ``smafa_tpu.parallel.sharded.ScanRunner`` on a 1x1 mesh
 (the runner ``smafa_tpu.parallel.select.make_runner`` picks for one
 device). It holds the db channel codes and their embedded twin on
 ``self.device`` and supplies the primitives of ``HitModesMixin``; the
-kernels it calls are the min2 kernel (phase A) and the compact_mask
-kernel (tie enumeration). Multi-device layouts and the out-of-core
-stream layout are later work (ROADMAP.md queue 1).
+kernels it calls are the min2 kernel (best-hit phase A), the kstats
+kernel (the K-mode cutoff passes) and the compact_mask kernel (tie and
+K-mode hit enumeration). Multi-device layouts and the out-of-core stream
+layout are later work (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from smafa_tpu_torch.ops import distance as D
 from smafa_tpu_torch.ops import keys as K
 from smafa_tpu_torch.ops.compact import compact_mask
+from smafa_tpu_torch.ops.kstats import kstats
 from smafa_tpu_torch.ops.min2 import min2
 from smafa_tpu_torch.parallel.hitops import HitModesMixin
 
@@ -25,11 +27,27 @@ class KeyPackingError(ValueError):
     pass
 
 
+class Ahead:
+    """Results of a batch's first device pass, launched ahead of the
+    batch before it: copies in host memory, ready once ``event`` (None on
+    the CPU) has passed."""
+
+    def __init__(self, host: list[torch.Tensor], event):
+        self._host, self._event = host, event
+
+    def numpy(self) -> list[np.ndarray]:
+        """The results; waits for the pass and its copies alone."""
+        if self._event is not None:
+            self._event.synchronize()
+        return [t.numpy() for t in self._host]
+
+
 class ScanRunner(HitModesMixin):
-    """Holds a db on one device and runs exact best-hit scans."""
+    """Holds a db on one device and runs exact best-hit and K-mode scans."""
 
     def __init__(self, codes: np.ndarray, seq_len: int, device: torch.device):
         self.device = torch.device(device)
+        self._side = None  # CUDA stream of the passes launched ahead
         self.seq_len = max(1, seq_len)
         self.n_windows = int(codes.shape[0])
         # Host view of the codes (often a memmap): host enumeration of
@@ -75,6 +93,30 @@ class ScanRunner(HitModesMixin):
         codes = torch.from_numpy(np.ascontiguousarray(q_padded)).to(self.device)
         return D.expand_embed_query(codes, self.seq_len)
 
+    def _ahead(self, q_emb: torch.Tensor, launch) -> Ahead:
+        """Run ``launch() -> tensors``, a batch's first pass over the db,
+        so that reading its results waits for it alone. On a GPU it runs
+        on a side stream, after the work queued so far on the current
+        stream (the embedding of ``q_emb``), and its results are copied
+        to pinned host memory behind it: the batch before, whose
+        compaction the current stream then runs, does not queue behind
+        this pass, nor does the host wait for it."""
+        if not q_emb.is_cuda:
+            return Ahead([t.cpu() for t in launch()], None)
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        self._side.wait_stream(torch.cuda.current_stream(self.device))
+        q_emb.record_stream(self._side)
+        with torch.cuda.stream(self._side):
+            outs = launch()
+            host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    for t in outs]
+            for h, t in zip(host, outs):
+                h.copy_(t, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self._side)
+        return Ahead(host, done)
+
     def _phase_a(self, q_emb: torch.Tensor):
         return min2(q_emb, self.db_emb, self.zc, self.seq_len, self.shift,
                     with_count=True)
@@ -89,3 +131,30 @@ class ScanRunner(HitModesMixin):
                             self.db_emb, self.zc, th, self.seq_len)
         rows, idx, counts = D.extract_mask_hits(mask)
         return rows.cpu().numpy(), idx.cpu().numpy(), counts.cpu().numpy()
+
+    def _kstats(self, q_emb: torch.Tensor, ts: torch.Tensor):
+        """One K-mode cutoff pass over the db's real rows: (cnt [P, B],
+        mx [B]) at the per-row thresholds ts [P, B]."""
+        return kstats(q_emb, self.db_emb, self.zc, ts, self.n_windows,
+                      self.seq_len)
+
+    def _compactd(self, q_padded: np.ndarray, q_emb: torch.Tensor,
+                  row_ids: np.ndarray, thresh: np.ndarray):
+        """One K-mode compaction dispatch over the selected batch rows:
+        every hit at dist <= thresh with its distance, in (row, distance,
+        index) order. Returns host (rows, idx, dist) int32, rows as batch
+        row ids, and the per-row hit counts."""
+        ids = torch.from_numpy(row_ids.astype(np.int64)).to(self.device)
+        th = torch.from_numpy(thresh.astype(np.int32)).to(self.device)
+        mask = compact_mask(q_emb.index_select(0, ids).contiguous(),
+                            self.db_emb, self.zc, th, self.seq_len)
+        rows, idx, counts = D.extract_mask_hits(mask)
+        del mask
+        q_sel = torch.from_numpy(np.ascontiguousarray(q_padded[row_ids]))
+        dist = D.hit_distances(q_sel.to(self.device), self.db_codes, rows, idx)
+        keys = D.sort_hit_keys(rows, (dist.to(torch.int64) << self.shift) | idx)
+        keys = keys.cpu().numpy()
+        counts = counts.cpu().numpy()
+        return (np.repeat(row_ids, counts).astype(np.int32),
+                (keys & ((1 << self.shift) - 1)).astype(np.int32),
+                (keys >> self.shift).astype(np.int32), counts)

@@ -26,13 +26,16 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from smafa_tpu_torch.engine import cluster
-    from smafa_tpu_torch.ops import compact, distance, keys, min2, min_count
+    from smafa_tpu_torch.engine import query
+    from smafa_tpu_torch.ops import (compact, distance, keys, kstats, min2,
+                                     min_count)
     from smafa_tpu_torch.parallel.runner import ScanRunner
 
     torch.backends.cuda.matmul.allow_tf32 = False
     return types.SimpleNamespace(
         dev=torch.device("cuda"), torch=torch, C=compact, D=distance,
-        K=keys, M=min2, MC=min_count, ScanRunner=ScanRunner, CL=cluster)
+        K=keys, KS=kstats, M=min2, MC=min_count, ScanRunner=ScanRunner,
+        CL=cluster, Q=query)
 
 
 def _operands(g, seq_len, nw, b, seed):
@@ -164,6 +167,108 @@ def test_runner_on_card_equals_cpu(cuda):
             np.testing.assert_array_equal(a, w)
 
 
+@pytest.mark.parametrize("seq_len", [3, 60, 150, 300])
+def test_kstats_kernel_equals_plain(cuda, seq_len):
+    """A 5056-row buffer whose every row is live, scanned up to n_valid
+    = 3001 (not a multiple of the 64-row tile), wp and 0; B = 300 is not
+    a multiple of the 128-row block. Then the cutoff search at K beyond
+    the window count, where the cutoff is the row max: live rows past
+    n_valid at larger distances must not raise it. L = 300 streams K."""
+    torch, D = cuda.torch, cuda.D
+    rng = np.random.default_rng(seq_len)
+    wp, b = 5056, 300
+    buf = rng.integers(0, 5, (wp, seq_len), dtype=np.uint8)
+    buf[rng.integers(0, 3001, 40)] = buf[5]
+    q = buf[rng.integers(0, wp, b)].copy()
+    mut = rng.random(q.shape) < 0.05
+    q[mut] = rng.integers(0, 5, int(mut.sum())).astype(np.uint8)
+    q[:4] = buf[5]
+    emb, zc = D.embed_db(torch.from_numpy(buf).to(cuda.dev), seq_len, wp)
+    q_emb = D.expand_embed_query(torch.from_numpy(q).to(cuda.dev), seq_len)
+    for n_valid in (3001, wp, 0):
+        ts = torch.from_numpy(rng.integers(
+            -1, seq_len + 1, (cuda.K.KSTATS_PROBES, b)).astype(np.int32)).to(cuda.dev)
+        before = cuda.KS.launches
+        got = cuda.KS.kstats(q_emb, emb, zc, ts, n_valid, seq_len)
+        want = D.stats_reference(q_emb, emb, zc, ts, n_valid, seq_len)
+        torch.cuda.synchronize()
+        assert cuda.KS.launches == before + 1
+        for a, w in zip(got, want):
+            assert torch.equal(a, w), n_valid
+        if n_valid == 0:
+            assert (got[1] == -1).all()
+    for k, maxdiv in ((3002, seq_len + 1), (5, 1), (3002, seq_len // 2)):
+        res = [D.kmode_phase1(
+            lambda ts: fn(q_emb, emb, zc, ts, 3001, seq_len), k, maxdiv,
+            3001, seq_len, b, cuda.dev)
+            for fn in (cuda.KS.kstats, D.stats_reference)]
+        for a, w in zip(*res):
+            assert torch.equal(a, w), (k, maxdiv)
+
+
+def _query_files(tmp_path):
+    """A 20,000-window 60 bp db with duplicate groups (makedb'd) and
+    1,500 reads mutated off it: (db path, query path)."""
+    from smafa_tpu_torch.engine.makedb import makedb
+
+    rng = np.random.default_rng(2)
+    codes = rng.integers(0, 4, (20000, 60), dtype=np.uint8)
+    codes[rng.integers(0, 20000, 3000)] = codes[rng.integers(0, 20, 3000)]
+    q = codes[rng.integers(0, 20000, 1500)].copy()
+    mut = rng.random(q.shape) < 0.05
+    q[mut] = rng.integers(0, 4, int(mut.sum())).astype(np.uint8)
+    letters = np.frombuffer(b"ACGTN", np.uint8)
+    for name, m in (("db.fna", codes), ("q.fna", q)):
+        with open(tmp_path / name, "w") as f:
+            for i, row in enumerate(letters[m]):
+                f.write(f">{name[0]}{i}\n{row.tobytes().decode()}\n")
+    db = str(tmp_path / "db")
+    makedb(str(tmp_path / "db.fna"), db)
+    return db, str(tmp_path / "q.fna")
+
+
+def _query_text(cuda, db, q, dev, **kw) -> str:
+    import io
+
+    buf = io.StringIO()
+    cuda.Q.query(db, q, dev, out=buf, **kw)
+    return buf.getvalue()
+
+
+def test_kmode_query_on_card_equals_cpu(cuda, tmp_path):
+    """K-mode through the query engine on the card prints what it prints
+    on the CPU: at K = 99 (ties at the cutoff), with --max-divergence and
+    --limit-per-sequence, over two batches and over three (each batch's
+    cutoff passes run on the side stream while the batch before is
+    compacted)."""
+    db, q = _query_files(tmp_path)
+    for bs in (1024, 512):
+        for kw in ({"max_num_hits": 99},
+                   {"max_num_hits": 99, "max_divergence": 5,
+                    "limit_per_sequence": 1}):
+            before = cuda.KS.launches
+            got = _query_text(cuda, db, q, cuda.dev, batch_size=bs, **kw)
+            assert (cuda.KS.launches - before
+                    == -(-1500 // bs) * cuda.K.kstats_steps(60))
+            want = _query_text(cuda, db, q, cuda.torch.device("cpu"),
+                               batch_size=bs, **kw)
+            assert got == want and got, (bs, kw)
+
+
+def test_best_hit_query_batches_on_card_equal_cpu(cuda, tmp_path):
+    """Best-hit through the query engine on the card, over three batches
+    (phase A of each on the side stream), prints what it prints on the
+    CPU, with and without --max-divergence."""
+    db, q = _query_files(tmp_path)
+    for kw in ({}, {"max_divergence": 3}):
+        before = cuda.M.launches
+        got = _query_text(cuda, db, q, cuda.dev, batch_size=512, **kw)
+        assert cuda.M.launches - before == 3
+        want = _query_text(cuda, db, q, cuda.torch.device("cpu"),
+                           batch_size=512, **kw)
+        assert got == want and got, kw
+
+
 def test_cuda_operands_checked(cuda):
     torch = cuda.torch
     emb, zc, q_emb, shift = _operands(cuda, 13, 200, 8, 1)
@@ -176,3 +281,6 @@ def test_cuda_operands_checked(cuda):
             3, dtype=torch.int32, device=cuda.dev), 13)
     with pytest.raises(ValueError):
         cuda.MC.min_count(q_emb, emb, zc, emb.shape[0] + 1, 13, shift)
+    with pytest.raises(ValueError):
+        cuda.KS.kstats(q_emb, emb, zc, torch.zeros(
+            (3, 8), dtype=torch.int32, device=cuda.dev), emb.shape[0], 13)
