@@ -7,7 +7,13 @@ Phases, one line each:
    torch/CUDA versions; fails when no CUDA device is visible.
 1. build: compiles the CUDA kernels from smafa_tpu_torch/csrc with nvcc.
 2. kernel parity: each kernel against its plain PyTorch version on the
-   card, exact equality (all values are integers), with both times.
+   card, exact equality (all values are integers), with both times and
+   the kernel's bound (the larger of its int8 operations over 1,979
+   TOP/s and its bytes over 3.35 TB/s, the H100 SXM's dense peaks).
+   min2 also at its split-W shapes (B = 1, 16, 77 x 2^20 + 37 rows), one
+   64-row tile, a db of one repeated row (cnt = every row) and a db whose
+   only exact match is its last real row; timed at the main-path batch
+   and at B = 512 and 4096.
 3. end to end through the CLI: makedb --format native over a seeded
    2^20-window 60 bp db, then best-hit query of 65,536 reads at
    --max-divergence 5; checks the exit codes, that both kernels launched
@@ -79,6 +85,9 @@ def smoke_sizes(query_mod) -> types.SimpleNamespace:
     return types.SimpleNamespace(
         db_rows=db_rows, queries=65536, sample=512, reps=10,
         parity_rows=(1 << 20) + 37, parity_queries=4096,
+        # min2's split-W batches against parity_rows, and the rows of its
+        # exact-path dbs (one repeated row; best match the last row)
+        split_queries=(1, 16, 77), exact_rows=70001,
         parity_rows_compact=1 << 20, compact_rows=4096,
         # min_count: a centroid buffer below / at its row count, and the
         # cluster path's batch x centroid-buffer shapes (late, early)
@@ -101,6 +110,33 @@ def smoke_sizes(query_mod) -> types.SimpleNamespace:
 
 def log(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+PEAK_INT8_OPS = 1.979e15  # H100 SXM dense int8 tensor-core peak, op/s
+PEAK_BYTES = 3.35e12      # H100 SXM HBM3, bytes/s
+
+
+def bound(b: int, rows: int, L: int, ep: int, out_bytes: int,
+          extra_in_bytes: int = 0) -> tuple[float, str]:
+    """(ms, "operations" or "bytes"): the least time of a scan of b query
+    rows against ``rows`` db rows, the larger of its int8 operations
+    (2 * b * rows * 4L, the real embedding width) over the int8 peak and
+    its bytes (queries, db rows and their zc, other inputs, outputs, each
+    once) over the memory rate."""
+    t_ops = 2 * b * rows * 4 * L / PEAK_INT8_OPS * 1e3
+    nbytes = b * ep + rows * (ep + 4) + extra_in_bytes + out_bytes
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def log_time(kernel: str, L: int, b: int, w: int, ms: float,
+             plain_ms: float, bnd: tuple[float, str], **extra) -> dict:
+    """Log one kernel_time line; returns its summary fields."""
+    t = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+         "bound_by": bnd[1], "bound_share": bnd[0] / ms}
+    log("kernel_time", kernel=kernel, L=L, B=b, W=w, **extra, **t,
+        comparisons_per_s=b * w / (ms / 1e3))
+    return t
 
 
 def nvidia_smi() -> str:
@@ -152,43 +188,85 @@ def mutate(rng, rows: np.ndarray, max_subs: int) -> np.ndarray:
     return q
 
 
-def kernel_parity(sizes, dev, D, K, min2_mod, compact_mod, rng) -> dict:
+def min2_cases(sizes, rng, rng_m):
+    """min2's parity dbs, each (L, codes, the rng of its queries,
+    [(B, timed or None), ...]): the first shapes from ``rng`` (so they keep
+    their data), then the split-W, one-tile and exact-path shapes from
+    ``rng_m``. Generated lazily, one db at a time."""
+    n_small = sizes.parity_rows // 8 + 5
+    yield (L_SMOKE, random_db(rng, sizes.parity_rows, L_SMOKE), rng,
+           [(sizes.parity_queries, "parity")])
+    yield (L_SMOKE, random_db(rng, sizes.db_rows, L_SMOKE), rng,
+           [(sizes.main_batch, "main")])
+    for L in (3, 150):
+        codes = random_db(rng, n_small, L) if L > 3 else rng.integers(
+            0, 5, (n_small, L), dtype=np.uint8)
+        yield L, codes, rng, [(1000, None)]
+    yield (L_SMOKE, random_db(rng_m, sizes.db_rows, L_SMOKE), rng_m,
+           [(512, "b512")])
+    yield (L_SMOKE, random_db(rng_m, sizes.parity_rows, L_SMOKE), rng_m,
+           [(b, None) for b in sizes.split_queries])
+    yield L_SMOKE, random_db(rng_m, 64, L_SMOKE), rng_m, [(77, None)]
+    same = rng_m.integers(0, 4, (1, L_SMOKE), dtype=np.uint8)
+    yield (L_SMOKE, np.repeat(same, sizes.exact_rows, axis=0), rng_m,
+           [(77, None)])
+    yield (L_SMOKE, rng_m.integers(0, 4, (sizes.exact_rows, L_SMOKE),
+                                   dtype=np.uint8), rng_m, [(77, "last_row")])
+
+
+def min2_splits(min2_mod, b: int, wp: int, ep: int, sms: int) -> int:
+    """The db splits the min2 wrapper launches with."""
+    if ep > min2_mod.SPLIT_EP_MAX:
+        return 1
+    return min2_mod.split_count(b, wp, sms * min2_mod.BLOCKS_PER_SM)
+
+
+def kernel_parity(sizes, dev, D, K, min2_mod, compact_mod, rng, rng_m) -> dict:
     """Phase 2: kernels vs plain versions on the card, exact. Timed at
     the issue's parity shapes and at the shapes the main path gives the
-    kernels (min2: one query batch of phase A; compact_mask: a
-    compaction sub-batch of tied rows); the summary keeps the latter."""
+    kernels (min2: one query batch of phase A, and B = 512; compact_mask:
+    a compaction sub-batch of tied rows); the summary keeps the latter."""
     timings = {}
-    b_main, w_main = sizes.main_batch, sizes.db_rows
-    cases = [(L_SMOKE, sizes.parity_queries, sizes.parity_rows, "parity"),
-             (L_SMOKE, b_main, w_main, "main"),
-             (3, 1000, sizes.parity_rows // 8 + 5, None),
-             (150, 1000, sizes.parity_rows // 8 + 5, None)]
-    for L, b, n, timed in cases:
-        codes = random_db(rng, n, L) if L > 3 else rng.integers(
-            0, 5, (n, L), dtype=np.uint8)
-        q = mutate(rng, codes[rng.integers(0, n, b)], 6)
-        q[: b // 8] = codes[rng.integers(0, n, b // 8)]  # exact copies
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for L, codes, qrng, runs in min2_cases(sizes, rng, rng_m):
+        n = codes.shape[0]
         wp = -(-n // D.WP_MULTIPLE) * D.WP_MULTIPLE
         shift = K.packing_shift(L, wp)
+        ep = D.embed_width(L)
         db_emb, zc = D.embed_db(torch.from_numpy(codes).to(dev), L, wp)
-        q_emb = D.expand_embed_query(torch.from_numpy(q).to(dev), L)
-        for with_count in (True, False):
-            got = min2_mod.min2(q_emb, db_emb, zc, L, shift, with_count)
-            want = D.min2_reference(q_emb, db_emb, zc, L, shift, with_count)
-            torch.cuda.synchronize()
-            err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
-            if err != 0:
-                raise AssertionError(
-                    f"min2 kernel differs from its plain version at L={L} "
-                    f"B={b} W={n} with_count={with_count} (max |err| {err})")
-        log("kernel_parity", kernel="min2", L=L, B=b, W=n, exact=True)
-        if timed:
-            ms = time_ms(lambda: min2_mod.min2(q_emb, db_emb, zc, L, shift), sizes.reps)
-            plain_ms = time_ms(lambda: D.min2_reference(q_emb, db_emb, zc, L, shift), 2)
-            timings[("min2", timed)] = {"ms": ms, "plain_ms": plain_ms}
-            log("kernel_time", kernel="min2", L=L, B=b, W=n, ms=ms,
-                plain_ms=plain_ms, comparisons_per_s=b * n / (ms / 1e3))
-        del db_emb, zc, q_emb, got, want
+        for b, timed in runs:
+            if timed == "last_row":  # exact and mutated copies of the last row
+                q = mutate(qrng, codes[[n - 1] * b], 6)
+                q[: b // 2] = codes[n - 1]
+            else:
+                q = mutate(qrng, codes[qrng.integers(0, n, b)], 6)
+                q[: b // 8] = codes[qrng.integers(0, n, b // 8)]  # exact copies
+            q_emb = D.expand_embed_query(torch.from_numpy(q).to(dev), L)
+            for with_count in (True, False):
+                got = min2_mod.min2(q_emb, db_emb, zc, L, shift, with_count)
+                want = D.min2_reference(q_emb, db_emb, zc, L, shift, with_count)
+                torch.cuda.synchronize()
+                err = max(int((g.long() - w.long()).abs().max())
+                          for g, w in zip(got, want))
+                if err != 0:
+                    raise AssertionError(
+                        f"min2 kernel differs from its plain version at L={L} "
+                        f"B={b} W={n} with_count={with_count} (max |err| {err})")
+                if with_count:
+                    min_dist = int(want[0].min()) >> shift
+                    max_count = int(want[2].max())
+            log("kernel_parity", kernel="min2", L=L, B=b, W=n,
+                splits=min2_splits(min2_mod, b, wp, ep, sms),
+                min_dist=min_dist, max_count=max_count, exact=True)
+            if timed in ("parity", "main", "b512"):
+                ms = time_ms(lambda: min2_mod.min2(q_emb, db_emb, zc, L, shift), sizes.reps)
+                plain_ms = time_ms(lambda: D.min2_reference(q_emb, db_emb, zc, L, shift), 2)
+                timings[("min2", timed)] = log_time(
+                    "min2", L, b, n, ms, plain_ms,
+                    bound(b, n, L, ep, out_bytes=3 * 4 * b),
+                    splits=min2_splits(min2_mod, b, wp, ep, sms))
+            del q_emb, got, want
+        del db_emb, zc
     codes = random_db(rng, sizes.parity_rows_compact, L_SMOKE)
     n = codes.shape[0]
     wp = -(-n // D.WP_MULTIPLE) * D.WP_MULTIPLE
@@ -212,9 +290,10 @@ def kernel_parity(sizes, dev, D, K, min2_mod, compact_mod, rng) -> dict:
             q_emb, db_emb, zc, thresh, L_SMOKE), sizes.reps)
         plain_ms = time_ms(lambda: D.compact_mask_reference(
             q_emb, db_emb, zc, thresh, L_SMOKE), 2)
-        timings[("compact_mask", timed)] = {"ms": ms, "plain_ms": plain_ms}
-        log("kernel_time", kernel="compact_mask", L=L_SMOKE, B=b, W=n, ms=ms,
-            plain_ms=plain_ms, comparisons_per_s=b * n / (ms / 1e3))
+        timings[("compact_mask", timed)] = log_time(
+            "compact_mask", L_SMOKE, b, n, ms, plain_ms,
+            bound(b, n, L_SMOKE, D.embed_width(L_SMOKE), out_bytes=b * wp // 8,
+                  extra_in_bytes=4 * b))
     return {name: {"max_abs_err": 0, **t}
             for (name, which), t in timings.items() if which == "main"}
 
@@ -265,9 +344,9 @@ def min_count_parity(sizes, dev, D, K, mc_mod, rng) -> dict:
             q_emb, emb, zc, w, L_SMOKE, shift, False), reps)
         plain_ms = time_ms(lambda: D.min_count_reference(
             q_emb, emb, zc, w, L_SMOKE, shift, False), max(2, reps // 5))
-        timings[which] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        log("kernel_time", kernel="min_count", L=L_SMOKE, B=b, W=w, ms=ms,
-            plain_ms=plain_ms, comparisons_per_s=b * w / (ms / 1e3))
+        timings[which] = {"max_abs_err": err, **log_time(
+            "min_count", L_SMOKE, b, w, ms, plain_ms,
+            bound(b, w, L_SMOKE, D.embed_width(L_SMOKE), out_bytes=4 * b))}
     return timings["main"]
 
 
@@ -301,9 +380,11 @@ def kstats_parity(sizes, dev, D, K, ks_mod, rng) -> dict:
                      sizes.reps)
         plain_ms = time_ms(lambda: D.stats_reference(q_emb, db_emb, zc, ts, n,
                                                      L_SMOKE), 2)
-        log("kernel_time", kernel="kstats", L=L_SMOKE, B=b, W=n, ms=ms,
-            plain_ms=plain_ms, comparisons_per_s=b * n / (ms / 1e3))
-        timings[which] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        timings[which] = {"max_abs_err": err, **log_time(
+            "kstats", L_SMOKE, b, n, ms, plain_ms,
+            bound(b, n, L_SMOKE, D.embed_width(L_SMOKE),
+                  out_bytes=4 * (K.KSTATS_PROBES + 1) * b,
+                  extra_in_bytes=4 * K.KSTATS_PROBES * b))}
     return timings["main"]
 
 
@@ -343,9 +424,10 @@ def kmode_compact_parity(sizes, dev, D, K, ks_mod, compact_mod, hitops,
         q_emb, db_emb, zc, thresh, L_SMOKE), sizes.reps)
     plain_ms = time_ms(lambda: D.compact_mask_reference(
         q_emb, db_emb, zc, thresh, L_SMOKE), 2)
-    log("kernel_time", kernel="compact_mask", L=L_SMOKE, B=b, W=n,
-        k=sizes.kmode_k, ms=ms, plain_ms=plain_ms,
-        comparisons_per_s=b * n / (ms / 1e3))
+    log_time("compact_mask", L_SMOKE, b, n, ms, plain_ms,
+             bound(b, n, L_SMOKE, D.embed_width(L_SMOKE),
+                   out_bytes=b * wp // 8, extra_in_bytes=4 * b),
+             k=sizes.kmode_k)
 
 
 def write_fasta(path: str, codes: np.ndarray, prefix: str) -> None:
@@ -680,7 +762,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.load()
-    log("build", seconds=time.perf_counter() - t0, library=str(_build.library_path().name))
+    # ptxas -v of min2.cu: registers, stack and spills of each kernel
+    ptxas = [line.strip() for line in _build.compile_log.get(
+        "min2.cu", "not measured (library already built)").splitlines()
+        if "entry function" in line or "spill" in line or "Used" in line
+        or "not measured" in line]
+    log("build", seconds=time.perf_counter() - t0,
+        library=str(_build.library_path().name), min2_ptxas=ptxas)
 
     # the query batch the CLI picks for this db (engine.query._auto_batch)
     sizes = smoke_sizes(query_mod)
@@ -688,8 +776,9 @@ def main() -> int:
     # the K-mode phases draw from a stream of their own, so the others
     # see the same data as before K-mode was added
     rng_k = np.random.default_rng([seed, 4])
+    rng_m = np.random.default_rng([seed, 5])  # min2's shapes added later
     dev = torch.device("cuda")
-    timing = kernel_parity(sizes, dev, D, K, min2_mod, compact_mod, rng)
+    timing = kernel_parity(sizes, dev, D, K, min2_mod, compact_mod, rng, rng_m)
     timing["min_count"] = min_count_parity(sizes, dev, D, K, mc_mod, rng)
     timing["kstats"] = kstats_parity(sizes, dev, D, K, ks_mod, rng_k)
     with tempfile.TemporaryDirectory(prefix="smafa_smoke_") as tmp:
@@ -702,30 +791,25 @@ def main() -> int:
     del codes
     clu = cluster_end_to_end(sizes, cli, cluster_mod, mc_mod, rng)
 
+    launches = {"min2": e2e["launches"]["min2"],
+                "compact_mask": e2e["launches"]["compact_mask"],
+                "min_count": clu["launches"]["min_count"],
+                "kstats": kmode["a"]["launches"]["kstats"]}
+    routes = {"min2": (MIN2_SOURCE, MIN2_REPLACES),
+              "compact_mask": (COMPACT_SOURCE, COMPACT_REPLACES),
+              "min_count": (MIN_COUNT_SOURCE, MIN_COUNT_REPLACES),
+              "kstats": (KSTATS_SOURCE, KSTATS_REPLACES)}
+    # library_ms: no single PyTorch call computes any of these per-row
+    # reductions over a distance matrix that is never materialised
+    # (torch._int_mm would write B x W int32: 128 GiB at min2's shape).
     kernels = [
-        {"name": "min2", "route": "cuda", "source": MIN2_SOURCE,
-         "replaces": MIN2_REPLACES, "launches": e2e["launches"]["min2"],
-         "max_abs_err": timing["min2"]["max_abs_err"],
-         "ms": timing["min2"]["ms"], "plain_ms": timing["min2"]["plain_ms"]},
-        {"name": "compact_mask", "route": "cuda", "source": COMPACT_SOURCE,
-         "replaces": COMPACT_REPLACES,
-         "launches": e2e["launches"]["compact_mask"],
-         "max_abs_err": timing["compact_mask"]["max_abs_err"],
-         "ms": timing["compact_mask"]["ms"],
-         "plain_ms": timing["compact_mask"]["plain_ms"]},
-        {"name": "min_count", "route": "cuda", "source": MIN_COUNT_SOURCE,
-         "replaces": MIN_COUNT_REPLACES,
-         "launches": clu["launches"]["min_count"],
-         "max_abs_err": timing["min_count"]["max_abs_err"],
-         "ms": timing["min_count"]["ms"],
-         "plain_ms": timing["min_count"]["plain_ms"]},
-        {"name": "kstats", "route": "cuda", "source": KSTATS_SOURCE,
-         "replaces": KSTATS_REPLACES,
-         "launches": kmode["a"]["launches"]["kstats"],
-         "max_abs_err": timing["kstats"]["max_abs_err"],
-         "ms": timing["kstats"]["ms"],
-         "plain_ms": timing["kstats"]["plain_ms"]},
-    ]
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[name],
+         "max_abs_err": timing[name]["max_abs_err"],
+         "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
+         "bound_ms": timing[name]["bound_ms"],
+         "bound_by": timing[name]["bound_by"], "library_ms": None}
+        for name, (src, rep) in routes.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,9 +15,11 @@ and ``--limit-per-sequence``), ``cluster`` and ``count`` on one device
 run here. The other paths (``--resume-state``, multi-host) exit 101
 with a message that points to ROADMAP.md.
 
-The device is resolved once, here: ``cuda`` when
-``torch.cuda.is_available()``, else ``cpu``; ``SMAFA_TPU_TORCH_DEVICE``
-(``cpu`` or ``cuda``) forces it.
+The device is resolved once, here: ``cuda`` by default, and ``cpu`` only
+when ``SMAFA_TPU_TORCH_DEVICE=cpu`` asks for it. Without a visible CUDA
+device a ``query`` or ``cluster`` that did not ask for the CPU fails
+(exit 101, naming the variable) rather than run the plain versions of
+the kernels unseen.
 """
 
 from __future__ import annotations
@@ -185,11 +187,11 @@ def resolve_device():
     if forced not in ("", "cpu", "cuda"):
         raise ValueError(
             f"SMAFA_TPU_TORCH_DEVICE={forced!r}: expected cpu or cuda")
-    if forced == "cuda" and not torch.cuda.is_available():
-        raise ValueError("SMAFA_TPU_TORCH_DEVICE=cuda but no CUDA device "
-                         "is available")
-    name = forced or ("cuda" if torch.cuda.is_available() else "cpu")
-    device = torch.device(name)
+    if forced != "cpu" and not torch.cuda.is_available():
+        raise ValueError(
+            "no CUDA device is available; set SMAFA_TPU_TORCH_DEVICE=cpu to "
+            "run on the CPU (the plain versions of the kernels)")
+    device = torch.device(forced or "cuda")
     logging.getLogger("smafa").info("Using device %s", device)
     return device
 

@@ -7,7 +7,9 @@ objects link into one shared library with a plain C interface, under
 and again whenever a source or header changes (the library's file name
 carries a hash of them). The library loads with ``ctypes``; every
 pointer and the stream are passed as ``c_void_p``. A failed build
-raises.
+raises. ``ptxas -v`` reports each kernel's registers, shared memory and
+spills; ``compile_log`` keeps that output of the last build in this
+process, per source.
 """
 
 from __future__ import annotations
@@ -27,14 +29,17 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v"]
 LINK_FLAGS = [*ARCH_FLAGS, "-shared"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # q, db, zc, lo, hi, cnt, B, W, EP, seq_len, shift, with_count, stream
-    "smafa_min2": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # q, db, zc, lo, hi, cnt, part, B, W, EP, seq_len, shift, with_count,
+    # splits, stream
+    "smafa_min2": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                   _P],
     # q, db, zc, thresh, mask, B, W, EP, seq_len, stream
     "smafa_compact_mask": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # q, db, zc, key, cnt, B, n_valid, EP, seq_len, shift, with_count, stream
@@ -46,6 +51,9 @@ _SIGNATURES = {
 
 class KernelBuildError(RuntimeError):
     pass
+
+
+compile_log: dict[str, str] = {}
 
 
 class _Loaded:
@@ -83,16 +91,17 @@ def library_path() -> Path:
     return BUILD_DIR / f"libsmafa_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _run_all(cmds: list[list[str]]) -> None:
-    """Run the commands in parallel; raise with the output of each that
-    failed. No process outlives the call."""
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands in parallel and return their outputs; raise with
+    the output of each that failed. No process outlives the call."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
-    failed = []
+    failed, texts = [], []
     try:
         for cmd, proc in zip(cmds, procs):
             text, _ = proc.communicate()
+            texts.append(text)
             if proc.returncode != 0:
                 failed.append(f"{' '.join(cmd)}\n(exit {proc.returncode})\n{text}")
     finally:
@@ -102,6 +111,7 @@ def _run_all(cmds: list[list[str]]) -> None:
                 proc.wait()
     if failed:
         raise KernelBuildError("nvcc failed:\n" + "\n".join(failed))
+    return texts
 
 
 def build() -> Path:
@@ -117,8 +127,9 @@ def build() -> Path:
     logger.info("Building CUDA kernels: %s", " ".join(s.name for s in sources))
     t0 = time.perf_counter()
     try:
-        _run_all([[nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
-                  for src, obj in zip(sources, objs)])
+        texts = _run_all([[nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+                          for src, obj in zip(sources, objs)])
+        compile_log.update((src.name, text) for src, text in zip(sources, texts))
         _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]])
         os.replace(tmp, out)  # atomic: a concurrent build never sees a torn file
     finally:

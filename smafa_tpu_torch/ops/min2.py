@@ -2,7 +2,8 @@
 
 CPU tensors take the plain version (``distance.min2_reference``); CUDA
 tensors launch the kernel on the current stream, or raise. ``launches``
-counts kernel launches.
+counts calls that launched the kernel (one per call, with or without
+the merge of its db splits).
 """
 
 from __future__ import annotations
@@ -13,6 +14,28 @@ from smafa_tpu_torch.ops import _build
 from smafa_tpu_torch.ops import distance as D
 
 launches = 0
+
+# The split kernel (csrc/min2.cu): query rows per block, blocks resident
+# on one SM, and the widest embedding it takes (L <= 64; wider ones take
+# the one-split long-window kernel).
+BM = 256
+BLOCKS_PER_SM = 2
+SPLIT_EP_MAX = 256
+
+
+def split_count(b: int, wp: int, slots: int) -> int:
+    """Db splits S of the kernel's grid (ceil(b / BM) query tiles x S),
+    given the card's resident block slots (SMs x blocks per SM): 1 when
+    the query tiles alone fill the slots, else as many as fit beside
+    them, never more than the 64-row tiles (split i of S walks tiles
+    tiles * i // S up to tiles * (i + 1) // S). Batches are padded to
+    powers of two, for which the grid comes within 3% of the 132 x k
+    slots of an H100."""
+    qtiles = -(-b // BM)
+    tiles = wp // D.WP_MULTIPLE
+    if qtiles >= slots:
+        return 1
+    return max(1, min(tiles, slots // qtiles))
 
 
 def check_operands(q_emb: torch.Tensor, db_emb: torch.Tensor,
@@ -62,12 +85,18 @@ def min2(q_emb: torch.Tensor, db_emb: torch.Tensor, zc: torch.Tensor,
     cnt = torch.empty_like(lo) if with_count else lo  # unused when off
     if b == 0:
         return (lo, hi, cnt) if with_count else (lo, hi)
+    ep = q_emb.shape[1]
+    sms = torch.cuda.get_device_properties(q_emb.device).multi_processor_count
+    s = 1 if ep > SPLIT_EP_MAX else split_count(b, wp, sms * BLOCKS_PER_SM)
+    # the splits' partials; the caching allocator ties it to this stream
+    part = torch.empty((3, s, b), dtype=torch.int32,
+                       device=q_emb.device) if s > 1 else None
     lib = _build.load()
     stream = torch.cuda.current_stream(q_emb.device).cuda_stream
     rc = lib.smafa_min2(q_emb.data_ptr(), db_emb.data_ptr(), zc.data_ptr(),
-                        lo.data_ptr(), hi.data_ptr(), cnt.data_ptr(), b, wp,
-                        q_emb.shape[1], seq_len, shift, int(with_count),
-                        stream)
+                        lo.data_ptr(), hi.data_ptr(), cnt.data_ptr(),
+                        None if part is None else part.data_ptr(), b, wp, ep,
+                        seq_len, shift, int(with_count), s, stream)
     _build.check(rc, "min2")
     launches += 1
     return (lo, hi, cnt) if with_count else (lo, hi)

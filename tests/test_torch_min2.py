@@ -128,3 +128,27 @@ def test_min2_rejects_bad_operands(port, bad):
         shift = 3
     with pytest.raises((TypeError, ValueError)):
         port.M.min2(q_emb, emb, zc, 13, shift)
+
+
+@pytest.mark.parametrize("b,wp", [(4096, (1 << 20) + 64), (1, (1 << 20) + 64),
+                                  (16, 64), (67584, 1 << 20)])
+def test_split_count_covers_the_db(port, b, wp):
+    """The kernel's db splits: at least one, each a positive run of whole
+    64-row tiles, together exactly [0, wp); one wave of blocks on an
+    H100's 132 SMs, and one split when the query tiles already fill
+    them."""
+    sms = 132 * port.M.BLOCKS_PER_SM  # resident block slots
+    s = port.M.split_count(b, wp, sms)
+    tiles = wp // WP_MULTIPLE  # the kernel's cut: split i of s
+    rows = [(tiles * i // s * WP_MULTIPLE, tiles * (i + 1) // s * WP_MULTIPLE)
+            for i in range(s)]
+    assert s >= 1 and len(rows) == s
+    assert rows[0][0] == 0 and rows[-1][1] == wp
+    assert all(e0 == b1 for (_, e0), (b1, _) in zip(rows, rows[1:]))
+    assert all(e > b0 and (e - b0) % WP_MULTIPLE == 0 for b0, e in rows)
+    qtiles = -(-b // port.M.BM)
+    if qtiles >= sms:
+        assert s == 1
+    else:
+        assert qtiles * s <= sms
+        assert s == wp // WP_MULTIPLE or qtiles * (s + 1) > sms

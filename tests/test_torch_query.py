@@ -234,11 +234,19 @@ def test_help_and_version(capsys):
 
 
 @pytest.mark.parametrize("value,ok", [("cpu", True), ("CUDA", False),
-                                      ("tpu", False)])
+                                      ("tpu", False), (None, False)])
 def test_device_env(capsys, monkeypatch, value, ok):
     """SMAFA_TPU_TORCH_DEVICE forces the device; cuda without a card and
-    unknown values are errors (this machine has no card)."""
-    monkeypatch.setenv("SMAFA_TPU_TORCH_DEVICE", value)
+    unknown values are errors. Unset, the device is cuda: with no card
+    visible the run fails and names the variable, never falling back to
+    the CPU."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if value is None:
+        monkeypatch.delenv("SMAFA_TPU_TORCH_DEVICE")
+    else:
+        monkeypatch.setenv("SMAFA_TPU_TORCH_DEVICE", value)
     code, out, err = run(capsys, main1, "query", "-d",
                          f"{D}/random_3_2.fna.smafadb", "-q",
                          f"{D}/random_3_2.fna")
