@@ -5,7 +5,8 @@ Phases, one line each:
 
 0. device: the card's name and power limit (nvidia-smi) and the
    torch/CUDA versions; fails when no CUDA device is visible.
-1. build: compiles the CUDA kernels from smafa_tpu_torch/csrc with nvcc.
+1. build: compiles the CUDA kernels from smafa_tpu_torch/csrc with nvcc;
+   logs min2.cu's and compact.cu's ``ptxas -v`` (registers, spills).
 2. kernel parity: each kernel against its plain PyTorch version on the
    card, exact equality (all values are integers), with both times and
    the kernel's bound (the larger of its int8 operations over 1,979
@@ -13,7 +14,10 @@ Phases, one line each:
    min2 also at its split-W shapes (B = 1, 16, 77 x 2^20 + 37 rows), one
    64-row tile, a db of one repeated row (cnt = every row) and a db whose
    only exact match is its last real row; timed at the main-path batch
-   and at B = 512 and 4096.
+   and at B = 512 and 4096. compact_mask, each line with its route and
+   db splits, timed at B = 512 and 4096 x 2^20; also at its split shapes
+   (B = 1, 77 x 2^20 + 37), at thresh = L (every real window set) and on
+   its long-window route at L = 150 (timed at 4096 x 2^20).
 3. end to end through the CLI: makedb --format native over a seeded
    2^20-window 60 bp db, then best-hit query of 65,536 reads at
    --max-divergence 5; checks the exit codes, that both kernels launched
@@ -214,18 +218,10 @@ def min2_cases(sizes, rng, rng_m):
                                    dtype=np.uint8), rng_m, [(77, "last_row")])
 
 
-def min2_splits(min2_mod, b: int, wp: int, ep: int, sms: int) -> int:
-    """The db splits the min2 wrapper launches with."""
-    if ep > min2_mod.SPLIT_EP_MAX:
-        return 1
-    return min2_mod.split_count(b, wp, sms * min2_mod.BLOCKS_PER_SM)
-
-
-def kernel_parity(sizes, dev, D, K, min2_mod, compact_mod, rng, rng_m) -> dict:
-    """Phase 2: kernels vs plain versions on the card, exact. Timed at
-    the issue's parity shapes and at the shapes the main path gives the
-    kernels (min2: one query batch of phase A, and B = 512; compact_mask:
-    a compaction sub-batch of tied rows); the summary keeps the latter."""
+def kernel_parity(sizes, dev, D, K, min2_mod, rng, rng_m) -> dict:
+    """Phase 2, min2: kernel vs plain version on the card, exact. Timed
+    at B = 4096 x (2^20 + 37), at the main path's query batch (the
+    summary's) and at B = 512."""
     timings = {}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for L, codes, qrng, runs in min2_cases(sizes, rng, rng_m):
@@ -256,17 +252,68 @@ def kernel_parity(sizes, dev, D, K, min2_mod, compact_mod, rng, rng_m) -> dict:
                     min_dist = int(want[0].min()) >> shift
                     max_count = int(want[2].max())
             log("kernel_parity", kernel="min2", L=L, B=b, W=n,
-                splits=min2_splits(min2_mod, b, wp, ep, sms),
+                splits=min2_mod.launch_plan(b, wp, ep, sms)[1],
                 min_dist=min_dist, max_count=max_count, exact=True)
             if timed in ("parity", "main", "b512"):
                 ms = time_ms(lambda: min2_mod.min2(q_emb, db_emb, zc, L, shift), sizes.reps)
                 plain_ms = time_ms(lambda: D.min2_reference(q_emb, db_emb, zc, L, shift), 2)
-                timings[("min2", timed)] = log_time(
+                timings[timed] = log_time(
                     "min2", L, b, n, ms, plain_ms,
                     bound(b, n, L, ep, out_bytes=3 * 4 * b),
-                    splits=min2_splits(min2_mod, b, wp, ep, sms))
+                    splits=min2_mod.launch_plan(b, wp, ep, sms)[1])
             del q_emb, got, want
         del db_emb, zc
+    return {"max_abs_err": 0, **timings["main"]}
+
+
+def compact_plan(compact_mod, b: int, wp: int, ep: int, dev) -> dict:
+    """The route and db splits the compact_mask wrapper launches with."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    route, splits = compact_mod.launch_plan(b, wp, ep, sms)
+    return {"route": route, "splits": splits}
+
+
+def compact_check(compact_mod, D, q_emb, db_emb, zc, thresh, L: int,
+                  where: str) -> torch.Tensor:
+    """The kernel's mask, held exactly to the plain version's."""
+    got = compact_mod.compact_mask(q_emb, db_emb, zc, thresh, L)
+    want = D.compact_mask_reference(q_emb, db_emb, zc, thresh, L)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"compact_mask kernel differs from its plain "
+                             f"version in {bad} words at {where}")
+    return got
+
+
+def compact_time(sizes, compact_mod, D, q_emb, db_emb, zc, thresh, L: int,
+                 n: int, **extra) -> dict:
+    """Log compact_mask's kernel_time line at these operands (n real db
+    rows); returns its summary fields."""
+    b, wp = q_emb.shape[0], db_emb.shape[0]
+    ms = time_ms(lambda: compact_mod.compact_mask(
+        q_emb, db_emb, zc, thresh, L), sizes.reps)
+    plain_ms = time_ms(lambda: D.compact_mask_reference(
+        q_emb, db_emb, zc, thresh, L), 2)
+    return log_time("compact_mask", L, b, n, ms, plain_ms,
+                    bound(b, n, L, D.embed_width(L), out_bytes=b * wp // 8,
+                          extra_in_bytes=4 * b), **extra)
+
+
+def row_hits(mask: torch.Tensor) -> np.ndarray:
+    """Set bits of each row of an int32 mask."""
+    return np.unpackbits(mask.cpu().numpy().view(np.uint8), axis=1).sum(axis=1)
+
+
+def compact_parity(sizes, dev, D, compact_mod, rng, rng_c) -> dict:
+    """Phase 2, compact_mask: kernel vs plain version on the card, exact,
+    each line with its route and db splits. Timed at B = 512 and at a
+    compaction sub-batch of 4096 tied rows (the summary's) x 2^20 rows,
+    thresholds 0-6 and a tenth of the rows off; then the split shapes
+    B = 1 and 77 x (2^20 + 37) at thresholds in [-1, 60], B = 77 at
+    thresh = L (every real window set, no padding bit), and the long
+    route (dp4a) at L = 150, timed at 4096 x 2^20."""
+    timings = {}
     codes = random_db(rng, sizes.parity_rows_compact, L_SMOKE)
     n = codes.shape[0]
     wp = -(-n // D.WP_MULTIPLE) * D.WP_MULTIPLE
@@ -277,25 +324,52 @@ def kernel_parity(sizes, dev, D, K, min2_mod, compact_mod, rng, rng_m) -> dict:
         th[rng.random(b) < 0.1] = -1
         q_emb = D.expand_embed_query(torch.from_numpy(q).to(dev), L_SMOKE)
         thresh = torch.from_numpy(th).to(dev)
-        got = compact_mod.compact_mask(q_emb, db_emb, zc, thresh, L_SMOKE)
-        want = D.compact_mask_reference(q_emb, db_emb, zc, thresh, L_SMOKE)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            bad = int((got != want).sum())
-            raise AssertionError(f"compact_mask kernel differs from its plain "
-                                 f"version in {bad} words at B={b}")
+        plan = compact_plan(compact_mod, b, wp, q_emb.shape[1], dev)
+        compact_check(compact_mod, D, q_emb, db_emb, zc, thresh, L_SMOKE,
+                      f"B={b}")
         log("kernel_parity", kernel="compact_mask", L=L_SMOKE, B=b, W=n,
-            exact=True)
-        ms = time_ms(lambda: compact_mod.compact_mask(
-            q_emb, db_emb, zc, thresh, L_SMOKE), sizes.reps)
-        plain_ms = time_ms(lambda: D.compact_mask_reference(
-            q_emb, db_emb, zc, thresh, L_SMOKE), 2)
-        timings[("compact_mask", timed)] = log_time(
-            "compact_mask", L_SMOKE, b, n, ms, plain_ms,
-            bound(b, n, L_SMOKE, D.embed_width(L_SMOKE), out_bytes=b * wp // 8,
-                  extra_in_bytes=4 * b))
-    return {name: {"max_abs_err": 0, **t}
-            for (name, which), t in timings.items() if which == "main"}
+            **plan, exact=True)
+        timings[timed] = compact_time(sizes, compact_mod, D, q_emb, db_emb,
+                                      zc, thresh, L_SMOKE, n, **plan)
+    del db_emb, zc, q_emb
+    n = sizes.parity_rows
+    codes = random_db(rng_c, n, L_SMOKE)
+    wp = -(-n // D.WP_MULTIPLE) * D.WP_MULTIPLE
+    db_emb, zc = D.embed_db(torch.from_numpy(codes).to(dev), L_SMOKE, wp)
+    for b, kind in ((1, "mixed"), (77, "mixed"), (77, "all")):
+        q = mutate(rng_c, codes[rng_c.integers(0, n, b)], 6)
+        th = (np.full(b, L_SMOKE) if kind == "all"
+              else rng_c.integers(-1, L_SMOKE + 1, b)).astype(np.int32)
+        q_emb = D.expand_embed_query(torch.from_numpy(q).to(dev), L_SMOKE)
+        got = compact_check(compact_mod, D, q_emb, db_emb, zc,
+                            torch.from_numpy(th).to(dev), L_SMOKE,
+                            f"B={b} W={n} thresh {kind}")
+        hits = row_hits(got)
+        if kind == "all" and (hits != n).any():
+            raise AssertionError("compact_mask at thresh = L: a row's hits "
+                                 "differ from the real windows")
+        log("kernel_parity", kernel="compact_mask", L=L_SMOKE, B=b, W=n,
+            thresh=kind, **compact_plan(compact_mod, b, wp, q_emb.shape[1], dev),
+            max_row_hits=int(hits.max()), exact=True)
+    del db_emb, zc, q_emb, got
+    L, b = 150, sizes.compact_rows
+    codes = random_db(rng_c, sizes.parity_rows_compact, L)
+    n = codes.shape[0]
+    wp = -(-n // D.WP_MULTIPLE) * D.WP_MULTIPLE
+    db_emb, zc = D.embed_db(torch.from_numpy(codes).to(dev), L, wp)
+    q = mutate(rng_c, codes[rng_c.integers(0, n, b)], 6)
+    th = rng_c.integers(0, 7, b).astype(np.int32)
+    th[rng_c.random(b) < 0.1] = -1
+    q_emb = D.expand_embed_query(torch.from_numpy(q).to(dev), L)
+    thresh = torch.from_numpy(th).to(dev)
+    plan = compact_plan(compact_mod, b, wp, q_emb.shape[1], dev)
+    compact_check(compact_mod, D, q_emb, db_emb, zc, thresh, L,
+                  f"L={L} B={b}")
+    log("kernel_parity", kernel="compact_mask", L=L, B=b, W=n, **plan,
+        exact=True)
+    compact_time(sizes, compact_mod, D, q_emb, db_emb, zc, thresh, L, n,
+                 **plan)
+    return {"max_abs_err": 0, **timings["main"]}
 
 
 def min_count_parity(sizes, dev, D, K, mc_mod, rng) -> dict:
@@ -405,29 +479,19 @@ def kmode_compact_parity(sizes, dev, D, K, ks_mod, compact_mod, hitops,
     thresh, hits = D.kmode_phase1(
         lambda ts: ks_mod.kstats(q_emb, db_emb, zc, ts, n, L_SMOKE),
         sizes.kmode_k, L_SMOKE + 1, n, L_SMOKE, b, dev)
-    got = compact_mod.compact_mask(q_emb, db_emb, zc, thresh, L_SMOKE)
-    want = D.compact_mask_reference(q_emb, db_emb, zc, thresh, L_SMOKE)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        bad = int((got != want).sum())
-        raise AssertionError(f"compact_mask kernel differs from its plain "
-                             f"version in {bad} words at the K-mode shape")
+    got = compact_check(compact_mod, D, q_emb, db_emb, zc, thresh, L_SMOKE,
+                        "the K-mode shape")
     if not torch.equal(D.extract_mask_hits(got)[2].to(torch.int32), hits):
         raise AssertionError("K-mode compaction counts differ from the "
                              "cutoff search's")
     th = thresh.cpu().numpy()
+    plan = compact_plan(compact_mod, b, wp, q_emb.shape[1], dev)
     log("kernel_parity", kernel="compact_mask", L=L_SMOKE, B=b, W=n,
         k=sizes.kmode_k, thresh_min=int(th.min()),
         thresh_median=float(np.median(th)), thresh_max=int(th.max()),
-        hits=int(hits.sum()), exact=True)
-    ms = time_ms(lambda: compact_mod.compact_mask(
-        q_emb, db_emb, zc, thresh, L_SMOKE), sizes.reps)
-    plain_ms = time_ms(lambda: D.compact_mask_reference(
-        q_emb, db_emb, zc, thresh, L_SMOKE), 2)
-    log_time("compact_mask", L_SMOKE, b, n, ms, plain_ms,
-             bound(b, n, L_SMOKE, D.embed_width(L_SMOKE),
-                   out_bytes=b * wp // 8, extra_in_bytes=4 * b),
-             k=sizes.kmode_k)
+        hits=int(hits.sum()), **plan, exact=True)
+    compact_time(sizes, compact_mod, D, q_emb, db_emb, zc, thresh, L_SMOKE,
+                 n, k=sizes.kmode_k, **plan)
 
 
 def write_fasta(path: str, codes: np.ndarray, prefix: str) -> None:
@@ -762,13 +826,15 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.load()
-    # ptxas -v of min2.cu: registers, stack and spills of each kernel
-    ptxas = [line.strip() for line in _build.compile_log.get(
-        "min2.cu", "not measured (library already built)").splitlines()
+    # ptxas -v of min2.cu and compact.cu: registers, stack and spills of
+    # each kernel
+    ptxas = {f"{src}_ptxas": [
+        line.strip() for line in _build.compile_log.get(
+            f"{src}.cu", "not measured (library already built)").splitlines()
         if "entry function" in line or "spill" in line or "Used" in line
-        or "not measured" in line]
+        or "not measured" in line] for src in ("min2", "compact")}
     log("build", seconds=time.perf_counter() - t0,
-        library=str(_build.library_path().name), min2_ptxas=ptxas)
+        library=str(_build.library_path().name), **ptxas)
 
     # the query batch the CLI picks for this db (engine.query._auto_batch)
     sizes = smoke_sizes(query_mod)
@@ -777,8 +843,11 @@ def main() -> int:
     # see the same data as before K-mode was added
     rng_k = np.random.default_rng([seed, 4])
     rng_m = np.random.default_rng([seed, 5])  # min2's shapes added later
+    rng_c = np.random.default_rng([seed, 6])  # compact_mask's, likewise
     dev = torch.device("cuda")
-    timing = kernel_parity(sizes, dev, D, K, min2_mod, compact_mod, rng, rng_m)
+    timing = {"min2": kernel_parity(sizes, dev, D, K, min2_mod, rng, rng_m)}
+    timing["compact_mask"] = compact_parity(sizes, dev, D, compact_mod, rng,
+                                            rng_c)
     timing["min_count"] = min_count_parity(sizes, dev, D, K, mc_mod, rng)
     timing["kstats"] = kstats_parity(sizes, dev, D, K, ks_mod, rng_k)
     with tempfile.TemporaryDirectory(prefix="smafa_smoke_") as tmp:

@@ -1,7 +1,8 @@
-// Best-hit tie enumeration on Hopper: the hit bitmask of a compaction pass.
+// The hit bitmask of a compaction pass on Hopper (best-hit rows with more
+// than two ties, and K-mode enumeration).
 //
 // Replaces smafa_tpu/ops/pallas_scan.py:_compact_kernel (entry
-// compact_mask_pallas). Same contract: for query row r and db row w,
+// compact_mask_pallas). Same contract: for query row r and db row w < W,
 //
 //   dist = seq_len - q_emb[r] . db_emb[w] - zc[w]
 //   bit (w % 32) of mask[r, w / 32] is set  iff  dist <= thresh[r]
@@ -11,34 +12,205 @@
 // mask is stored as int32 words with the uint32 bit order of the TPU
 // kernel.
 //
-// What bounds it on the H100: the dp4a contraction, K / 4 dp4a plus
-// K / 4 shared loads per (row, window) on the CUDA cores. The pass runs
-// only for the few query rows whose minimum has more than two ties, so
-// it is small next to phase A; its output (B * W / 8 bytes) is the
-// other cost.
+// What bounds it on the H100: the int8 contraction, 2 * B * W * 4L
+// operations over 1,979 TOP/s, which is 1.04 ms at 4096 x 2^20 and
+// 2.08 ms at 8192 x 2^20 (L = 60). Its bytes (the db and its zc once,
+// the mask B * W / 8 once) take 0.24 and 0.40 ms at 3.35 TB/s. The first
+// version (compact_long_kernel below) took the dot products with __dp4a
+// on the CUDA cores and reached 2.35% of that bound.
 //
-// Design: a fully parallel grid over (db tile of 256 windows, query
-// tile of 32 rows), with no carried state. Each thread owns one window
-// and accumulates its 32 dot products in registers while K streams
-// through shared memory in 128-byte chunks (db rows padded to 33 words,
-// so each thread reads its own row without bank conflicts; query words
-// are broadcast). The compare result of 32 adjacent windows is packed by
-// one __ballot_sync per warp and lane 0 writes the word; this replaces
-// the TPU's powers-of-two matmul bit pack.
+// What the design does about it (compact_split_kernel): it runs min2's
+// tensor-core tile and main loop (split_tile.cuh; see min2.cu, lever 3):
+// ceil(B / 256) query tiles x S db splits, S from ops/min2.py's
+// split_count, each split a contiguous run of whole 64-row db tiles.
+// Each (row, window) bit belongs to one block, so there is no merge and
+// no scratch. The mma.sync accumulators start from the columns' zc, so
+// each ends as the window's score (matches), and a window is a hit iff
+// score >= seq_len - thresh[r], a per-row bound kept in registers (rows
+// at or past B get INT_MAX). The epilogue is a compare and a predicated
+// OR per accumulator into the row's two words of the tile, an OR of the
+// four lanes that share a row (two xor shuffles per word), and one 8-byte
+// store per row and tile: a quarter of a 32-byte sector, which L2 merges
+// with the next three tiles' stores before it writes the sector back.
+// The store takes ~8% of the kernel's time; keeping four tiles' words
+// in the quad and storing each row's 32 bytes at once saved 1-2% for 88
+// bytes of spills, so the simple store stays (PERF.md, section 6).
+//
+// Longer windows (EP > 256) take compact_long_kernel, the first
+// version's loop, one split: each thread owns one window and
+// accumulates 32 query rows' dot products while K streams through shared
+// memory in 128-byte chunks; __ballot_sync packs 32 windows' compares
+// into a word.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <climits>
+
+#include "scan_tile.cuh"
+#include "split_tile.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;  // windows per block, one per thread
-constexpr int QT = 32;        // query rows per block
-constexpr int KW = 32;        // K chunk in 32-bit words
+using namespace split_tile;
 
+constexpr int THREADS = 256;  // long route: windows per block, one per thread
+constexpr int QT = 32;        // long route: query rows per block
+constexpr int KW = 32;        // long route: K chunk in 32-bit words
+
+// w |= bit where s >= bound: a compare and a predicated OR.
+__device__ __forceinline__ void set_if_ge(unsigned& w, int s, int bound,
+                                          unsigned bit) {
+  asm("{\n\t.reg .pred p;\n\tsetp.ge.s32 p, %1, %2;\n\t@p or.b32 %0, %0, %3;\n\t}"
+      : "+r"(w)
+      : "r"(s), "r"(bound), "r"(bit));
+}
+
+// mask: [B, W / 32] words; split blockIdx.y of gridDim.y.
+__global__ void __launch_bounds__(S_THREADS, S_BLOCKS_PER_SM)
+    compact_split_kernel(const int8_t* __restrict__ q,
+                         const int8_t* __restrict__ db,
+                         const int* __restrict__ zc,
+                         const int* __restrict__ thresh,
+                         unsigned* __restrict__ mask, int B, int W, int EP,
+                         int seq_len) {
+  extern __shared__ __align__(16) int8_t smem[];
+  const int stride = EP + S_PAD;
+  const int sbytes = stage_bytes(stride);
+  int8_t* sA = smem;  // the block's S_BM query rows
+  int8_t* ring = smem + S_BM * stride;
+  const int nks = EP >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // mma groupID: fragment row / db column
+  const int t = lane & 3;   // mma threadID_in_group
+  const long q0 = (long)blockIdx.x * S_BM + warp * 32;
+  const bool live = q0 < B;  // the warp has a row below B
+  const int tiles = W / S_BN;
+  const int t_begin = (int)((long)tiles * blockIdx.y / gridDim.y);
+  const int nt = (int)((long)tiles * (blockIdx.y + 1) / gridDim.y) - t_begin;
+
+  // The query tile, zero past B, joins the first tile's copy group.
+  const long b0 = (long)blockIdx.x * S_BM;
+  for (int i = threadIdx.x; i < S_BM * 16; i += S_THREADS) {
+    const int r = i >> 4, v = i & 15;
+    if (v * 16 >= EP) continue;
+    if (b0 + r < B) {
+      cp_async16(sA + r * stride + v * 16, q + (b0 + r) * EP + v * 16);
+    } else {
+      *reinterpret_cast<int4*>(sA + r * stride + v * 16) = make_int4(0, 0, 0, 0);
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < S_STAGES - 1; ++s) {
+    if (s < nt) {
+      issue_tile(ring + s * sbytes, db, zc, (long)(t_begin + s) * S_BN, EP,
+                 stride);
+    }
+    cp_async_commit();
+  }
+
+  // This lane's rows i = 2m + h are q0 + 16m + g + 8h = q0 + g + 8i.
+  // dist <= thresh iff score >= seq_len - thresh (no int overflow: the
+  // bound is clamped to INT_MAX, above every score).
+  int bound[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long row = q0 + g + 8 * i;
+    bound[i] = row < B ? (int)min((long long)INT_MAX,
+                                  (long long)seq_len - thresh[row])
+                       : INT_MAX;
+  }
+  const long words = W >> 5;
+  unsigned* out = mask + (q0 + g) * words;  // row i at + 8 * i * words
+
+  // ldmatrix.x4 row addresses, as in min2_split_kernel.
+  const int b_off = ((lane >> 4) * 8 + (lane & 7)) * stride + ((lane >> 3) & 1) * 16;
+  const int8_t* a_row = sA + (warp * 32 + (lane & 7) + ((lane >> 3) & 1) * 8) * stride +
+                        (lane >> 4) * 16;
+
+  for (int it = 0; it < nt; ++it) {
+    cp_async_wait<S_STAGES - 2>();
+    __syncthreads();  // tile it visible; stage (it - 1) % S_STAGES free
+    {
+      const int nx = it + S_STAGES - 1;
+      if (nx < nt) {
+        issue_tile(ring + (nx % S_STAGES) * sbytes, db, zc,
+                   (long)(t_begin + nx) * S_BN, EP, stride);
+      }
+      cp_async_commit();
+    }
+    if (!live) continue;  // the last query tile's rows past B
+    const int8_t* sD = ring + (it % S_STAGES) * sbytes;
+    const int* sZ = reinterpret_cast<const int*>(sD + S_BN * stride);
+    // acc[m][n][2h + c]: row i = 2m + h, tile column 8n + 2t + c; it
+    // starts at the column's zc and ends as the window's score.
+    int acc[2][8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int2 z = *reinterpret_cast<const int2*>(sZ + n * 8 + 2 * t);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        acc[m][n][0] = acc[m][n][2] = z.x;
+        acc[m][n][1] = acc[m][n][3] = z.y;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < S_KS; ++k) {
+      if (k < nks) {
+        uint32_t af[2][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) ldmatrix_x4(af[m], a_row + m * 16 * stride + k * 32);
+        uint32_t p[4][4];
+#pragma unroll
+        for (int pr = 0; pr < 4; ++pr) {
+          ldmatrix_x4(p[pr], sD + b_off + pr * 16 * stride + k * 32);
+        }
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const uint32_t b[2] = {p[n >> 1][2 * (n & 1)], p[n >> 1][2 * (n & 1) + 1]};
+#pragma unroll
+          for (int m = 0; m < 2; ++m) scan_tile::mma_s8(acc[m][n], af[m], b);
+        }
+      }
+    }
+    // Column 8n + 2t + c is bit 8(n % 4) + 2t + c of the row's word lo
+    // (n < 4) or hi (n >= 4): set at 8(n % 4) + c here, shifted by 2t
+    // below, then ORed over the four lanes t of the row.
+    unsigned lo[4] = {0u, 0u, 0u, 0u}, hi[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          set_if_ge(n < 4 ? lo[i] : hi[i], acc[i >> 1][n][2 * (i & 1) + c],
+                    bound[i], 1u << (8 * (n & 3) + c));
+        }
+      }
+    }
+    const long w32 = (long)(t_begin + it) * (S_BN / 32);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      unsigned a = lo[i] << (2 * t), b = hi[i] << (2 * t);
+      a |= __shfl_xor_sync(0xffffffffu, a, 1);
+      b |= __shfl_xor_sync(0xffffffffu, b, 1);
+      a |= __shfl_xor_sync(0xffffffffu, a, 2);
+      b |= __shfl_xor_sync(0xffffffffu, b, 2);
+      if (t == 0 && q0 + g + 8 * i < B) {
+        *reinterpret_cast<uint2*>(out + 8 * i * words + w32) = make_uint2(a, b);
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// Long windows (EP > S_KS * 32): the first version, one split. A grid
+// over (db tile of 256 windows, query tile of 32 rows); db rows padded
+// to 33 words in shared memory, so each thread reads its own row without
+// bank conflicts, and query words are broadcast.
 __global__ void __launch_bounds__(THREADS)
-    compact_kernel(const int* __restrict__ q, const int* __restrict__ db,
-                   const int* __restrict__ zc, const int* __restrict__ thresh,
-                   int* __restrict__ mask, int B, int W, int EP, int seq_len) {
+    compact_long_kernel(const int* __restrict__ q, const int* __restrict__ db,
+                        const int* __restrict__ zc,
+                        const int* __restrict__ thresh, int* __restrict__ mask,
+                        int B, int W, int EP, int seq_len) {
   __shared__ int sD[THREADS][KW + 1];
   __shared__ int sQ[QT][KW];
   const int tid = threadIdx.x;
@@ -95,16 +267,34 @@ __global__ void __launch_bounds__(THREADS)
 
 // Launch on `stream`. q: int8 [B, EP], db: int8 [W, EP], zc: int32 [W],
 // thresh: int32 [B], mask: int32 [B, W / 32]. Requires EP % 32 == 0,
-// W % 32 == 0, B <= 65535 * 32 and 4-byte aligned q and db. Returns the
-// cudaError_t of the launch.
+// W % 64 == 0, 16-byte aligned q and db, 1 <= splits <= W / 64 when
+// EP <= 256, and splits == 1 and B <= 65535 * 32 when EP > 256. Returns
+// the cudaError_t of the launch.
 extern "C" int smafa_compact_mask(const void* q, const void* db,
                                   const void* zc, const void* thresh,
                                   void* mask, int B, int W, int EP,
-                                  int seq_len, void* stream) {
-  const dim3 grid((W + THREADS - 1) / THREADS, (B + QT - 1) / QT);
-  compact_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(q), static_cast<const int*>(db),
+                                  int seq_len, int splits, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (EP > S_KS * 32) {
+    if (splits != 1) return (int)cudaErrorInvalidValue;
+    const dim3 grid((W + THREADS - 1) / THREADS, (B + QT - 1) / QT);
+    compact_long_kernel<<<grid, THREADS, 0, s>>>(
+        static_cast<const int*>(q), static_cast<const int*>(db),
+        static_cast<const int*>(zc), static_cast<const int*>(thresh),
+        static_cast<int*>(mask), B, W, EP, seq_len);
+    return (int)cudaGetLastError();
+  }
+  if (W % S_BN || splits < 1 || splits > W / S_BN) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int smem = split_smem(EP);
+  const cudaError_t err = cudaFuncSetAttribute(
+      compact_split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  compact_split_kernel<<<dim3((B + S_BM - 1) / S_BM, splits), S_THREADS, smem,
+                         s>>>(
+      static_cast<const int8_t*>(q), static_cast<const int8_t*>(db),
       static_cast<const int*>(zc), static_cast<const int*>(thresh),
-      static_cast<int*>(mask), B, W, EP, seq_len);
+      static_cast<unsigned*>(mask), B, W, EP, seq_len);
   return (int)cudaGetLastError();
 }

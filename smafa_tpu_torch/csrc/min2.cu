@@ -39,7 +39,8 @@
 //    min2_merge_kernel, launched right after on the same stream, takes
 //    the min of lo and hi and sums the counts of the splits whose
 //    partial distance (lo >> shift) is the row's minimum.
-// 3. Feeding the tensor cores: each warp owns 32 query rows (two m16
+// 3. Feeding the tensor cores (the tile of split_tile.cuh, which
+//    compact.cu shares): each warp owns 32 query rows (two m16
 //    tiles) against all 64 columns of a tile, so each B fragment feeds
 //    two mma.sync.m16n8k32 s8 products and each A fragment eight. The
 //    block's 256 query rows stay in shared memory (EP <= 256 bytes,
@@ -58,84 +59,14 @@
 #include <climits>
 
 #include "scan_tile.cuh"
+#include "split_tile.cuh"
 
 namespace {
 
 using scan_tile::BIG_KEY;
+using namespace split_tile;  // the tile's constants and copy helpers
 
-constexpr int S_WARPS = 8;
-constexpr int S_THREADS = S_WARPS * 32;
-constexpr int S_BM = S_WARPS * 32;  // query rows per block, 32 per warp
-constexpr int S_BN = 64;            // db rows per tile
-constexpr int S_KS = 8;             // k-steps of 32 bytes: EP <= 256
-constexpr int S_STAGES = 2;         // cp.async ring depth
-constexpr int S_BLOCKS_PER_SM = 2;  // resident blocks an SM holds
-constexpr int S_PAD = 16;           // bytes of padding per shared row
 constexpr int MERGE_THREADS = 256;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* s, const void* g) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(s)),
-               "l"(g)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* s, const void* g) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_addr(s)),
-               "l"(g)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8x8 b16 matrices; lanes 8j..8j+7 give the row addresses of
-// matrix j, and lane l receives 4 bytes of row l / 4 of each.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-__host__ __device__ constexpr int stage_bytes(int stride) {
-  return S_BN * stride + S_BN * (int)sizeof(int);
-}
-
-// Start the copy of db rows [w0, w0 + 64) and their zc into one stage.
-// Thread x copies 16-byte chunk x % 16 of rows x / 16 + 16 j.
-__device__ __forceinline__ void issue_tile(int8_t* st, const int8_t* db,
-                                           const int* zc, long w0, int ep,
-                                           int stride) {
-  const int v = threadIdx.x & 15;
-  if (v * 16 < ep) {
-#pragma unroll
-    for (int r = threadIdx.x >> 4; r < S_BN; r += S_THREADS / 16) {
-      cp_async16(st + r * stride + v * 16, db + (w0 + r) * (long)ep + v * 16);
-    }
-  }
-  if (threadIdx.x < S_BN) {
-    int* sz = reinterpret_cast<int*>(st + S_BN * stride);
-    cp_async4(sz + threadIdx.x, zc + w0 + threadIdx.x);
-  }
-}
-
-// Shared memory of a block: the query tile, then the ring of db tiles.
-inline int split_smem(int ep) {
-  return S_BM * (ep + S_PAD) + S_STAGES * stage_bytes(ep + S_PAD);
-}
 
 // lo/hi/cnt_out hold [S, B] partials (split s at s * B), or the final
 // outputs when S == 1.

@@ -1,6 +1,7 @@
 // Tile primitives shared by the scan kernels (min2.cu, min_count.cu,
-// kstats.cu): the block shape, the int8 tensor-core product and the
-// shared-memory tile load. A block owns BM query rows, one 16-row slab
+// kstats.cu; compact.cu takes mma_s8): the block shape, the int8
+// tensor-core product and the shared-memory tile load. A block owns BM
+// query rows, one 16-row slab
 // per warp, and walks the db in tiles of BN rows; products use
 // mma.sync.m16n8k32 s8.s8 -> s32.
 

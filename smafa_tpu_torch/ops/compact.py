@@ -1,5 +1,5 @@
 """Wrapper of the compact_mask kernel (``csrc/compact.cu``), the hit
-bitmask of best-hit tie enumeration.
+bitmask of best-hit tie enumeration and K-mode.
 
 CPU tensors take the plain version (``distance.compact_mask_reference``);
 CUDA tensors launch the kernel on the current stream, or raise.
@@ -12,10 +12,12 @@ import torch
 
 from smafa_tpu_torch.ops import _build
 from smafa_tpu_torch.ops import distance as D
-from smafa_tpu_torch.ops.min2 import check_operands
+from smafa_tpu_torch.ops.min2 import check_operands, launch_plan
 
 launches = 0
-MAX_ROWS = 65535 * 32  # the kernel's grid.y limit times its query tile
+# The long-window route's grid.y limit times its query tile; the split
+# route takes more.
+MAX_ROWS = 65535 * 32
 
 
 def compact_mask(q_emb: torch.Tensor, db_emb: torch.Tensor,
@@ -38,12 +40,15 @@ def compact_mask(q_emb: torch.Tensor, db_emb: torch.Tensor,
     mask = torch.empty((b, wp // 32), dtype=torch.int32, device=q_emb.device)
     if b == 0:
         return mask
+    ep = q_emb.shape[1]
+    sms = torch.cuda.get_device_properties(q_emb.device).multi_processor_count
+    _, splits = launch_plan(b, wp, ep, sms)
     lib = _build.load()
     stream = torch.cuda.current_stream(q_emb.device).cuda_stream
     rc = lib.smafa_compact_mask(q_emb.data_ptr(), db_emb.data_ptr(),
                                 zc.data_ptr(), thresh.data_ptr(),
-                                mask.data_ptr(), b, wp, q_emb.shape[1],
-                                seq_len, stream)
+                                mask.data_ptr(), b, wp, ep, seq_len, splits,
+                                stream)
     _build.check(rc, "compact_mask")
     launches += 1
     return mask

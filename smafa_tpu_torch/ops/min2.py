@@ -38,6 +38,16 @@ def split_count(b: int, wp: int, slots: int) -> int:
     return max(1, min(tiles, slots // qtiles))
 
 
+def launch_plan(b: int, wp: int, ep: int, sms: int) -> tuple[str, int]:
+    """(route, db splits) of a min2 or compact_mask launch on a card with
+    ``sms`` SMs: windows up to 64 bp (EP <= SPLIT_EP_MAX) take the split
+    tile ("split") with ``split_count`` splits over the card's resident
+    block slots; longer ones the one-split long-window kernel ("long")."""
+    if ep > SPLIT_EP_MAX:
+        return "long", 1
+    return "split", split_count(b, wp, sms * BLOCKS_PER_SM)
+
+
 def check_operands(q_emb: torch.Tensor, db_emb: torch.Tensor,
                    zc: torch.Tensor, seq_len: int) -> None:
     """Raise on operands the kernels do not take (shared with compact)."""
@@ -87,7 +97,7 @@ def min2(q_emb: torch.Tensor, db_emb: torch.Tensor, zc: torch.Tensor,
         return (lo, hi, cnt) if with_count else (lo, hi)
     ep = q_emb.shape[1]
     sms = torch.cuda.get_device_properties(q_emb.device).multi_processor_count
-    s = 1 if ep > SPLIT_EP_MAX else split_count(b, wp, sms * BLOCKS_PER_SM)
+    _, s = launch_plan(b, wp, ep, sms)
     # the splits' partials; the caching allocator ties it to this stream
     part = torch.empty((3, s, b), dtype=torch.int32,
                        device=q_emb.device) if s > 1 else None

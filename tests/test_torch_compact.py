@@ -119,3 +119,36 @@ def test_compact_rejects_bad_operands(port, bad):
         q_emb, emb, zc, thresh = (t.to("meta") for t in (q_emb, emb, zc, thresh))
     with pytest.raises((TypeError, ValueError)):
         port.C.compact_mask(q_emb, emb, zc, thresh, 13)
+
+
+@pytest.mark.parametrize("b,wp,want", [(4096, 1 << 20, 16), (8192, 1 << 20, 8),
+                                       (1, 70016, 264), (77, 70016, 264)])
+def test_compact_plan_covers_the_db(port, b, wp, want):
+    """The split route's db splits at the compaction's shapes (the query
+    smoke's 4096 tie rows and K-mode's 8192 rows x 2^20 windows: 16 x 16
+    and 32 x 8 blocks; B = 1 and 77 x 70,001 rows) on an H100's 132 SMs:
+    1 <= S <= tiles, and the kernel's cut (split i of S walks tiles
+    tiles * i // S up to tiles * (i + 1) // S) gives every split a tile
+    and every 64-row tile one split."""
+    route, s = port.C.launch_plan(b, wp, 256, 132)
+    tiles = wp // WP_MULTIPLE
+    assert route == "split" and s == want and 1 <= s <= tiles
+    cover = np.zeros(tiles, np.int64)
+    for i in range(s):
+        t0, t1 = tiles * i // s, tiles * (i + 1) // s
+        assert t1 > t0
+        cover[t0:t1] += 1
+    assert (cover == 1).all()
+
+
+def test_compact_plan_routes_by_width(port):
+    """Windows past 64 bp (EP > 256) take the long route with one split;
+    up to 64 bp the split route, at any batch."""
+    for seq_len in (3, 60, 64, 65, 150, 300):
+        ep = port.D.embed_width(seq_len)
+        for b in (1, 77, 4096, 65535 * 32):
+            route, s = port.C.launch_plan(b, 70016, ep, 132)
+            if seq_len > 64:
+                assert (route, s) == ("long", 1)
+            else:
+                assert route == "split" and 1 <= s <= 70016 // WP_MULTIPLE

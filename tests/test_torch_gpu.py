@@ -1,123 +1,21 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions on the card
+(min_count, kstats), and the runner, cluster and query engines on the
+card against the CPU. min2's and compact_mask's card tests are in
+tests/test_torch_gpu_min2.py and tests/test_torch_gpu_compact.py.
 
-Marked ``gpu``: each test skips where no CUDA device is visible. On a
-machine with a card (which need not have jax) run them with
-``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
-This file imports no jax; torch is imported by the ``cuda`` fixture, not
-at collection (see test_torch_min2.py).
+Marked ``gpu``: each test skips where no CUDA device is visible. Run with
+``python -m pytest --noconftest -m gpu tests/test_torch_gpu*.py``; the
+``cuda`` fixture is in tests/torch_gpu_common.py.
 """
 
 from __future__ import annotations
 
-import types
-
 import numpy as np
 import pytest
 
+from torch_gpu_common import cuda, operands  # noqa: F401
+
 pytestmark = pytest.mark.gpu
-
-WP_MULTIPLE = 64  # smafa_tpu_torch.ops.distance.WP_MULTIPLE
-
-
-@pytest.fixture
-def cuda():
-    import torch
-
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    from smafa_tpu_torch.engine import cluster
-    from smafa_tpu_torch.engine import query
-    from smafa_tpu_torch.ops import (compact, distance, keys, kstats, min2,
-                                     min_count)
-    from smafa_tpu_torch.parallel.runner import ScanRunner
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return types.SimpleNamespace(
-        dev=torch.device("cuda"), torch=torch, C=compact, D=distance,
-        K=keys, KS=kstats, M=min2, MC=min_count, ScanRunner=ScanRunner,
-        CL=cluster, Q=query)
-
-
-def _operands(g, seq_len, nw, b, seed):
-    rng = np.random.default_rng(seed)
-    codes = rng.integers(0, 5, (nw, seq_len), dtype=np.uint8)
-    codes[rng.integers(0, nw, nw // 10)] = codes[3]  # ties
-    q = codes[rng.integers(0, nw, b)].copy()
-    mut = rng.random(q.shape) < 0.05
-    q[mut] = rng.integers(0, 5, int(mut.sum())).astype(np.uint8)
-    q[:4] = codes[3]
-    wp = -(-nw // WP_MULTIPLE) * WP_MULTIPLE
-    emb, zc = g.D.embed_db(g.torch.from_numpy(codes).to(g.dev), seq_len, wp)
-    q_emb = g.D.expand_embed_query(g.torch.from_numpy(q).to(g.dev), seq_len)
-    return emb, zc, q_emb, g.K.packing_shift(seq_len, wp)
-
-
-@pytest.mark.parametrize("seq_len,nw,b", [(3, 5000, 77), (60, 70001, 300),
-                                          (60, 64, 1), (150, 9000, 129),
-                                          (300, 4000, 40)])
-@pytest.mark.parametrize("with_count", [True, False])
-def test_min2_kernel_equals_plain(cuda, seq_len, nw, b, with_count):
-    """L = 300 takes the kernel's K-streaming branch."""
-    emb, zc, q_emb, shift = _operands(cuda, seq_len, nw, b, nw)
-    before = cuda.M.launches
-    got = cuda.M.min2(q_emb, emb, zc, seq_len, shift, with_count)
-    want = cuda.D.min2_reference(q_emb, emb, zc, seq_len, shift, with_count)
-    cuda.torch.cuda.synchronize()
-    assert cuda.M.launches == before + 1
-    for a, w in zip(got, want):
-        assert cuda.torch.equal(a, w)
-
-
-@pytest.mark.parametrize("db_kind,b", [("random", 1), ("random", 77),
-                                       ("identical", 77), ("last_row", 77)])
-@pytest.mark.parametrize("with_count", [True, False])
-def test_min2_split_kernel_equals_plain(cuda, db_kind, b, with_count):
-    """The split-W grid (B = 1 and 77 give 264 splits of 70,001 rows, a
-    tile count S does not divide) and the exact path of the max-first
-    epilogue: a db of one repeated row (every tile reaches the running
-    best; cnt = 70,001), and one whose only exact match of the queries
-    is its last real row."""
-    torch = cuda.torch
-    seq_len, nw = 60, 70001
-    rng = np.random.default_rng(b)
-    codes = rng.integers(1, 5, (nw, seq_len), dtype=np.uint8)
-    if db_kind == "identical":
-        codes[:] = codes[0]
-    q = codes[rng.integers(0, nw, b)].copy()
-    mut = rng.random(q.shape) < 0.05
-    q[mut] = rng.integers(0, 5, int(mut.sum())).astype(np.uint8)
-    if db_kind == "last_row":
-        q[:] = codes[-1]
-    wp = -(-nw // WP_MULTIPLE) * WP_MULTIPLE
-    emb, zc = cuda.D.embed_db(torch.from_numpy(codes).to(cuda.dev), seq_len, wp)
-    q_emb = cuda.D.expand_embed_query(torch.from_numpy(q).to(cuda.dev), seq_len)
-    shift = cuda.K.packing_shift(seq_len, wp)
-    sms = torch.cuda.get_device_properties(cuda.dev).multi_processor_count
-    assert cuda.M.split_count(b, wp, sms * cuda.M.BLOCKS_PER_SM) > 1
-    got = cuda.M.min2(q_emb, emb, zc, seq_len, shift, with_count)
-    want = cuda.D.min2_reference(q_emb, emb, zc, seq_len, shift, with_count)
-    torch.cuda.synchronize()
-    for a, w in zip(got, want):
-        assert torch.equal(a, w)
-    if db_kind == "identical" and with_count:
-        assert (got[2] == nw).all()
-    if db_kind == "last_row":
-        assert (got[0] == nw - 1).all() and (got[1] == wp - nw).all()
-
-
-@pytest.mark.parametrize("seq_len,nw,b", [(3, 4096, 40), (60, 70016, 300),
-                                          (150, 9024, 33)])
-def test_compact_kernel_equals_plain(cuda, seq_len, nw, b):
-    rng = np.random.default_rng(b)
-    emb, zc, q_emb, _ = _operands(cuda, seq_len, nw, b, nw)
-    th = cuda.torch.from_numpy(
-        rng.integers(-1, 7, b).astype(np.int32)).to(cuda.dev)
-    before = cuda.C.launches
-    got = cuda.C.compact_mask(q_emb, emb, zc, th, seq_len)
-    want = cuda.D.compact_mask_reference(q_emb, emb, zc, th, seq_len)
-    cuda.torch.cuda.synchronize()
-    assert cuda.C.launches == before + 1
-    assert cuda.torch.equal(got, want)
 
 
 @pytest.mark.parametrize("seq_len", [3, 60, 150, 300])
@@ -308,7 +206,7 @@ def test_best_hit_query_batches_on_card_equal_cpu(cuda, tmp_path):
 
 def test_cuda_operands_checked(cuda):
     torch = cuda.torch
-    emb, zc, q_emb, shift = _operands(cuda, 13, 200, 8, 1)
+    emb, zc, q_emb, shift = operands(cuda, 13, 200, 8, 1)
     with pytest.raises(TypeError):
         cuda.M.min2(q_emb.to(torch.int32), emb, zc, 13, shift)
     with pytest.raises(ValueError):

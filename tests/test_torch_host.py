@@ -1,7 +1,9 @@
 """The port's host layers (copied from smafa_tpu because importing any
 smafa_tpu module loads jax) stay equal to the originals: same source
 apart from the package name, same values on tests/data, and
-byte-identical db files."""
+byte-identical db files. The FASTX batch, format and db cases are in
+test_torch_host_batches.py, test_torch_host_formats.py and
+test_torch_host_dbs.py, which take their helpers from here."""
 
 from __future__ import annotations
 
@@ -10,11 +12,10 @@ import pathlib
 import numpy as np
 import pytest
 
-from smafa_tpu.core import alphabet as A0, encoding as E0, windowset as W0
-from smafa_tpu.io import fastx as F0, native_format as N0, postcard as P0
-from smafa_tpu_torch.core import alphabet as A1, encoding as E1, windowset as W1
-from smafa_tpu_torch.io import db as DB1, fastx as F1, native_format as N1
-from smafa_tpu_torch.io import postcard as P1
+from smafa_tpu.core import alphabet as A0, windowset as W0
+from smafa_tpu.io import fastx as F0
+from smafa_tpu_torch.core import alphabet as A1, windowset as W1
+from smafa_tpu_torch.io import fastx as F1
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 DATA = ROOT / "tests" / "data"
@@ -51,15 +52,24 @@ def test_records_and_encoding_equal(fname):
                                       A0.encode_bytes(seq, rid))
 
 
-@pytest.mark.parametrize("fname", FASTX)
-@pytest.mark.parametrize("batch_size", [1, 2, 8192])
-def test_encoded_batches_equal(fname, batch_size):
+# Shared with the tests split off this file: test_torch_host_batches.py
+# and test_torch_host_formats.py (encoded batches), test_torch_host_dbs.py.
+BATCH_SIZES = [1, 2, 8192]
+
+
+def check_encoded_batches(fname, batch_size):
     want = list(F0.read_encoded_batches(DATA / fname, batch_size))
     got = list(F1.read_encoded_batches(DATA / fname, batch_size))
     assert len(got) == len(want)
     for (gi, gr, gc), (wi, wr, wc) in zip(got, want):
         assert list(gi) == list(wi) and list(gr) == list(wr)
         np.testing.assert_array_equal(gc, wc)
+
+
+def windowsets(rng, n, length):
+    codes = rng.integers(0, 5, (n, length), dtype=np.uint8)
+    return (W0.WindowSet.from_matrix(codes, 2),
+            W1.WindowSet.from_matrix(codes, 2))
 
 
 @pytest.mark.parametrize("body,err", [
@@ -77,60 +87,6 @@ def test_fastx_errors_equal(tmp_path, body, err):
         msgs.append(str(ei.value))
     assert err in msgs[1]
     assert msgs[0] == msgs[1]
-
-
-@pytest.mark.parametrize("length", [1, 3, 11, 12, 13, 60, 150])
-def test_pack_unpack_equal(length):
-    rng = np.random.default_rng(length)
-    chans = rng.integers(0, 5, (37, length), dtype=np.uint8)
-    w0 = E0.pack_channels(chans)
-    np.testing.assert_array_equal(E1.pack_channels(chans), w0)
-    np.testing.assert_array_equal(E1.unpack_words(w0, length),
-                                  E0.unpack_words(w0, length))
-
-
-def _windowsets(rng, n, length):
-    codes = rng.integers(0, 5, (n, length), dtype=np.uint8)
-    return (W0.WindowSet.from_matrix(codes, 2),
-            W1.WindowSet.from_matrix(codes, 2))
-
-
-@pytest.mark.parametrize("n,length", [(0, 3), (1, 1), (5, 3), (300, 60),
-                                      (1000, 13), (64, 150)])
-def test_postcard_dumps_byte_identical(n, length):
-    ws0, ws1 = _windowsets(np.random.default_rng(n), n, length)
-    blob = P0.dumps(ws0)
-    assert P1.dumps(ws1) == blob
-    back = P1.loads(blob)
-    np.testing.assert_array_equal(back.codes, ws0.codes)
-    assert back.length == (length if n else None)
-
-
-@pytest.mark.parametrize("n,length", [(0, 3), (5, 3), (300, 60), (64, 150)])
-def test_native_save_byte_identical(tmp_path, n, length):
-    ws0, ws1 = _windowsets(np.random.default_rng(n), n, length)
-    N0.save(ws0, tmp_path / "a")
-    N1.save(ws1, tmp_path / "b")
-    assert (tmp_path / "a").read_bytes() == (tmp_path / "b").read_bytes()
-    np.testing.assert_array_equal(N1.load(tmp_path / "a").codes, ws0.codes)
-
-
-@pytest.mark.parametrize("fname", DBS)
-def test_load_db_equal(fname):
-    from smafa_tpu.io.db import load_db as load0
-
-    try:
-        want = load0(DATA / fname)
-    except P0.UnsupportedDbVersion as exc:
-        with pytest.raises(P1.UnsupportedDbVersion) as ei:
-            DB1.load_db(DATA / fname)
-        assert str(ei.value) == str(exc)
-        return
-    got = DB1.load_db(DATA / fname)
-    np.testing.assert_array_equal(got.codes, want.codes)
-    assert (got.length, got.version) == (want.length, want.version)
-    assert [got.get_as_string(i) for i in range(len(got))] == \
-        [want.get_as_string(i) for i in range(len(want))]
 
 
 def test_windowset_errors_equal():

@@ -41,9 +41,13 @@ def test_bucket_equal(minimum):
         assert K.bucket(n, minimum) == D0.bucket(n, minimum)
 
 
-@pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 100, 2048, 3000])
-@pytest.mark.parametrize("multiple,minimum", [(1, 16), (4, 16), (3, 8)])
-def test_pad_batch_equal(n, multiple, minimum):
+# pad_batch's cases: batch rows x (multiple, minimum). The tests are in
+# test_torch_keys_pad.py (up to 16 rows) and test_torch_keys_pad_large.py.
+PAD_ROWS = [0, 1, 15, 16, 17, 100, 2048, 3000]
+PAD_SHAPES = [(1, 16), (4, 16), (3, 8)]
+
+
+def check_pad_batch(n, multiple, minimum):
     rng = np.random.default_rng(n)
     q = rng.integers(0, 5, (n, 7), dtype=np.uint8)
     g, gn, gb = K.pad_batch(q, multiple, minimum)
