@@ -6,7 +6,8 @@ Phases, one line each:
 0. device: the card's name and power limit (nvidia-smi) and the
    torch/CUDA versions; fails when no CUDA device is visible.
 1. build: compiles the CUDA kernels from smafa_tpu_torch/csrc with nvcc;
-   logs min2.cu's and compact.cu's ``ptxas -v`` (registers, spills).
+   logs min2.cu's, compact.cu's and kstats.cu's ``ptxas -v`` (registers,
+   spills).
 2. kernel parity: each kernel against its plain PyTorch version on the
    card, exact equality (all values are integers), with both times and
    the kernel's bound (the larger of its int8 operations over 1,979
@@ -24,7 +25,10 @@ Phases, one line each:
    during the run, and 512 sampled queries' lines against a numpy
    brute force.
 4. K-mode: the kstats kernel against its plain version on the card,
-   exact, at B = 16384 and 4096 against 2^20 + 37 db rows; compact_mask
+   exact, each line with its route and db splits, at B = 16384 and 4096
+   against 2^20 + 37 db rows (timed, with one whole K = 99 cutoff search
+   of 3 passes and their merges, held to its plain version), at B = 1
+   and 77 (many splits) and at n_valid = 37 (one partial tile); compact_mask
    against its plain version, exact, at the K-mode compaction's shape
    (8192 reads x phase 3's 2^20-window db, per-row thresholds the K = 99
    cutoffs); then K-mode query through the CLI on phase 3's db: (a)
@@ -104,6 +108,9 @@ def smoke_sizes(query_mod) -> types.SimpleNamespace:
         # limit_per_sequence, batch size)
         kstats_queries=((16384, "main"), (4096, "run_b")),
         kstats_rows=(1 << 20) + 37, kmode_k=99,
+        # kstats' split shapes: (B, n_valid) in the same buffer
+        kstats_split_shapes=((1, (1 << 20) + 37), (77, (1 << 20) + 37),
+                             (300, 37)),
         kmode_runs=(("a", 16384, None, None, 16384), ("b", 4096, 5, 1, None),
                     ("c", 65536, 5, None, 16384)),
         kmode_sample=256,
@@ -424,41 +431,83 @@ def min_count_parity(sizes, dev, D, K, mc_mod, rng) -> dict:
     return timings["main"]
 
 
-def kstats_parity(sizes, dev, D, K, ks_mod, rng) -> dict:
-    """Phase 4, kstats: kernel vs plain version on the card, exact, at the
-    K-mode batches of the CLI runs (B = 16384 and 4096) against 2^20 + 37
-    real db rows in a buffer padded to the 64-row tile, per-row
-    thresholds in [-1, 60]; both timed at each shape. The summary keeps
-    B = 16384."""
+def kstats_check(ks_mod, D, q_emb, db_emb, zc, ts, n_valid: int,
+                 where: str) -> None:
+    """The kernel's (cnt, mx), held exactly to the plain version's."""
+    got = ks_mod.kstats(q_emb, db_emb, zc, ts, n_valid, L_SMOKE)
+    want = D.stats_reference(q_emb, db_emb, zc, ts, n_valid, L_SMOKE)
+    torch.cuda.synchronize()
+    err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+    if err != 0:
+        raise AssertionError(f"kstats kernel differs from its plain version "
+                             f"at {where} (max |err| {err})")
+
+
+def kstats_parity(sizes, dev, D, K, ks_mod, rng, rng_s) -> dict:
+    """Phase 4, kstats: kernel vs plain version on the card, exact, each
+    line with its route and db splits, against 2^20 + 37 real db rows in
+    a buffer padded to the 64-row tile, per-row thresholds in [-1, 60]:
+    at the K-mode batches of the CLI runs (B = 16384 and 4096, both
+    timed; the summary keeps B = 16384), at the split shapes B = 1 and 77
+    and at n_valid = 37 (one partial tile; the buffer's rows past it are
+    live). Then one whole cutoff search (kmode_phase1 at K = 99: 3 passes
+    and their merges) timed at B = 16384 and 4096."""
     n = sizes.kstats_rows
     codes = random_db(rng, n, L_SMOKE)
     wp = -(-n // D.WP_MULTIPLE) * D.WP_MULTIPLE
+    ep = D.embed_width(L_SMOKE)
     db_emb, zc = D.embed_db(torch.from_numpy(codes).to(dev), L_SMOKE, wp)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def plan(b: int, n_valid: int) -> dict:
+        route, splits = ks_mod.launch_plan(b, n_valid, ep, sms)
+        return {"route": route, "splits": splits}
+
+    def operands(r, b: int):
+        q = mutate(r, codes[r.integers(0, n, b)], 6)
+        q_emb = D.expand_embed_query(torch.from_numpy(q).to(dev), L_SMOKE)
+        ts = torch.from_numpy(r.integers(
+            -1, L_SMOKE + 1, (K.KSTATS_PROBES, b)).astype(np.int32)).to(dev)
+        return q_emb, ts
+
     timings = {}
     for b, which in sizes.kstats_queries:
-        q = mutate(rng, codes[rng.integers(0, n, b)], 6)
-        q_emb = D.expand_embed_query(torch.from_numpy(q).to(dev), L_SMOKE)
-        ts = torch.from_numpy(rng.integers(
-            -1, L_SMOKE + 1, (K.KSTATS_PROBES, b)).astype(np.int32)).to(dev)
-        got = ks_mod.kstats(q_emb, db_emb, zc, ts, n, L_SMOKE)
-        want = D.stats_reference(q_emb, db_emb, zc, ts, n, L_SMOKE)
-        torch.cuda.synchronize()
-        err = max(int((g.long() - w.long()).abs().max())
-                  for g, w in zip(got, want))
-        if err != 0:
-            raise AssertionError(f"kstats kernel differs from its plain version "
-                                 f"at B={b} W={n} (max |err| {err})")
+        q_emb, ts = operands(rng, b)
+        kstats_check(ks_mod, D, q_emb, db_emb, zc, ts, n, f"B={b} W={n}")
         log("kernel_parity", kernel="kstats", L=L_SMOKE, B=b, W=n, n_valid=n,
-            exact=True)
+            **plan(b, n), exact=True)
         ms = time_ms(lambda: ks_mod.kstats(q_emb, db_emb, zc, ts, n, L_SMOKE),
                      sizes.reps)
         plain_ms = time_ms(lambda: D.stats_reference(q_emb, db_emb, zc, ts, n,
                                                      L_SMOKE), 2)
-        timings[which] = {"max_abs_err": err, **log_time(
-            "kstats", L_SMOKE, b, n, ms, plain_ms,
-            bound(b, n, L_SMOKE, D.embed_width(L_SMOKE),
-                  out_bytes=4 * (K.KSTATS_PROBES + 1) * b,
-                  extra_in_bytes=4 * K.KSTATS_PROBES * b))}
+        bnd = bound(b, n, L_SMOKE, ep, out_bytes=4 * (K.KSTATS_PROBES + 1) * b,
+                    extra_in_bytes=4 * K.KSTATS_PROBES * b)
+        timings[which] = {"max_abs_err": 0, **log_time(
+            "kstats", L_SMOKE, b, n, ms, plain_ms, bnd, **plan(b, n))}
+        # one whole cutoff search: kstats_steps(L) passes at the real probes
+        steps = K.kstats_steps(L_SMOKE)
+
+        def search(fn):
+            return D.kmode_phase1(
+                lambda t: fn(q_emb, db_emb, zc, t, n, L_SMOKE), sizes.kmode_k,
+                L_SMOKE + 1, n, L_SMOKE, b, dev)
+
+        got, want = search(ks_mod.kstats), search(D.stats_reference)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"the cutoff search over the kstats kernel "
+                                 f"differs from its plain version at B={b}")
+        ms = time_ms(lambda: search(ks_mod.kstats), sizes.reps)
+        plain_ms = time_ms(lambda: search(D.stats_reference), 1)
+        log_time("kmode_phase1", L_SMOKE, b, n, ms, plain_ms,
+                 (steps * bnd[0], bnd[1]), k=sizes.kmode_k, passes=steps,
+                 **plan(b, n))
+        del q_emb, ts
+    for b, n_valid in sizes.kstats_split_shapes:
+        q_emb, ts = operands(rng_s, b)
+        kstats_check(ks_mod, D, q_emb, db_emb, zc, ts, n_valid,
+                     f"B={b} n_valid={n_valid}")
+        log("kernel_parity", kernel="kstats", L=L_SMOKE, B=b, W=n,
+            n_valid=n_valid, **plan(b, n_valid), exact=True)
     return timings["main"]
 
 
@@ -826,13 +875,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.load()
-    # ptxas -v of min2.cu and compact.cu: registers, stack and spills of
-    # each kernel
+    # ptxas -v of min2.cu, compact.cu and kstats.cu: registers, stack and
+    # spills of each kernel
     ptxas = {f"{src}_ptxas": [
         line.strip() for line in _build.compile_log.get(
             f"{src}.cu", "not measured (library already built)").splitlines()
         if "entry function" in line or "spill" in line or "Used" in line
-        or "not measured" in line] for src in ("min2", "compact")}
+        or "not measured" in line] for src in ("min2", "compact", "kstats")}
     log("build", seconds=time.perf_counter() - t0,
         library=str(_build.library_path().name), **ptxas)
 
@@ -844,12 +893,13 @@ def main() -> int:
     rng_k = np.random.default_rng([seed, 4])
     rng_m = np.random.default_rng([seed, 5])  # min2's shapes added later
     rng_c = np.random.default_rng([seed, 6])  # compact_mask's, likewise
+    rng_s = np.random.default_rng([seed, 7])  # kstats' split shapes
     dev = torch.device("cuda")
     timing = {"min2": kernel_parity(sizes, dev, D, K, min2_mod, rng, rng_m)}
     timing["compact_mask"] = compact_parity(sizes, dev, D, compact_mod, rng,
                                             rng_c)
     timing["min_count"] = min_count_parity(sizes, dev, D, K, mc_mod, rng)
-    timing["kstats"] = kstats_parity(sizes, dev, D, K, ks_mod, rng_k)
+    timing["kstats"] = kstats_parity(sizes, dev, D, K, ks_mod, rng_k, rng_s)
     with tempfile.TemporaryDirectory(prefix="smafa_smoke_") as tmp:
         e2e, codes, db = end_to_end(sizes, cli, query_mod, min2_mod,
                                     compact_mod, rng, tmp)

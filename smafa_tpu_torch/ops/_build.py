@@ -44,8 +44,8 @@ _SIGNATURES = {
     "smafa_compact_mask": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, db, zc, key, cnt, B, n_valid, EP, seq_len, shift, with_count, stream
     "smafa_min_count": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # q, db, zc, ts, cnt, mx, B, n_valid, EP, seq_len, stream
-    "smafa_kstats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # q, db, zc, ts, cnt, mx, part, B, n_valid, EP, seq_len, splits, stream
+    "smafa_kstats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

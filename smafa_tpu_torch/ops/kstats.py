@@ -3,7 +3,8 @@ K-mode cutoff search.
 
 CPU tensors take the plain version (``distance.stats_reference``); CUDA
 tensors launch the kernel on the current stream, or raise. ``launches``
-counts kernel launches.
+counts calls that launched the kernel (one per call, with or without the
+merge of its db splits; none when there is nothing to scan).
 """
 
 from __future__ import annotations
@@ -12,10 +13,22 @@ import torch
 
 from smafa_tpu_torch.ops import _build
 from smafa_tpu_torch.ops import distance as D
+from smafa_tpu_torch.ops import min2 as M
 from smafa_tpu_torch.ops.keys import KSTATS_PROBES
-from smafa_tpu_torch.ops.min2 import check_operands
 
 launches = 0
+
+
+def launch_plan(b: int, n_valid: int, ep: int, sms: int) -> tuple[str, int]:
+    """(route, db splits) of a kstats call on a card with ``sms`` SMs:
+    ("none", 0) when there is nothing to scan (b == 0 or n_valid == 0),
+    which launches nothing; else min2's ``launch_plan`` over the live
+    64-row tiles only, ceil(n_valid / 64) of them, so no split walks the
+    buffer past n_valid."""
+    if b == 0 or n_valid == 0:
+        return "none", 0
+    live = -(-n_valid // D.WP_MULTIPLE) * D.WP_MULTIPLE
+    return M.launch_plan(b, live, ep, sms)
 
 
 def kstats(q_emb: torch.Tensor, db_emb: torch.Tensor, zc: torch.Tensor,
@@ -23,9 +36,18 @@ def kstats(q_emb: torch.Tensor, db_emb: torch.Tensor, zc: torch.Tensor,
            seq_len: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(cnt int32 [P, B], mx int32 [B]) over db rows < n_valid at the
     per-row thresholds ts int32 [P, B], P = KSTATS_PROBES: see
-    ``distance.stats_reference``."""
+    ``distance.stats_reference``.
+
+    The operands must be the port's embeddings (``distance.embed_db`` and
+    ``distance.expand_embed_query``), which ``check_operands`` checks by
+    shape and type only: the kernel relies on their range. Below 64 bp it
+    counts in byte lanes, which holds only while every score q . db + zc
+    of a row below n_valid lies in [0, 63]; a score outside it would
+    corrupt the counts silently. These embeddings give scores in [0, L]
+    to real windows and -1 to padding rows, which lie at or past
+    n_valid."""
     global launches
-    check_operands(q_emb, db_emb, zc, seq_len)
+    M.check_operands(q_emb, db_emb, zc, seq_len)
     b, wp = q_emb.shape[0], db_emb.shape[0]
     if (ts.dtype != torch.int32 or tuple(ts.shape) != (KSTATS_PROBES, b)
             or ts.device != q_emb.device or not ts.is_contiguous()):
@@ -37,16 +59,25 @@ def kstats(q_emb: torch.Tensor, db_emb: torch.Tensor, zc: torch.Tensor,
         return D.stats_reference(q_emb, db_emb, zc, ts, n_valid, seq_len)
     if not q_emb.is_cuda:
         raise ValueError(f"no kstats kernel for device {q_emb.device}")
+    ep = q_emb.shape[1]
+    sms = torch.cuda.get_device_properties(q_emb.device).multi_processor_count
+    _, s = launch_plan(b, n_valid, ep, sms)
+    if s == 0:
+        return (torch.zeros((KSTATS_PROBES, b), dtype=torch.int32,
+                            device=q_emb.device),
+                torch.full((b,), -1, dtype=torch.int32, device=q_emb.device))
     cnt = torch.empty((KSTATS_PROBES, b), dtype=torch.int32,
                       device=q_emb.device)
     mx = torch.empty((b,), dtype=torch.int32, device=q_emb.device)
-    if b == 0:
-        return cnt, mx
+    # the splits' partials; the caching allocator ties it to this stream
+    part = torch.empty((KSTATS_PROBES + 1, s, b), dtype=torch.int32,
+                       device=q_emb.device) if s > 1 else None
     lib = _build.load()
     stream = torch.cuda.current_stream(q_emb.device).cuda_stream
     rc = lib.smafa_kstats(q_emb.data_ptr(), db_emb.data_ptr(), zc.data_ptr(),
-                          ts.data_ptr(), cnt.data_ptr(), mx.data_ptr(), b,
-                          n_valid, q_emb.shape[1], seq_len, stream)
+                          ts.data_ptr(), cnt.data_ptr(), mx.data_ptr(),
+                          None if part is None else part.data_ptr(), b,
+                          n_valid, ep, seq_len, s, stream)
     _build.check(rc, "kstats")
     launches += 1
     return cnt, mx

@@ -1,7 +1,8 @@
-"""The CUDA kernels against their plain PyTorch versions on the card
-(min_count, kstats), and the runner, cluster and query engines on the
-card against the CPU. min2's and compact_mask's card tests are in
-tests/test_torch_gpu_min2.py and tests/test_torch_gpu_compact.py.
+"""The min_count kernel against its plain PyTorch version on the card,
+and the runner, cluster and query engines on the card against the CPU.
+min2's, compact_mask's and kstats's card tests are in
+tests/test_torch_gpu_min2.py, tests/test_torch_gpu_compact.py and
+tests/test_torch_gpu_kstats.py.
 
 Marked ``gpu``: each test skips where no CUDA device is visible. Run with
 ``python -m pytest --noconftest -m gpu tests/test_torch_gpu*.py``; the
@@ -100,45 +101,6 @@ def test_runner_on_card_equals_cpu(cuda):
             q, maxdiv)
         for a, w in zip(got, want):
             np.testing.assert_array_equal(a, w)
-
-
-@pytest.mark.parametrize("seq_len", [3, 60, 150, 300])
-def test_kstats_kernel_equals_plain(cuda, seq_len):
-    """A 5056-row buffer whose every row is live, scanned up to n_valid
-    = 3001 (not a multiple of the 64-row tile), wp and 0; B = 300 is not
-    a multiple of the 128-row block. Then the cutoff search at K beyond
-    the window count, where the cutoff is the row max: live rows past
-    n_valid at larger distances must not raise it. L = 300 streams K."""
-    torch, D = cuda.torch, cuda.D
-    rng = np.random.default_rng(seq_len)
-    wp, b = 5056, 300
-    buf = rng.integers(0, 5, (wp, seq_len), dtype=np.uint8)
-    buf[rng.integers(0, 3001, 40)] = buf[5]
-    q = buf[rng.integers(0, wp, b)].copy()
-    mut = rng.random(q.shape) < 0.05
-    q[mut] = rng.integers(0, 5, int(mut.sum())).astype(np.uint8)
-    q[:4] = buf[5]
-    emb, zc = D.embed_db(torch.from_numpy(buf).to(cuda.dev), seq_len, wp)
-    q_emb = D.expand_embed_query(torch.from_numpy(q).to(cuda.dev), seq_len)
-    for n_valid in (3001, wp, 0):
-        ts = torch.from_numpy(rng.integers(
-            -1, seq_len + 1, (cuda.K.KSTATS_PROBES, b)).astype(np.int32)).to(cuda.dev)
-        before = cuda.KS.launches
-        got = cuda.KS.kstats(q_emb, emb, zc, ts, n_valid, seq_len)
-        want = D.stats_reference(q_emb, emb, zc, ts, n_valid, seq_len)
-        torch.cuda.synchronize()
-        assert cuda.KS.launches == before + 1
-        for a, w in zip(got, want):
-            assert torch.equal(a, w), n_valid
-        if n_valid == 0:
-            assert (got[1] == -1).all()
-    for k, maxdiv in ((3002, seq_len + 1), (5, 1), (3002, seq_len // 2)):
-        res = [D.kmode_phase1(
-            lambda ts: fn(q_emb, emb, zc, ts, 3001, seq_len), k, maxdiv,
-            3001, seq_len, b, cuda.dev)
-            for fn in (cuda.KS.kstats, D.stats_reference)]
-        for a, w in zip(*res):
-            assert torch.equal(a, w), (k, maxdiv)
 
 
 def _query_files(tmp_path):
