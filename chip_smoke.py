@@ -6,12 +6,21 @@ Phases, one line each:
 0. device: the card's name and power limit (nvidia-smi) and the
    torch/CUDA versions; fails when no CUDA device is visible.
 1. build: compiles the CUDA kernels from smafa_tpu_torch/csrc with nvcc;
-   logs min2.cu's, compact.cu's and kstats.cu's ``ptxas -v`` (registers,
-   spills).
+   logs each source's ``ptxas -v`` (registers, spills).
 2. kernel parity: each kernel against its plain PyTorch version on the
    card, exact equality (all values are integers), with both times and
    the kernel's bound (the larger of its int8 operations over 1,979
    TOP/s and its bytes over 3.35 TB/s, the H100 SXM's dense peaks).
+   min_count, with and without the count, at L = 3, 60, 150, 300 over a
+   live buffer, then at its split shapes, each line with its route and
+   db splits (the cluster's batches B = 1, 77, 2048, 32768 against
+   29,321 live rows of a 32,768-row buffer; n_valid = 37 and 3001 with
+   query copies past n_valid; a db of one repeated row; a db whose only
+   exact match is its last live row; 63, 64 and 150 bp); timed at the
+   cluster path's 32768 x 32768, 8192 x 16384 and 2048 x 4096, by CUDA
+   events around back-to-back calls and by the profiler's device time
+   of the kernel and its merge (``device_ms``), which leaves out the
+   host's launch gaps.
    min2 also at its split-W shapes (B = 1, 16, 77 x 2^20 + 37 rows), one
    64-row tile, a db of one repeated row (cnt = every row) and a db whose
    only exact match is its last real row; timed at the main-path batch
@@ -45,8 +54,10 @@ Phases, one line each:
    mutations, seed 0) at -d 5; checks the exit code, that the min_count
    kernel launched, one line per distinct record, every centroid within
    5 of its record, the centroid count and output hash smafa_tpu gives
-   on this input, and a greedy oracle on 512 sampled records. Then
-   ``count`` on the same file.
+   on this input, and a greedy oracle on 512 sampled records; the
+   (B, n_valid) of every min_count launch, replayed after the run for
+   the kernel's summed device ms (the profiler's, without the host's
+   launch gaps) beside the wall. Then ``count`` on the same file.
 
 Before the last line it prints the kernels' JSON summary and the card's
 name and power limit; the last line is the run's JSON verdict. Any
@@ -98,10 +109,16 @@ def smoke_sizes(query_mod) -> types.SimpleNamespace:
         split_queries=(1, 16, 77), exact_rows=70001,
         parity_rows_compact=1 << 20, compact_rows=4096,
         # min_count: a centroid buffer below / at its row count, and the
-        # cluster path's batch x centroid-buffer shapes (late, early)
+        # cluster path's batch x centroid-buffer shapes (late, middle,
+        # early)
         min_count_rows=16384, min_count_below=10007,
         # (B, W, which, reps): the short early launch takes more reps
-        min_count_times=((32768, 32768, "main", 10), (2048, 4096, "early", 100)),
+        min_count_times=((32768, 32768, "main", 10), (8192, 16384, "mid", 30),
+                         (2048, 4096, "early", 100)),
+        # min_count's split shapes: the cluster's batches against 29,321
+        # centroids live in a 32,768-row buffer
+        min_count_split_queries=(1, 77, 2048, 32768),
+        min_count_split_rows=(29321, 32768),
         cluster_records=1_000_000, cluster_div=5,
         # kstats parity (the K-mode batches of runs a/c and b x db) and
         # the K-mode runs: (name, reads, max_divergence,
@@ -170,6 +187,25 @@ def time_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int, match: str) -> float | None:
+    """Mean device milliseconds per fn() of the kernels whose name holds
+    ``match``, from torch.profiler's CUDA activity over reps calls after
+    one warm-up call; None when the trace shows no device time. Unlike
+    ``time_ms`` it leaves out the gaps where the card waits for the host
+    to launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if match in e.key)
+    return us / 1e3 / reps if us else None
 
 
 def random_db(rng, n: int, L: int) -> np.ndarray:
@@ -379,10 +415,69 @@ def compact_parity(sizes, dev, D, compact_mod, rng, rng_c) -> dict:
     return {"max_abs_err": 0, **timings["main"]}
 
 
-def min_count_parity(sizes, dev, D, K, mc_mod, rng) -> dict:
+def min_count_check(mc_mod, D, q_emb, emb, zc, n_valid: int, L: int,
+                    shift: int, where: str) -> tuple:
+    """The kernel's (key[, cnt]), with the count and without it, held
+    exactly to the plain version's; returns the plain (key, cnt)."""
+    for with_count in (False, True):
+        got = mc_mod.min_count(q_emb, emb, zc, n_valid, L, shift, with_count)
+        want = D.min_count_reference(q_emb, emb, zc, n_valid, L, shift,
+                                     with_count)
+        torch.cuda.synchronize()
+        err = max(int((g.long() - w.long()).abs().max())
+                  for g, w in zip(got, want))
+        if err != 0:
+            raise AssertionError(
+                f"min_count kernel differs from its plain version at {where} "
+                f"with_count={with_count} (max |err| {err})")
+    return want
+
+
+def live_plan(min2_mod, b: int, n_valid: int, ep: int, dev) -> dict:
+    """The route and db splits the min_count and kstats wrappers launch
+    with (``ops/min2.py:live_plan``, over the first n_valid rows)."""
+    route, splits = min2_mod.live_plan(b, n_valid, ep, min2_mod.sm_count(dev))
+    return {"route": route, "splits": splits}
+
+
+def min_count_split_cases(sizes, rng):
+    """min_count's split-route shapes, each (what, L, buffer codes,
+    queries, n_valid), generated lazily: the cluster's batches against
+    29,321 centroids live in a 32,768-row buffer; n_valid = 37 (one
+    partial tile) and 3001 in a buffer whose rows past n_valid are exact
+    copies of the queries; a db of one repeated row; a db whose only
+    exact match is its last live row; 63 and 64 bp; the long route at
+    L = 150."""
+    n_valid, wp = sizes.min_count_split_rows
+    buf = random_db(rng, wp, L_SMOKE)
+    for b in sizes.min_count_split_queries:
+        q = mutate(rng, buf[rng.integers(0, n_valid, b)], 6)
+        q[: max(1, b // 8)] = buf[rng.integers(0, n_valid, max(1, b // 8))]
+        yield "cluster batch", L_SMOKE, buf, q, n_valid
+    for nv in (37, 3001):
+        buf = random_db(rng, 70016, L_SMOKE)
+        q = mutate(rng, buf[rng.integers(0, nv, 300)], 6)
+        buf[nv:nv + 300] = q
+        yield "query copies past n_valid", L_SMOKE, buf, q, nv
+    same = rng.integers(0, 4, (1, L_SMOKE), dtype=np.uint8)
+    buf = np.repeat(same, 70016, axis=0)
+    yield "one repeated row", L_SMOKE, buf, mutate(rng, buf[:77], 3), 70001
+    buf = rng.integers(0, 4, (70016, L_SMOKE), dtype=np.uint8)
+    q = mutate(rng, buf[[70000] * 77], 6)
+    q[:38] = buf[70000]
+    yield "best match the last live row", L_SMOKE, buf, q, 70001
+    for L in (63, 64, 150):
+        buf = random_db(rng, 9024, L)
+        yield "width", L, buf, mutate(rng, buf[rng.integers(0, 8999, 300)], 6), 8999
+
+
+def min_count_parity(sizes, dev, D, K, mc_mod, min2_mod, rng,
+                     rng_n) -> dict:
     """Phase 2, min_count: kernel vs plain version on the card, exact,
-    over a buffer whose rows are all live (the scan must stop at
-    n_valid), with and without the count; then both timed at the cluster
+    with and without the count: over a buffer whose rows are all live
+    (the scan must stop at n_valid) at L = 3, 60, 150 and 300, then at
+    the split-route shapes of ``min_count_split_cases`` (from ``rng_n``),
+    each line with its route and db splits; then timed at the cluster
     path's shapes (with_count off, as the path calls it)."""
     wp = sizes.min_count_rows
     for L in (3, 60, 150, 300):
@@ -394,20 +489,24 @@ def min_count_parity(sizes, dev, D, K, mc_mod, rng) -> dict:
         q_emb = D.expand_embed_query(torch.from_numpy(q).to(dev), L)
         shift = K.packing_shift(L, wp)
         for n_valid in (sizes.min_count_below, wp):
-            for with_count in (True, False):
-                got = mc_mod.min_count(q_emb, emb, zc, n_valid, L, shift, with_count)
-                want = D.min_count_reference(q_emb, emb, zc, n_valid, L, shift,
-                                             with_count)
-                torch.cuda.synchronize()
-                err = max(int((g.long() - w.long()).abs().max())
-                          for g, w in zip(got, want))
-                if err != 0:
-                    raise AssertionError(
-                        f"min_count kernel differs from its plain version at "
-                        f"L={L} n_valid={n_valid} with_count={with_count} "
-                        f"(max |err| {err})")
+            min_count_check(mc_mod, D, q_emb, emb, zc, n_valid, L, shift,
+                            f"L={L} n_valid={n_valid}")
         log("kernel_parity", kernel="min_count", L=L, B=1000, W=wp,
             n_valid=[sizes.min_count_below, wp], exact=True)
+    for what, L, buf, q, n_valid in min_count_split_cases(sizes, rng_n):
+        w = -(-buf.shape[0] // D.WP_MULTIPLE) * D.WP_MULTIPLE
+        emb, zc = D.embed_db(torch.from_numpy(buf).to(dev), L, w)
+        q_emb = D.expand_embed_query(torch.from_numpy(q).to(dev), L)
+        shift = K.packing_shift(L, w)
+        b = q.shape[0]
+        key, cnt = min_count_check(mc_mod, D, q_emb, emb, zc, n_valid, L,
+                                   shift, f"{what} L={L} B={b} n_valid={n_valid}")
+        log("kernel_parity", kernel="min_count", case=what, L=L, B=b,
+            W=buf.shape[0], n_valid=n_valid,
+            **live_plan(min2_mod, b, n_valid, q_emb.shape[1], dev),
+            min_dist=int(key.min()) >> shift, max_count=int(cnt.max()),
+            exact=True)
+        del emb, zc, q_emb
     timings = {}
     for b, w, which, reps in sizes.min_count_times:
         buf = random_db(rng, w, L_SMOKE)
@@ -425,10 +524,34 @@ def min_count_parity(sizes, dev, D, K, mc_mod, rng) -> dict:
             q_emb, emb, zc, w, L_SMOKE, shift, False), reps)
         plain_ms = time_ms(lambda: D.min_count_reference(
             q_emb, emb, zc, w, L_SMOKE, shift, False), max(2, reps // 5))
+        dev_ms = device_ms(lambda: mc_mod.min_count(
+            q_emb, emb, zc, w, L_SMOKE, shift, False), reps, "min_count")
         timings[which] = {"max_abs_err": err, **log_time(
             "min_count", L_SMOKE, b, w, ms, plain_ms,
-            bound(b, w, L_SMOKE, D.embed_width(L_SMOKE), out_bytes=4 * b))}
+            bound(b, w, L_SMOKE, D.embed_width(L_SMOKE), out_bytes=4 * b),
+            **live_plan(min2_mod, b, w, q_emb.shape[1], dev),
+            device_ms=dev_ms)}
     return timings["main"]
+
+
+def replay_min_count(mc_mod, D, K, shapes, rng, dev,
+                     reps: int = 3) -> float | None:
+    """Summed device ms of min_count launches at ``shapes`` ((B, n_valid,
+    buffer rows) each, with_count off, as the cluster path calls it), on
+    queries mutated off a random L = 60 buffer: the profiler's device
+    time of the kernels and their merges (``device_ms``) per replay of
+    all the launches, over ``reps`` replays, which leaves out the host's
+    launch gaps."""
+    calls = []
+    for b, n_valid, w in shapes:
+        buf = random_db(rng, w, L_SMOKE)
+        q = mutate(rng, buf[rng.integers(0, n_valid, b)], 4)
+        emb, zc = D.embed_db(torch.from_numpy(buf).to(dev), L_SMOKE, w)
+        q_emb = D.expand_embed_query(torch.from_numpy(q).to(dev), L_SMOKE)
+        calls.append((q_emb, emb, zc, n_valid, L_SMOKE,
+                      K.packing_shift(L_SMOKE, w), False))
+    return device_ms(lambda: [mc_mod.min_count(*c) for c in calls], reps,
+                     "min_count")
 
 
 def kstats_check(ks_mod, D, q_emb, db_emb, zc, ts, n_valid: int,
@@ -443,7 +566,7 @@ def kstats_check(ks_mod, D, q_emb, db_emb, zc, ts, n_valid: int,
                              f"at {where} (max |err| {err})")
 
 
-def kstats_parity(sizes, dev, D, K, ks_mod, rng, rng_s) -> dict:
+def kstats_parity(sizes, dev, D, K, ks_mod, min2_mod, rng, rng_s) -> dict:
     """Phase 4, kstats: kernel vs plain version on the card, exact, each
     line with its route and db splits, against 2^20 + 37 real db rows in
     a buffer padded to the 64-row tile, per-row thresholds in [-1, 60]:
@@ -457,11 +580,9 @@ def kstats_parity(sizes, dev, D, K, ks_mod, rng, rng_s) -> dict:
     wp = -(-n // D.WP_MULTIPLE) * D.WP_MULTIPLE
     ep = D.embed_width(L_SMOKE)
     db_emb, zc = D.embed_db(torch.from_numpy(codes).to(dev), L_SMOKE, wp)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def plan(b: int, n_valid: int) -> dict:
-        route, splits = ks_mod.launch_plan(b, n_valid, ep, sms)
-        return {"route": route, "splits": splits}
+        return live_plan(min2_mod, b, n_valid, ep, dev)
 
     def operands(r, b: int):
         q = mutate(r, codes[r.integers(0, n, b)], 6)
@@ -769,8 +890,37 @@ def greedy_oracle(records: np.ndarray, cents: np.ndarray, cent_line: np.ndarray,
     return records[j].tobytes()
 
 
-def cluster_end_to_end(sizes, cli, cluster_mod, mc_mod, rng) -> dict:
-    """Phase 5: cluster 1M records through the CLI, then count."""
+def cluster_cli(cli, cluster_mod, argv: list[str]):
+    """Run ``cluster`` through the CLI: (exit code, wall seconds, the
+    stage timers of the engine's run, the (B, n_valid, buffer rows) of
+    each min_count call it made)."""
+    captured, shapes = [], []
+    run_cluster, run_mc = cluster_mod.cluster, cluster_mod.min_count
+
+    def spy(*a, **kw):
+        captured.append(run_cluster(*a, **kw))
+        return captured[-1]
+
+    def mc_spy(q_emb, db_emb, zc, n_valid, *a, **kw):
+        shapes.append((q_emb.shape[0], n_valid, db_emb.shape[0]))
+        return run_mc(q_emb, db_emb, zc, n_valid, *a, **kw)
+
+    cluster_mod.cluster, cluster_mod.min_count = spy, mc_spy
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        cluster_mod.cluster, cluster_mod.min_count = run_cluster, run_mc
+    return rc, wall, captured[0] if captured else None, shapes
+
+
+def cluster_end_to_end(sizes, cli, cluster_mod, mc_mod, D, K, dev, rng,
+                       rng_r) -> dict:
+    """Phase 5: cluster 1M records through the CLI, then count. A spy on
+    the engine's min_count records the (B, n_valid, buffer rows) of every
+    launch; after the run they are replayed (``replay_min_count``, data
+    from ``rng_r``) for the kernel's summed device ms."""
     import contextlib
     import hashlib
     import io
@@ -782,21 +932,10 @@ def cluster_end_to_end(sizes, cli, cluster_mod, mc_mod, rng) -> dict:
         t0 = time.perf_counter()
         bench.make_input(inp, sizes.cluster_records, 4000, L, 4, 0)
         gen_s = time.perf_counter() - t0
-        captured = []
-        run_cluster = cluster_mod.cluster
-
-        def spy(*a, **kw):  # keep the stage timers of the CLI's cluster run
-            captured.append(run_cluster(*a, **kw))
-            return captured[-1]
-
-        cluster_mod.cluster = spy
         mc_mod.launches = 0
-        t1 = time.perf_counter()
-        rc = cli.main(["cluster", "-i", inp, "-d", str(max_div), "-o", out,
-                       "--quiet"])
-        wall = time.perf_counter() - t1
+        rc, wall, timers, shapes = cluster_cli(cli, cluster_mod, [
+            "cluster", "-i", inp, "-d", str(max_div), "-o", out, "--quiet"])
         launches = mc_mod.launches
-        cluster_mod.cluster = run_cluster
         if rc != 0:
             raise AssertionError(f"cluster CLI failed: rc={rc}")
         if launches <= 0:
@@ -827,7 +966,7 @@ def cluster_end_to_end(sizes, cli, cluster_mod, mc_mod, rng) -> dict:
     bad = [int(j) for j in sample
            if greedy_oracle(records, cents, cent_line, max_div, int(j))
            != cent_of[j].tobytes()]
-    timers = captured[0]
+    mc_ms = replay_min_count(mc_mod, D, K, shapes, rng_r, dev)
     res = {"records": sizes.cluster_records, "divergence": max_div,
            "gen_s": gen_s, "wall_s": wall,
            "records_per_s": sizes.cluster_records / wall,
@@ -838,7 +977,9 @@ def cluster_end_to_end(sizes, cli, cluster_mod, mc_mod, rng) -> dict:
            "far_lines": far, "sampled_oracle": int(sample.size),
            "oracle_mismatches": bad[:5], "sha256": sha,
            "sha256_equals_smafa_tpu": sha == CLUSTER_SHA256,
-           "count_s": count_s, "launches": {"min_count": launches}}
+           "count_s": count_s, "launches": {"min_count": launches},
+           "min_count_shapes": shapes, "min_count_device_ms": mc_ms,
+           "min_count_share_of_wall": mc_ms and mc_ms / 1e3 / wall}
     log("cluster_end_to_end", **res)
     if (rows.shape[0] != n_distinct or far or n_cent != CLUSTER_CENTROIDS
             or cent_line.size != n_cent or bad or sha != CLUSTER_SHA256):
@@ -875,13 +1016,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.load()
-    # ptxas -v of min2.cu, compact.cu and kstats.cu: registers, stack and
-    # spills of each kernel
+    # ptxas -v of each source: registers, stack and spills of each kernel
     ptxas = {f"{src}_ptxas": [
         line.strip() for line in _build.compile_log.get(
             f"{src}.cu", "not measured (library already built)").splitlines()
         if "entry function" in line or "spill" in line or "Used" in line
-        or "not measured" in line] for src in ("min2", "compact", "kstats")}
+        or "not measured" in line]
+        for src in ("min2", "compact", "kstats", "min_count")}
     log("build", seconds=time.perf_counter() - t0,
         library=str(_build.library_path().name), **ptxas)
 
@@ -894,12 +1035,15 @@ def main() -> int:
     rng_m = np.random.default_rng([seed, 5])  # min2's shapes added later
     rng_c = np.random.default_rng([seed, 6])  # compact_mask's, likewise
     rng_s = np.random.default_rng([seed, 7])  # kstats' split shapes
+    rng_n = np.random.default_rng([seed, 8])  # min_count's split shapes
     dev = torch.device("cuda")
     timing = {"min2": kernel_parity(sizes, dev, D, K, min2_mod, rng, rng_m)}
     timing["compact_mask"] = compact_parity(sizes, dev, D, compact_mod, rng,
                                             rng_c)
-    timing["min_count"] = min_count_parity(sizes, dev, D, K, mc_mod, rng)
-    timing["kstats"] = kstats_parity(sizes, dev, D, K, ks_mod, rng_k, rng_s)
+    timing["min_count"] = min_count_parity(sizes, dev, D, K, mc_mod, min2_mod,
+                                           rng, rng_n)
+    timing["kstats"] = kstats_parity(sizes, dev, D, K, ks_mod, min2_mod, rng_k,
+                                     rng_s)
     with tempfile.TemporaryDirectory(prefix="smafa_smoke_") as tmp:
         e2e, codes, db = end_to_end(sizes, cli, query_mod, min2_mod,
                                     compact_mod, rng, tmp)
@@ -908,7 +1052,8 @@ def main() -> int:
         kmode = kmode_end_to_end(sizes, cli, query_mod, K, ks_mod,
                                  compact_mod, codes, db, tmp, rng_k)
     del codes
-    clu = cluster_end_to_end(sizes, cli, cluster_mod, mc_mod, rng)
+    clu = cluster_end_to_end(sizes, cli, cluster_mod, mc_mod, D, K, dev, rng,
+                             np.random.default_rng([seed, 9]))
 
     launches = {"min2": e2e["launches"]["min2"],
                 "compact_mask": e2e["launches"]["compact_mask"],

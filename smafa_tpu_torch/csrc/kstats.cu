@@ -189,15 +189,7 @@ __global__ void __launch_bounds__(S_THREADS, S_BLOCKS_PER_SM)
 
   // The query tile, zero past B, joins the first tile's copy group.
   const long b0 = (long)blockIdx.x * S_BM;
-  for (int i = threadIdx.x; i < S_BM * 16; i += S_THREADS) {
-    const int r = i >> 4, v = i & 15;
-    if (v * 16 >= EP) continue;
-    if (b0 + r < B) {
-      cp_async16(sA + r * stride + v * 16, q + (b0 + r) * EP + v * 16);
-    } else {
-      *reinterpret_cast<int4*>(sA + r * stride + v * 16) = make_int4(0, 0, 0, 0);
-    }
-  }
+  issue_queries(sA, q, b0, B, EP, stride);
 #pragma unroll
   for (int s = 0; s < S_STAGES - 1; ++s) {
     if (s < nt) {
@@ -230,10 +222,9 @@ __global__ void __launch_bounds__(S_THREADS, S_BLOCKS_PER_SM)
   Pairs cnt = {};
   int mn[4] = {INT_MAX, INT_MAX, INT_MAX, INT_MAX};
 
-  // ldmatrix.x4 row addresses, as in min2_split_kernel.
-  const int b_off = ((lane >> 4) * 8 + (lane & 7)) * stride + ((lane >> 3) & 1) * 16;
-  const int8_t* a_row = sA + (warp * 32 + (lane & 7) + ((lane >> 3) & 1) * 8) * stride +
-                        (lane >> 4) * 16;
+  // ldmatrix.x4 row addresses (split_tile.cuh).
+  const int b_off = b_frag_offset(lane, stride);
+  const int8_t* a_row = a_frag_row(sA, warp, lane, stride);
 
   for (int c0 = 0; c0 < nt; c0 += PAIR_TILES) {
     const int c1 = min(nt, c0 + PAIR_TILES);
@@ -263,25 +254,7 @@ __global__ void __launch_bounds__(S_THREADS, S_BLOCKS_PER_SM)
           acc[m][n][1] = acc[m][n][3] = z.y;
         }
       }
-#pragma unroll
-      for (int k = 0; k < S_KS; ++k) {
-        if (k < nks) {
-          uint32_t af[2][4];
-#pragma unroll
-          for (int m = 0; m < 2; ++m) ldmatrix_x4(af[m], a_row + m * 16 * stride + k * 32);
-          uint32_t p[4][4];
-#pragma unroll
-          for (int pr = 0; pr < 4; ++pr) {
-            ldmatrix_x4(p[pr], sD + b_off + pr * 16 * stride + k * 32);
-          }
-#pragma unroll
-          for (int n = 0; n < 8; ++n) {
-            const uint32_t b[2] = {p[n >> 1][2 * (n & 1)], p[n >> 1][2 * (n & 1) + 1]};
-#pragma unroll
-            for (int m = 0; m < 2; ++m) scan_tile::mma_s8(acc[m][n], af[m], b);
-          }
-        }
-      }
+      tile_mma(acc, a_row, sD + b_off, stride, nks);
       if constexpr (BYTES) {
         if (it == masked_it) {
           tally_bytes<true>(acc, bound, cnt, mn, t, rem);

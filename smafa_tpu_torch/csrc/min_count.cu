@@ -13,34 +13,251 @@
 // The lowest index wins among equal distances because the index sits
 // in the key's low bits. The TPU kernel took one-hot operands and the
 // real-row count in SMEM; this one takes the port's rank-4 operands
-// (the same distances) and n_valid as an argument. Rows at or past
-// n_valid are masked in the epilogue and the db loop stops at the tile
-// holding row n_valid - 1: the centroid buffer holds live rows past the
-// snapshot a scan was launched on, so padding cannot be relied on.
+// (the same distances) and n_valid as an argument. The centroid buffer
+// holds live rows past n_valid (centroids appended after the snapshot a
+// scan was launched on, which can match better than any row the scan
+// may see), so rows at or past n_valid are masked, not merely padded.
 // shift is a runtime argument because it grows with the buffer.
 //
-// What bounds it on the H100: as min2.cu, int8 tensor-core products
-// (K = 256 bytes at 60 bp) against the key epilogue on the CUDA cores,
-// here one key min, one compare for the mask and, with the count, two
-// more. The grid has ceil(B / 128) blocks, each looping over every
-// live row, so batches below ~17k rows leave SMs idle (cluster batches
-// are 2048 to 32768 rows); a split-W variant is later work.
+// What bounds it on the H100: the int8 contraction, 2 * B * n_valid * 4L
+// operations over 1,979 TOP/s (0.260 ms at 32768 x 32768 and 2 us at
+// 2048 x 4096, L = 60). The first version (min_count_kernel below)
+// reached 12.9% and 0.9% of that: its grid of ceil(B / 128) blocks each
+// walked every live row (16 blocks on 132 SMs at the cluster's first
+// batches of 2048 rows), it fed mma.sync from 32-bit shared loads behind
+// load-then-sync copies, and its epilogue built and compared a key per
+// column, behind a branch on n_valid, in every tile.
 //
-// Design: min2.cu's block (scan_tile.cuh), one key instead of two.
+// What the design does about it (min_count_split_kernel):
+// 1. The split tile (split_tile.cuh; see min2.cu, lever 3) over the live
+//    tiles only: ceil(B / 256) query tiles x S db splits, S from
+//    ops/min2.py's live_plan over tiles = ceil(n_valid / 64), split y
+//    walking tiles tiles * y / S up to tiles * (y + 1) / S. Db tiles and
+//    their zc arrive by cp.async in a 2-stage ring, fragments by
+//    ldmatrix.x4, two blocks per SM. With S > 1 the splits write int32
+//    key partials [S, B] (and, with the count, count partials [S, B]
+//    after them) to scratch the wrapper allocates, and
+//    min_count_merge_kernel, launched right after on the same stream,
+//    takes the min of the keys and sums the counts of the splits whose
+//    partial distance key >> shift is the row's minimum; no atomics.
+// 2. min2's max-first epilogue with one key: each lane folds its 16
+//    scores (acc + zc) per row of a tile into the tile's best with
+//    __viaddmax_s32, and one branch per tile runs the exact update for
+//    the rows whose tile best reaches their running best. Without the
+//    count only a strictly better best enters it: a split's later tiles
+//    hold higher indices, so an equal distance cannot lower the key.
+// 3. Only the last live tile can be partial. The split that owns it runs
+//    it through a masked epilogue of its own, columns at or past n_valid
+//    scored INT_MIN (below every real score); every other tile runs
+//    without the branch.
+//
+// Longer windows (EP > 256) take min_count_kernel, the first version's
+// loop on scan_tile.cuh, one split.
+
+#include <climits>
 
 #include "scan_tile.cuh"
+#include "split_tile.cuh"
 
 namespace {
 
-using namespace scan_tile;
+using scan_tile::BIG_KEY;
+using namespace split_tile;  // the tile's constants and helpers
 
+constexpr int MERGE_THREADS = 256;
+
+// Fold one tile into a lane's state of its rows i = 2m + h: the best
+// score, the key and (WITH_COUNT) the count at the best score.
+// acc[m][n][2h + c] is row i's dot with tile column 8n + 2t + c, w0 the
+// tile's first db row. MASKED: only columns below rem are live.
+template <bool WITH_COUNT, bool MASKED>
+__device__ __forceinline__ void fold_tile(const int (&acc)[2][8][4],
+                                          const int* sZ, int (&best)[4],
+                                          int (&key)[4], int (&cnt)[4], int w0,
+                                          int t, int rem, int seq_len,
+                                          int shift) {
+  int tb[4] = {INT_MIN, INT_MIN, INT_MIN, INT_MIN};
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int2 z = *reinterpret_cast<const int2*>(sZ + n * 8 + 2 * t);
+    const bool live0 = !MASKED || n * 8 + 2 * t < rem;
+    const bool live1 = !MASKED || n * 8 + 2 * t + 1 < rem;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (live0) tb[i] = __viaddmax_s32(acc[i >> 1][n][2 * (i & 1)], z.x, tb[i]);
+      if (live1) tb[i] = __viaddmax_s32(acc[i >> 1][n][2 * (i & 1) + 1], z.y, tb[i]);
+    }
+  }
+  auto reaches = [&](int i) {
+    return WITH_COUNT ? tb[i] >= best[i] : tb[i] > best[i];
+  };
+  if (reaches(0) | reaches(1) | reaches(2) | reaches(3)) {  // rare after the first tiles
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // a masked tile may hold no live column of this lane
+      if (!reaches(i) || (MASKED && tb[i] == INT_MIN)) continue;
+      if (tb[i] > best[i]) {
+        best[i] = tb[i];
+        key[i] = BIG_KEY;
+        cnt[i] = 0;
+      }
+      const int kd = (seq_len - tb[i]) << shift;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = n * 8 + 2 * t + c;
+          if ((!MASKED || col < rem) &&
+              acc[i >> 1][n][2 * (i & 1) + c] + sZ[col] == tb[i]) {
+            key[i] = min(key[i], kd | (w0 + col));
+            if (WITH_COUNT) ++cnt[i];
+          }
+        }
+      }
+    }
+  }
+}
+
+// key_out (and with the count cnt_out): [S, B] partials, split y at
+// y * B, or the final [B] outputs when S == 1. Split blockIdx.y of
+// gridDim.y = S.
 template <bool WITH_COUNT>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(S_THREADS, S_BLOCKS_PER_SM)
+    min_count_split_kernel(const int8_t* __restrict__ q,
+                           const int8_t* __restrict__ db,
+                           const int* __restrict__ zc,
+                           int* __restrict__ key_out,
+                           int* __restrict__ cnt_out, int B, int n_valid,
+                           int EP, int seq_len, int shift) {
+  extern __shared__ __align__(16) int8_t smem[];
+  const int stride = EP + S_PAD;
+  const int sbytes = stage_bytes(stride);
+  int8_t* sA = smem;  // the block's S_BM query rows
+  int8_t* ring = smem + S_BM * stride;
+  const int nks = EP >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // mma groupID: fragment row / db column
+  const int t = lane & 3;   // mma threadID_in_group
+  const long q0 = (long)blockIdx.x * S_BM + warp * 32;
+  const bool live = q0 < B;  // the warp has a row below B
+  const int tiles = (n_valid + S_BN - 1) / S_BN;
+  const int S = gridDim.y, y = blockIdx.y;
+  const int t_begin = (int)((long)tiles * y / S);
+  const int nt = (int)((long)tiles * (y + 1) / S) - t_begin;
+  // The last live tile is partial unless n_valid fills it; the last
+  // split owns it as its last tile.
+  const int rem = n_valid - (tiles - 1) * S_BN;
+  const int masked_it = (y == S - 1 && rem < S_BN) ? nt - 1 : -1;
+
+  // The query tile, zero past B, joins the first tile's copy group.
+  issue_queries(sA, q, (long)blockIdx.x * S_BM, B, EP, stride);
+#pragma unroll
+  for (int s = 0; s < S_STAGES - 1; ++s) {
+    if (s < nt) {
+      issue_tile(ring + s * sbytes, db, zc, (long)(t_begin + s) * S_BN, EP,
+                 stride);
+    }
+    cp_async_commit();
+  }
+
+  // Running state of this lane's rows i = 2m + h (row q0 + g + 8i) over
+  // the db columns it owns (2t, 2t + 1 of every n-tile).
+  int best[4], key[4], cnt[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    best[i] = INT_MIN;
+    key[i] = BIG_KEY;
+    cnt[i] = 0;
+  }
+  // ldmatrix.x4 row addresses (split_tile.cuh).
+  const int b_off = b_frag_offset(lane, stride);
+  const int8_t* a_row = a_frag_row(sA, warp, lane, stride);
+
+  for (int it = 0; it < nt; ++it) {
+    cp_async_wait<S_STAGES - 2>();
+    __syncthreads();  // tile it visible; stage (it - 1) % S_STAGES free
+    {
+      const int nx = it + S_STAGES - 1;
+      if (nx < nt) {
+        issue_tile(ring + (nx % S_STAGES) * sbytes, db, zc,
+                   (long)(t_begin + nx) * S_BN, EP, stride);
+      }
+      cp_async_commit();
+    }
+    if (!live) continue;  // the last query tile's rows past B
+    const int8_t* sD = ring + (it % S_STAGES) * sbytes;
+    const int* sZ = reinterpret_cast<const int*>(sD + S_BN * stride);
+    const int w0 = (t_begin + it) * S_BN;
+    int acc[2][8][4] = {};
+    tile_mma(acc, a_row, sD + b_off, stride, nks);
+    if (it == masked_it) {
+      fold_tile<WITH_COUNT, true>(acc, sZ, best, key, cnt, w0, t, rem,
+                                  seq_len, shift);
+    } else {
+      fold_tile<WITH_COUNT, false>(acc, sZ, best, key, cnt, w0, t, rem,
+                                   seq_len, shift);
+    }
+  }
+  cp_async_wait<0>();
+  if (!live) return;
+
+  // Merge the 4 lanes (t = 0..3) that share each row: a better best
+  // takes its count, an equal one adds it.
+  const long out0 = (long)y * B;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const int okey = __shfl_xor_sync(0xffffffffu, key[i], off);
+      if (WITH_COUNT) {
+        const int ob = __shfl_xor_sync(0xffffffffu, best[i], off);
+        const int ocnt = __shfl_xor_sync(0xffffffffu, cnt[i], off);
+        cnt[i] = ob > best[i] ? ocnt : (ob == best[i] ? cnt[i] + ocnt : cnt[i]);
+        best[i] = max(best[i], ob);
+      }
+      key[i] = min(key[i], okey);
+    }
+    const long row = q0 + g + 8 * i;
+    if (t == 0 && row < B) {
+      key_out[out0 + row] = key[i];
+      if (WITH_COUNT) cnt_out[out0 + row] = cnt[i];
+    }
+  }
+}
+
+// part: int32 [S, B] key partials of the S splits, then, with the
+// count, their [S, B] count partials.
+__global__ void min_count_merge_kernel(const int* __restrict__ part,
+                                       int* __restrict__ key,
+                                       int* __restrict__ cnt, int B, int S,
+                                       int shift, int with_count) {
+  const int r = blockIdx.x * MERGE_THREADS + threadIdx.x;
+  if (r >= B) return;
+  int k = BIG_KEY;
+  for (int s = 0; s < S; ++s) k = min(k, part[(long)s * B + r]);
+  key[r] = k;
+  if (with_count) {
+    const int d = k >> shift;
+    const long sb = (long)S * B;
+    int c = 0;
+    for (int s = 0; s < S; ++s) {
+      if ((part[(long)s * B + r] >> shift) == d) c += part[sb + (long)s * B + r];
+    }
+    cnt[r] = c;
+  }
+}
+
+// Long windows (EP > S_KS * 32): the first version, one split. A block
+// of scan_tile::BM rows walks every live db tile; outputs final.
+template <bool WITH_COUNT>
+__global__ void __launch_bounds__(scan_tile::THREADS)
     min_count_kernel(const int8_t* __restrict__ q,
                      const int8_t* __restrict__ db,
                      const int* __restrict__ zc, int* __restrict__ key_out,
                      int* __restrict__ cnt_out, int B, int n_valid, int EP,
                      int seq_len, int shift, int kc_max) {
+  using namespace scan_tile;
   extern __shared__ __align__(16) int8_t smem[];
   const bool resident = kc_max == EP;
   const int stride = kc_max + PAD;
@@ -141,40 +358,82 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+template <bool WITH_COUNT>
+cudaError_t launch_long(const int8_t* q, const int8_t* db, const int* zc,
+                        int* key, int* cnt, int B, int n_valid, int EP,
+                        int seq_len, int shift, cudaStream_t s) {
+  const int kc_max = scan_tile::pick_kc(EP);
+  const size_t smem = scan_tile::smem_bytes(kc_max);
+  const cudaError_t err = cudaFuncSetAttribute(
+      min_count_kernel<WITH_COUNT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  min_count_kernel<WITH_COUNT>
+      <<<(B + scan_tile::BM - 1) / scan_tile::BM, scan_tile::THREADS, smem, s>>>(
+          q, db, zc, key, cnt, B, n_valid, EP, seq_len, shift, kc_max);
+  return cudaGetLastError();
+}
+
+// The split kernel; with splits > 1 it writes part = key [, cnt] x
+// [splits, B] and the merge follows.
+template <bool WITH_COUNT>
+cudaError_t launch_split(const int8_t* q, const int8_t* db, const int* zc,
+                         int* key, int* cnt, int* part, int B, int n_valid,
+                         int EP, int seq_len, int shift, int splits,
+                         cudaStream_t s) {
+  const int smem = split_smem(EP);
+  cudaError_t err = cudaFuncSetAttribute(
+      min_count_split_kernel<WITH_COUNT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const bool direct = splits == 1;
+  min_count_split_kernel<WITH_COUNT>
+      <<<dim3((B + S_BM - 1) / S_BM, splits), S_THREADS, smem, s>>>(
+          q, db, zc, direct ? key : part,
+          direct ? cnt : part + (long)splits * B, B, n_valid, EP, seq_len,
+          shift);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || direct) return err;
+  min_count_merge_kernel<<<(B + MERGE_THREADS - 1) / MERGE_THREADS,
+                           MERGE_THREADS, 0, s>>>(part, key, cnt, B, splits,
+                                                  shift, WITH_COUNT);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Launch on `stream`. q: int8 [B, EP], db: int8 [W, EP], zc: int32 [W],
-// outputs int32 [B]; cnt is written only when with_count. Requires
-// EP % 32 == 0, W % 64 == 0, 0 <= n_valid <= W, 16-byte aligned q and
-// db. Returns the cudaError_t of the launch.
+// key and cnt: int32 [B], cnt written (and read as a pointer) only when
+// with_count; part: int32 [with_count ? 2 : 1, splits, B] scratch when
+// splits > 1 (else unused). Requires EP % 32 == 0, W % 64 == 0,
+// B >= 1, 1 <= n_valid <= W, 16-byte aligned q and db,
+// 1 <= splits <= ceil(n_valid / 64) when EP <= 256 and splits == 1 when
+// EP > 256. Returns the cudaError_t of the launches.
 extern "C" int smafa_min_count(const void* q, const void* db, const void* zc,
-                               void* key, void* cnt, int B, int n_valid,
-                               int EP, int seq_len, int shift, int with_count,
-                               void* stream) {
-  const int kc_max = pick_kc(EP);
-  const size_t smem = smem_bytes(kc_max);
-  const dim3 grid((B + BM - 1) / BM);
+                               void* key, void* cnt, void* part, int B,
+                               int n_valid, int EP, int seq_len, int shift,
+                               int with_count, int splits, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* qp = static_cast<const int8_t*>(q);
   const int8_t* dp = static_cast<const int8_t*>(db);
   const int* zp = static_cast<const int*>(zc);
   int* kp = static_cast<int*>(key);
   int* cp = static_cast<int*>(cnt);
-  cudaError_t err;
-  if (with_count) {
-    err = cudaFuncSetAttribute(min_count_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    min_count_kernel<true><<<grid, THREADS, smem, s>>>(
-        qp, dp, zp, kp, cp, B, n_valid, EP, seq_len, shift, kc_max);
-  } else {
-    err = cudaFuncSetAttribute(min_count_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    min_count_kernel<false><<<grid, THREADS, smem, s>>>(
-        qp, dp, zp, kp, cp, B, n_valid, EP, seq_len, shift, kc_max);
+  int* pp = static_cast<int*>(part);
+  if (B < 1 || n_valid < 1) return (int)cudaErrorInvalidValue;
+  if (EP > S_KS * 32) {
+    if (splits != 1) return (int)cudaErrorInvalidValue;
+    return (int)(with_count ? launch_long<true>(qp, dp, zp, kp, cp, B, n_valid,
+                                                EP, seq_len, shift, s)
+                            : launch_long<false>(qp, dp, zp, kp, cp, B, n_valid,
+                                                 EP, seq_len, shift, s));
   }
-  return (int)cudaGetLastError();
+  if (splits < 1 || splits > (n_valid + S_BN - 1) / S_BN) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)(with_count
+                   ? launch_split<true>(qp, dp, zp, kp, cp, pp, B, n_valid, EP,
+                                        seq_len, shift, splits, s)
+                   : launch_split<false>(qp, dp, zp, kp, cp, pp, B, n_valid,
+                                         EP, seq_len, shift, splits, s));
 }

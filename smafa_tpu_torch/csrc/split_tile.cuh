@@ -1,14 +1,16 @@
-// The split-W tile shared by min2.cu and compact.cu: a block of
-// S_WARPS warps owns S_BM query rows (32 per warp) in shared memory and
-// walks a contiguous run of whole S_BN-row db tiles, which arrive with
-// their zc by cp.async in an S_STAGES ring; mma.sync fragments come from
-// ldmatrix.x4 on rows padded by S_PAD bytes. Windows up to S_KS * 32
-// bytes of embedding (L <= 64).
+// The split-W tile shared by min2.cu, compact.cu, kstats.cu and
+// min_count.cu: a block of S_WARPS warps owns S_BM query rows (32 per
+// warp) in shared memory and walks a contiguous run of whole S_BN-row db
+// tiles, which arrive with their zc by cp.async in an S_STAGES ring;
+// mma.sync fragments come from ldmatrix.x4 on rows padded by S_PAD
+// bytes. Windows up to S_KS * 32 bytes of embedding (L <= 64).
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "scan_tile.cuh"
 
 namespace split_tile {
 
@@ -77,6 +79,63 @@ __device__ __forceinline__ void issue_tile(int8_t* st, const int8_t* db,
   if (threadIdx.x < S_BN) {
     int* sz = reinterpret_cast<int*>(st + S_BN * stride);
     cp_async4(sz + threadIdx.x, zc + w0 + threadIdx.x);
+  }
+}
+
+// Start the copy of the block's S_BM query rows from row b0 into sA,
+// rows at or past B zero-filled; it joins the caller's next commit.
+__device__ __forceinline__ void issue_queries(int8_t* sA, const int8_t* q,
+                                              long b0, int B, int ep,
+                                              int stride) {
+  for (int i = threadIdx.x; i < S_BM * 16; i += S_THREADS) {
+    const int r = i >> 4, v = i & 15;
+    if (v * 16 >= ep) continue;
+    if (b0 + r < B) {
+      cp_async16(sA + r * stride + v * 16, q + (b0 + r) * ep + v * 16);
+    } else {
+      *reinterpret_cast<int4*>(sA + r * stride + v * 16) = make_int4(0, 0, 0, 0);
+    }
+  }
+}
+
+// A lane's ldmatrix.x4 row addresses. B: matrix j = lane / 8 is n-tile
+// j / 2 of a pair, k half j % 2, so regs {0, 1} and {2, 3} are the
+// pair's B fragments; the offset is into a db tile. A: matrix j is rows
+// 8 (j % 2), k half j / 2 of an m16 tile of the warp's 32 query rows,
+// regs 0..3 its A fragment.
+__device__ __forceinline__ int b_frag_offset(int lane, int stride) {
+  return ((lane >> 4) * 8 + (lane & 7)) * stride + ((lane >> 3) & 1) * 16;
+}
+
+__device__ __forceinline__ const int8_t* a_frag_row(const int8_t* sA, int warp,
+                                                    int lane, int stride) {
+  return sA + (warp * 32 + (lane & 7) + ((lane >> 3) & 1) * 8) * stride +
+         (lane >> 4) * 16;
+}
+
+// acc[m][n][2h + c] += the dot of the warp's query row 16m + g + 8h with
+// column 8n + 2t + c of a db tile (sDb: the tile plus this lane's
+// b_frag_offset), over nks k-steps of 32 bytes.
+__device__ __forceinline__ void tile_mma(int (&acc)[2][8][4],
+                                         const int8_t* a_row,
+                                         const int8_t* sDb, int stride,
+                                         int nks) {
+#pragma unroll
+  for (int k = 0; k < S_KS; ++k) {
+    if (k < nks) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) ldmatrix_x4(af[m], a_row + m * 16 * stride + k * 32);
+      uint32_t p[4][4];
+#pragma unroll
+      for (int pr = 0; pr < 4; ++pr) ldmatrix_x4(p[pr], sDb + pr * 16 * stride + k * 32);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const uint32_t b[2] = {p[n >> 1][2 * (n & 1)], p[n >> 1][2 * (n & 1) + 1]};
+#pragma unroll
+        for (int m = 0; m < 2; ++m) scan_tile::mma_s8(acc[m][n], af[m], b);
+      }
+    }
   }
 }
 

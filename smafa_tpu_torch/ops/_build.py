@@ -42,8 +42,10 @@ _SIGNATURES = {
                    _P],
     # q, db, zc, thresh, mask, B, W, EP, seq_len, splits, stream
     "smafa_compact_mask": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # q, db, zc, key, cnt, B, n_valid, EP, seq_len, shift, with_count, stream
-    "smafa_min_count": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # q, db, zc, key, cnt, part, B, n_valid, EP, seq_len, shift, with_count,
+    # splits, stream
+    "smafa_min_count": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _P],
     # q, db, zc, ts, cnt, mx, part, B, n_valid, EP, seq_len, splits, stream
     "smafa_kstats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }

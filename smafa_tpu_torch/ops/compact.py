@@ -12,7 +12,7 @@ import torch
 
 from smafa_tpu_torch.ops import _build
 from smafa_tpu_torch.ops import distance as D
-from smafa_tpu_torch.ops.min2 import check_operands, launch_plan
+from smafa_tpu_torch.ops.min2 import check_operands, launch_plan, sm_count
 
 launches = 0
 # The long-window route's grid.y limit times its query tile; the split
@@ -41,8 +41,7 @@ def compact_mask(q_emb: torch.Tensor, db_emb: torch.Tensor,
     if b == 0:
         return mask
     ep = q_emb.shape[1]
-    sms = torch.cuda.get_device_properties(q_emb.device).multi_processor_count
-    _, splits = launch_plan(b, wp, ep, sms)
+    _, splits = launch_plan(b, wp, ep, sm_count(q_emb.device))
     lib = _build.load()
     stream = torch.cuda.current_stream(q_emb.device).cuda_stream
     rc = lib.smafa_compact_mask(q_emb.data_ptr(), db_emb.data_ptr(),

@@ -19,18 +19,6 @@ from smafa_tpu_torch.ops.keys import KSTATS_PROBES
 launches = 0
 
 
-def launch_plan(b: int, n_valid: int, ep: int, sms: int) -> tuple[str, int]:
-    """(route, db splits) of a kstats call on a card with ``sms`` SMs:
-    ("none", 0) when there is nothing to scan (b == 0 or n_valid == 0),
-    which launches nothing; else min2's ``launch_plan`` over the live
-    64-row tiles only, ceil(n_valid / 64) of them, so no split walks the
-    buffer past n_valid."""
-    if b == 0 or n_valid == 0:
-        return "none", 0
-    live = -(-n_valid // D.WP_MULTIPLE) * D.WP_MULTIPLE
-    return M.launch_plan(b, live, ep, sms)
-
-
 def kstats(q_emb: torch.Tensor, db_emb: torch.Tensor, zc: torch.Tensor,
            ts: torch.Tensor, n_valid: int,
            seq_len: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -60,8 +48,7 @@ def kstats(q_emb: torch.Tensor, db_emb: torch.Tensor, zc: torch.Tensor,
     if not q_emb.is_cuda:
         raise ValueError(f"no kstats kernel for device {q_emb.device}")
     ep = q_emb.shape[1]
-    sms = torch.cuda.get_device_properties(q_emb.device).multi_processor_count
-    _, s = launch_plan(b, n_valid, ep, sms)
+    _, s = M.live_plan(b, n_valid, ep, M.sm_count(q_emb.device))
     if s == 0:
         return (torch.zeros((KSTATS_PROBES, b), dtype=torch.int32,
                             device=q_emb.device),

@@ -8,6 +8,8 @@ the merge of its db splits).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from smafa_tpu_torch.ops import _build
@@ -38,6 +40,13 @@ def split_count(b: int, wp: int, slots: int) -> int:
     return max(1, min(tiles, slots // qtiles))
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """SMs of the card ``device`` names, queried once per device: the
+    query is host work that every launch would otherwise repeat."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def launch_plan(b: int, wp: int, ep: int, sms: int) -> tuple[str, int]:
     """(route, db splits) of a min2 or compact_mask launch on a card with
     ``sms`` SMs: windows up to 64 bp (EP <= SPLIT_EP_MAX) take the split
@@ -46,6 +55,19 @@ def launch_plan(b: int, wp: int, ep: int, sms: int) -> tuple[str, int]:
     if ep > SPLIT_EP_MAX:
         return "long", 1
     return "split", split_count(b, wp, sms * BLOCKS_PER_SM)
+
+
+def live_plan(b: int, n_valid: int, ep: int, sms: int) -> tuple[str, int]:
+    """(route, db splits) of a kstats or min_count call, which scan only
+    the first ``n_valid`` db rows, on a card with ``sms`` SMs: ("none",
+    0) when there is nothing to scan (b == 0 or n_valid == 0), which
+    launches nothing; else ``launch_plan`` over the live 64-row tiles
+    only, ceil(n_valid / 64) of them, so no split walks the buffer past
+    n_valid."""
+    if b == 0 or n_valid == 0:
+        return "none", 0
+    live = -(-n_valid // D.WP_MULTIPLE) * D.WP_MULTIPLE
+    return launch_plan(b, live, ep, sms)
 
 
 def check_operands(q_emb: torch.Tensor, db_emb: torch.Tensor,
@@ -96,8 +118,7 @@ def min2(q_emb: torch.Tensor, db_emb: torch.Tensor, zc: torch.Tensor,
     if b == 0:
         return (lo, hi, cnt) if with_count else (lo, hi)
     ep = q_emb.shape[1]
-    sms = torch.cuda.get_device_properties(q_emb.device).multi_processor_count
-    _, s = launch_plan(b, wp, ep, sms)
+    _, s = launch_plan(b, wp, ep, sm_count(q_emb.device))
     # the splits' partials; the caching allocator ties it to this stream
     part = torch.empty((3, s, b), dtype=torch.int32,
                        device=q_emb.device) if s > 1 else None

@@ -3,7 +3,9 @@ op's centroid scan.
 
 CPU tensors take the plain version (``distance.min_count_reference``);
 CUDA tensors launch the kernel on the current stream, or raise.
-``launches`` counts kernel launches.
+``launches`` counts calls that launched the kernel (one per call, with
+or without the merge of its db splits; none when there is nothing to
+scan).
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ import torch
 
 from smafa_tpu_torch.ops import _build
 from smafa_tpu_torch.ops import distance as D
-from smafa_tpu_torch.ops.min2 import check_operands
+from smafa_tpu_torch.ops import min2 as M
 
 launches = 0
 
@@ -23,7 +25,7 @@ def min_count(q_emb: torch.Tensor, db_emb: torch.Tensor, zc: torch.Tensor,
     """(key[, cnt]) int32 [B] over db rows < n_valid: see
     ``distance.min_count_reference``."""
     global launches
-    check_operands(q_emb, db_emb, zc, seq_len)
+    M.check_operands(q_emb, db_emb, zc, seq_len)
     wp = db_emb.shape[0]
     if seq_len < 1:
         raise ValueError("seq_len must be positive")
@@ -36,17 +38,25 @@ def min_count(q_emb: torch.Tensor, db_emb: torch.Tensor, zc: torch.Tensor,
                                      shift, with_count)
     if not q_emb.is_cuda:
         raise ValueError(f"no min_count kernel for device {q_emb.device}")
-    b = q_emb.shape[0]
+    b, ep = q_emb.shape
+    _, s = M.live_plan(b, n_valid, ep, M.sm_count(q_emb.device))
+    if s == 0:
+        key = torch.full((b,), D.BIG_KEY, dtype=torch.int32,
+                         device=q_emb.device)
+        return (key, torch.zeros_like(key)) if with_count else (key,)
     key = torch.empty((b,), dtype=torch.int32, device=q_emb.device)
-    cnt = torch.empty_like(key) if with_count else key  # unused when off
-    if b == 0:
-        return (key, cnt) if with_count else (key,)
+    cnt = torch.empty_like(key) if with_count else None
+    # the splits' partials; the caching allocator ties it to this stream
+    part = torch.empty((2 if with_count else 1, s, b), dtype=torch.int32,
+                       device=q_emb.device) if s > 1 else None
     lib = _build.load()
     stream = torch.cuda.current_stream(q_emb.device).cuda_stream
     rc = lib.smafa_min_count(q_emb.data_ptr(), db_emb.data_ptr(),
-                             zc.data_ptr(), key.data_ptr(), cnt.data_ptr(), b,
-                             n_valid, q_emb.shape[1], seq_len, shift,
-                             int(with_count), stream)
+                             zc.data_ptr(), key.data_ptr(),
+                             None if cnt is None else cnt.data_ptr(),
+                             None if part is None else part.data_ptr(), b,
+                             n_valid, ep, seq_len, shift, int(with_count), s,
+                             stream)
     _build.check(rc, "min_count")
     launches += 1
     return (key, cnt) if with_count else (key,)

@@ -1,8 +1,7 @@
-"""The min_count kernel against its plain PyTorch version on the card,
-and the runner, cluster and query engines on the card against the CPU.
-min2's, compact_mask's and kstats's card tests are in
-tests/test_torch_gpu_min2.py, tests/test_torch_gpu_compact.py and
-tests/test_torch_gpu_kstats.py.
+"""The runner, cluster and query engines on the card against the CPU,
+and the wrappers' operand checks on the card. The kernels' card tests
+are in tests/test_torch_gpu_min2.py, tests/test_torch_gpu_compact.py,
+tests/test_torch_gpu_kstats.py and tests/test_torch_gpu_min_count.py.
 
 Marked ``gpu``: each test skips where no CUDA device is visible. Run with
 ``python -m pytest --noconftest -m gpu tests/test_torch_gpu*.py``; the
@@ -17,40 +16,6 @@ import pytest
 from torch_gpu_common import cuda, operands  # noqa: F401
 
 pytestmark = pytest.mark.gpu
-
-
-@pytest.mark.parametrize("seq_len", [3, 60, 150, 300])
-def test_min_count_kernel_equals_plain(cuda, seq_len):
-    """A 5056-row buffer whose every row is live: the scan sees only the
-    first n_valid (3001 is not a multiple of the 64-row tile; 0 gives the
-    empty-row sentinels). B = 300 is not a multiple of the 128-row block;
-    L = 300 streams K."""
-    torch = cuda.torch
-    rng = np.random.default_rng(seq_len)
-    wp, b = 5056, 300
-    buf = rng.integers(0, 5, (wp, seq_len), dtype=np.uint8)
-    buf[rng.integers(0, 3001, 40)] = buf[5]  # ties
-    q = buf[rng.integers(0, wp, b)].copy()  # copies of rows past n_valid too
-    mut = rng.random(q.shape) < 0.05
-    q[mut] = rng.integers(0, 5, int(mut.sum())).astype(np.uint8)
-    q[:4] = buf[5]
-    emb, zc = cuda.D.embed_db(torch.from_numpy(buf).to(cuda.dev), seq_len, wp)
-    q_emb = cuda.D.expand_embed_query(torch.from_numpy(q).to(cuda.dev), seq_len)
-    shift = cuda.K.packing_shift(seq_len, wp)
-    for n_valid in (3001, wp, 0):
-        for with_count in (True, False):
-            before = cuda.MC.launches
-            got = cuda.MC.min_count(q_emb, emb, zc, n_valid, seq_len, shift,
-                                    with_count)
-            want = cuda.D.min_count_reference(q_emb, emb, zc, n_valid, seq_len,
-                                              shift, with_count)
-            torch.cuda.synchronize()
-            assert cuda.MC.launches == before + 1
-            assert len(got) == len(want) == (2 if with_count else 1)
-            for a, w in zip(got, want):
-                assert torch.equal(a, w), (n_valid, with_count)
-            if n_valid == 0:
-                assert (got[0] == 2**31 - 1).all()
 
 
 def _cluster_text(g, path, device, max_div, batch_size):

@@ -29,8 +29,7 @@ BIG = (1 << 20) + 37
 
 
 def _plan(g, b, n_valid, ep):
-    sms = g.torch.cuda.get_device_properties(g.dev).multi_processor_count
-    return g.KS.launch_plan(b, n_valid, ep, sms)
+    return g.M.live_plan(b, n_valid, ep, g.M.sm_count(g.dev))
 
 
 def _stats(g, q_emb, emb, zc, ts, n_valid, seq_len):

@@ -1,6 +1,6 @@
 """The kstats kernel's split-W plan and merge, on the CPU.
 
-The launch plan (``ops/kstats.py:launch_plan``) cuts only the live
+The launch plan (``ops/min2.py:live_plan``) cuts only the live
 64-row tiles, ceil(n_valid / 64) of them, into splits the way the kernel
 does (split y of S walks tiles tiles * y // S up to tiles * (y + 1) //
 S): every live tile once, none past n_valid's, one split when the query
@@ -58,9 +58,9 @@ PLAN = {16384: {BIG: 4, 3001: 4, 37: 1}, 4096: {BIG: 16, 3001: 16, 37: 1},
 @pytest.mark.parametrize("b", sorted(PLAN))
 def test_kstats_plan_covers_the_live_tiles(port, b):
     ep = port.D.embed_width(60)
-    assert port.KS.launch_plan(b, 0, ep, H100_SMS) == ("none", 0)
+    assert port.M.live_plan(b, 0, ep, H100_SMS) == ("none", 0)
     for n_valid, want in PLAN[b].items():
-        route, s = port.KS.launch_plan(b, n_valid, ep, H100_SMS)
+        route, s = port.M.live_plan(b, n_valid, ep, H100_SMS)
         tiles = -(-n_valid // WP_MULTIPLE)
         assert route == "split" and s == want and 1 <= s <= tiles
         cover = np.zeros(tiles + 1, np.int64)  # + 1: the tile past n_valid's
@@ -80,10 +80,10 @@ def test_kstats_plan_one_split_when_query_tiles_fill_the_slots(port):
     ep = port.D.embed_width(60)
     slots = H100_SMS * port.M.BLOCKS_PER_SM
     for b in (256 * slots, 256 * slots + 1, 1 << 20):
-        assert port.KS.launch_plan(b, BIG, ep, H100_SMS) == ("split", 1)
-    assert port.KS.launch_plan(256 * (slots - 1), BIG, ep, H100_SMS) == ("split", 1)
-    assert port.KS.launch_plan(256 * (slots // 2), BIG, ep, H100_SMS) == ("split", 2)
-    assert port.KS.launch_plan(1, 3001, ep, 1000) == ("split", 47)
+        assert port.M.live_plan(b, BIG, ep, H100_SMS) == ("split", 1)
+    assert port.M.live_plan(256 * (slots - 1), BIG, ep, H100_SMS) == ("split", 1)
+    assert port.M.live_plan(256 * (slots // 2), BIG, ep, H100_SMS) == ("split", 2)
+    assert port.M.live_plan(1, 3001, ep, 1000) == ("split", 47)
 
 
 def test_kstats_plan_routes_by_width(port):
@@ -93,12 +93,12 @@ def test_kstats_plan_routes_by_width(port):
         ep = port.D.embed_width(seq_len)
         for b in (1, 77, 16384):
             for n_valid in (37, 3001, BIG):
-                route, s = port.KS.launch_plan(b, n_valid, ep, H100_SMS)
+                route, s = port.M.live_plan(b, n_valid, ep, H100_SMS)
                 if seq_len > 64:
                     assert (route, s) == ("long", 1)
                 else:
                     assert route == "split" and s >= 1
-            assert port.KS.launch_plan(b, 0, ep, H100_SMS) == ("none", 0)
+            assert port.M.live_plan(b, 0, ep, H100_SMS) == ("none", 0)
 
 
 def _case(seq_len, wp, b, n_valid, seed, far=False):
@@ -144,7 +144,7 @@ def test_split_merge_equals_whole_and_statsN_pass(port, seq_len, sms):
     emb, zc = port.D.embed_db(from_numpy(buf), seq_len, wp)
     q_emb = port.D.expand_embed_query(from_numpy(q), seq_len)
     ts = from_numpy(ts_np)
-    _, s = port.KS.launch_plan(b, n_valid, port.D.embed_width(60), sms)
+    _, s = port.M.live_plan(b, n_valid, port.D.embed_width(60), sms)
     assert s == (9 if sms == H100_SMS else 4)
     cnt, mx = _merged_splits(port, q_emb, emb, zc, ts, n_valid, seq_len, s)
     whole = port.D.stats_reference(q_emb, emb, zc, ts, n_valid, seq_len)
@@ -167,7 +167,7 @@ def test_split_merge_ignores_far_live_rows(port, n_valid):
     from_numpy = port.torch.from_numpy
     emb, zc = port.D.embed_db(from_numpy(buf), seq_len, wp)
     q_emb = port.D.expand_embed_query(from_numpy(q), seq_len)
-    _, s = port.KS.launch_plan(b, n_valid, port.D.embed_width(seq_len), 2)
+    _, s = port.M.live_plan(b, n_valid, port.D.embed_width(seq_len), 2)
     cnt, mx = _merged_splits(port, q_emb, emb, zc, from_numpy(ts_np), n_valid,
                              seq_len, s)
     dist = (q[:, None, :] != buf[None, :, :]).sum(axis=2)
