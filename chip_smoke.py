@@ -58,6 +58,27 @@ Phases, one line each:
    (B, n_valid) of every min_count launch, replayed after the run for
    the kernel's summed device ms (the profiler's, without the host's
    launch gaps) beside the wall. Then ``count`` on the same file.
+6. host parity: the native host runtime against its pure-Python paths
+   (SMAFA_TPU_NO_NATIVE=1, toggled in this process) on the same data,
+   both timed: read_encoded_batches on the query smoke's reads and on
+   cluster 1M's input (ids, raws, codes), the query smoke's emit (bytes,
+   also equal to its output file), postcard dumps/loads of the 2^20-row
+   db (bytes, codes). Any difference fails the run.
+7. resume: the query smoke through the engine, crashed (a torn write)
+   in its second batch, then ``query --resume-state`` through the CLI
+   on the same file: the bytes of the straight run. Cluster 1M crashed
+   after the batch that passes half its records, then ``cluster
+   --resume-state`` through the CLI: smafa_tpu's sha256 and centroid
+   count. Logs the resumed walls and the seconds spent re-filtering the
+   prefix.
+
+After the kernels' build, ``native_build`` builds the native host
+library (g++; a failed build fails the run) and logs g++'s version, the
+seconds and the library's name. Spies count the calls of the native
+parse (``parse_buffer``), emit (``format_hits_tsv_codes``) and dedup
+(``dedup_filter``) in the query smoke, K-mode run (a) and cluster 1M,
+logged beside the kernel launches; a count of 0 where that path must
+run natively fails the run.
 
 Before the last line it prints the kernels' JSON summary and the card's
 name and power limit; the last line is the run's JSON verdict. Any
@@ -706,10 +727,52 @@ def cli_query(cli, query_mod, argv: list[str]):
     return rc, wall, captured[0] if captured else None
 
 
+class HostSpies:
+    """Counts the calls of the native parse (``parse_buffer``), emit
+    (``format_hits_tsv_codes``) and dedup (``dedup_filter``) while
+    active, the way ``cluster_cli`` records min_count's shapes."""
+
+    def __init__(self):
+        from smafa_tpu_torch import native
+        from smafa_tpu_torch.native import ingest
+
+        self._targets = [(ingest, "parse_buffer"),
+                         (ingest, "format_hits_tsv_codes"),
+                         (native.load(), "dedup_filter")]
+        self.counts: dict[str, int] = {}
+        self._saved: list = []
+
+    def __enter__(self) -> "HostSpies":
+        self.counts = {name: 0 for _, name in self._targets}
+        for obj, name in self._targets:
+            fn = getattr(obj, name)
+            self._saved.append((obj, name, fn))
+
+            def spy(*a, _fn=fn, _name=name, **kw):
+                self.counts[_name] += 1
+                return _fn(*a, **kw)
+
+            setattr(obj, name, spy)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for obj, name, fn in self._saved:
+            setattr(obj, name, fn)
+        self._saved = []
+
+    def require(self, phase: str, *names: str) -> None:
+        missing = [n for n in names if self.counts[n] <= 0]
+        if missing:
+            raise AssertionError(f"{phase}: {missing} never called, so that "
+                                 "stage did not run natively")
+
+
 def end_to_end(sizes, cli, query_mod, min2_mod, compact_mod, rng,
                tmp: str) -> tuple[dict, np.ndarray, str]:
-    """Phase 3: makedb + best-hit query through the CLI. The db stays in
-    ``tmp`` for the K-mode phase; returns (result, db codes, db path)."""
+    """Phase 3: makedb + best-hit query through the CLI. The db, the reads
+    and the output stay in ``tmp`` for the K-mode, host parity and resume
+    phases; returns (result, db codes, db path), the result with the
+    reads' and the output's paths and the emitted hit arrays."""
     n, nq, max_div = sizes.db_rows, sizes.queries, 5
     codes = random_db(rng, n, L_SMOKE)
     src = rng.integers(0, n, nq)
@@ -724,9 +787,25 @@ def end_to_end(sizes, cli, query_mod, min2_mod, compact_mod, rng,
     rc_db = cli.main(["makedb", "-i", db_fa, "-d", db, "--format", "native",
                       "--quiet"])
     t1 = time.perf_counter()
-    rc_q, wall, timers = cli_query(cli, query_mod, [
-        "query", "-d", db, "-q", q_fa, "--max-divergence", str(max_div),
-        "-o", out, "--quiet"])
+    # the hits of each emit, replayed by the host parity phase
+    emitted, run_emit = [], query_mod._emit_bulk
+
+    def emit_spy(stream, qnums, subj, d, db_):
+        emitted.append((np.array(qnums), np.array(subj), np.array(d),
+                        types.SimpleNamespace(windows=db_.windows,
+                                              seq_len=db_.seq_len)))
+        return run_emit(stream, qnums, subj, d, db_)
+
+    query_mod._emit_bulk = emit_spy
+    min2_mod.launches = 0
+    compact_mod.launches = 0
+    try:
+        with HostSpies() as spies:
+            rc_q, wall, timers = cli_query(cli, query_mod, [
+                "query", "-d", db, "-q", q_fa, "--max-divergence",
+                str(max_div), "-o", out, "--quiet"])
+    finally:
+        query_mod._emit_bulk = run_emit
     launches = {"min2": min2_mod.launches,
                 "compact_mask": compact_mod.launches}
     if rc_db != 0 or rc_q != 0:
@@ -734,10 +813,10 @@ def end_to_end(sizes, cli, query_mod, min2_mod, compact_mod, rng,
     for name, k in launches.items():
         if k <= 0:
             raise AssertionError(f"the {name} kernel never launched on the main path")
+    spies.require("query smoke", "parse_buffer", "format_hits_tsv_codes")
     with open(out) as f:
         lines = f.read().splitlines()
-    for path in (db_fa, q_fa, out):
-        os.remove(path)
+    os.remove(db_fa)
     by_q: dict[int, list[str]] = {}
     for line in lines:
         by_q.setdefault(int(line.split("\t", 1)[0]), []).append(line)
@@ -763,8 +842,10 @@ def end_to_end(sizes, cli, query_mod, min2_mod, compact_mod, rng,
            "comparisons_per_s_scan": nq * n / scan_s,
            "comparisons_per_s_wall": nq * n / wall,
            "stage_s": timers.seconds, "hit_lines": len(lines),
-           "sampled_exact": int(sample.size), "launches": launches}
+           "sampled_exact": int(sample.size), "launches": launches,
+           "host_calls": spies.counts}
     log("end_to_end", db_rows=n, queries=nq, **res)
+    res.update(reads=q_fa, output=out, emitted=emitted)
     return res, codes, db
 
 
@@ -818,9 +899,12 @@ def kmode_end_to_end(sizes, cli, query_mod, K, ks_mod, compact_mod, codes,
         if batch is not None:
             argv += ["--batch-size", str(batch)]
         ks_mod.launches = compact_mod.launches = 0
-        rc, wall, timers = cli_query(cli, query_mod, argv)
+        with HostSpies() as spies:
+            rc, wall, timers = cli_query(cli, query_mod, argv)
         launches = {"kstats": ks_mod.launches,
                     "compact_mask": compact_mod.launches}
+        if limit is None:  # emitted in bulk, natively
+            spies.require(f"K-mode run {name}", "format_hits_tsv_codes")
         batches = -(-nq // (batch or sizes.main_batch))
         if rc != 0:
             raise AssertionError(f"K-mode run {name}: query rc={rc}")
@@ -851,7 +935,8 @@ def kmode_end_to_end(sizes, cli, query_mod, K, ks_mod, compact_mod, codes,
                "limit_per_sequence": limit, "batches": batches,
                "wall_s": wall, "reads_per_s": nq / wall,
                "hit_lines": n_lines, "stage_s": timers.seconds,
-               "sampled_exact": len(sample), "launches": launches}
+               "sampled_exact": len(sample), "launches": launches,
+               "host_calls": spies.counts}
         log("kmode_end_to_end", run=name, db_rows=n, **res)
         results[name] = res
     return results
@@ -915,54 +1000,65 @@ def cluster_cli(cli, cluster_mod, argv: list[str]):
     return rc, wall, captured[0] if captured else None, shapes
 
 
+def cluster_lines(text: bytes, L: int):
+    """(sha256, record rows, centroid rows, distinct centroids) of a
+    cluster output of L bp records."""
+    import hashlib
+
+    rows = np.frombuffer(text, np.uint8).reshape(-1, 2 * L + 2)
+    cent_of = rows[:, L + 1:2 * L + 1]
+    n_cent = int(np.unique(cent_of.view(np.dtype((np.void, L)))).shape[0])
+    return hashlib.sha256(text).hexdigest(), rows[:, :L], cent_of, n_cent
+
+
 def cluster_end_to_end(sizes, cli, cluster_mod, mc_mod, D, K, dev, rng,
-                       rng_r) -> dict:
+                       rng_r, tmp: str) -> tuple[dict, str]:
     """Phase 5: cluster 1M records through the CLI, then count. A spy on
     the engine's min_count records the (B, n_valid, buffer rows) of every
     launch; after the run they are replayed (``replay_min_count``, data
-    from ``rng_r``) for the kernel's summed device ms."""
+    from ``rng_r``) for the kernel's summed device ms. The input stays
+    in ``tmp`` for the host parity and resume phases; returns (result,
+    input path)."""
     import contextlib
-    import hashlib
     import io
 
     bench = load_cluster_bench()
     L, max_div = L_SMOKE, sizes.cluster_div
-    with tempfile.TemporaryDirectory(prefix="smafa_smoke_") as tmp:
-        inp, out = os.path.join(tmp, "in.fna"), os.path.join(tmp, "clusters.tsv")
-        t0 = time.perf_counter()
-        bench.make_input(inp, sizes.cluster_records, 4000, L, 4, 0)
-        gen_s = time.perf_counter() - t0
-        mc_mod.launches = 0
+    inp, out = os.path.join(tmp, "in.fna"), os.path.join(tmp, "clusters.tsv")
+    t0 = time.perf_counter()
+    bench.make_input(inp, sizes.cluster_records, 4000, L, 4, 0)
+    gen_s = time.perf_counter() - t0
+    mc_mod.launches = 0
+    with HostSpies() as spies:
         rc, wall, timers, shapes = cluster_cli(cli, cluster_mod, [
             "cluster", "-i", inp, "-d", str(max_div), "-o", out, "--quiet"])
-        launches = mc_mod.launches
-        if rc != 0:
-            raise AssertionError(f"cluster CLI failed: rc={rc}")
-        if launches <= 0:
-            raise AssertionError("the min_count kernel never launched on the cluster path")
-        with open(out, "rb") as f:
-            text = f.read()
-        buf = io.StringIO()
-        t2 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc_count = cli.main(["count", "-i", inp, "--quiet"])
-        count_s = time.perf_counter() - t2
-        want_count = json.dumps([{"path": inp, "num_reads": sizes.cluster_records,
-                                  "num_bases": sizes.cluster_records * L}],
-                                separators=(",", ":")) + "\n"
-        if rc_count != 0 or buf.getvalue() != want_count:
-            raise AssertionError(f"count: rc={rc_count}, printed {buf.getvalue()!r}")
-        inputs = fasta_codes(inp, L)
-    sha = hashlib.sha256(text).hexdigest()
-    rows = np.frombuffer(text, np.uint8).reshape(-1, 2 * L + 2)
-    records, cent_of = rows[:, :L], rows[:, L + 1:2 * L + 1]
+    launches = mc_mod.launches
+    if rc != 0:
+        raise AssertionError(f"cluster CLI failed: rc={rc}")
+    if launches <= 0:
+        raise AssertionError("the min_count kernel never launched on the cluster path")
+    spies.require("cluster 1M", "parse_buffer", "dedup_filter")
+    with open(out, "rb") as f:
+        text = f.read()
+    os.remove(out)
+    buf = io.StringIO()
+    t2 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc_count = cli.main(["count", "-i", inp, "--quiet"])
+    count_s = time.perf_counter() - t2
+    want_count = json.dumps([{"path": inp, "num_reads": sizes.cluster_records,
+                              "num_bases": sizes.cluster_records * L}],
+                            separators=(",", ":")) + "\n"
+    if rc_count != 0 or buf.getvalue() != want_count:
+        raise AssertionError(f"count: rc={rc_count}, printed {buf.getvalue()!r}")
+    inputs = fasta_codes(inp, L)
+    sha, records, cent_of, n_cent = cluster_lines(text, L)
     n_distinct = np.unique(inputs.view(np.dtype((np.void, L)))).shape[0]
     is_cent = (records == cent_of).all(axis=1)
     cent_line = np.nonzero(is_cent)[0]
     cents = records[cent_line]
     far = int(((records != cent_of).sum(axis=1) > max_div).sum())
-    n_cent = int(np.unique(cent_of.view(np.dtype((np.void, L)))).shape[0])
-    sample = np.sort(rng.choice(rows.shape[0], size=sizes.sample, replace=False))
+    sample = np.sort(rng.choice(records.shape[0], size=sizes.sample, replace=False))
     bad = [int(j) for j in sample
            if greedy_oracle(records, cents, cent_line, max_div, int(j))
            != cent_of[j].tobytes()]
@@ -972,22 +1068,185 @@ def cluster_end_to_end(sizes, cli, cluster_mod, mc_mod, D, K, dev, rng,
            "records_per_s": sizes.cluster_records / wall,
            "stage_s": timers.seconds,
            "comparisons": timers.counters.get("comparisons", 0),
-           "lines": int(rows.shape[0]), "distinct_records": int(n_distinct),
+           "lines": int(records.shape[0]), "distinct_records": int(n_distinct),
            "centroids": n_cent, "centroids_as_own_line": int(cent_line.size),
            "far_lines": far, "sampled_oracle": int(sample.size),
            "oracle_mismatches": bad[:5], "sha256": sha,
            "sha256_equals_smafa_tpu": sha == CLUSTER_SHA256,
            "count_s": count_s, "launches": {"min_count": launches},
+           "host_calls": spies.counts,
            "min_count_shapes": shapes, "min_count_device_ms": mc_ms,
            "min_count_share_of_wall": mc_ms and mc_ms / 1e3 / wall}
     log("cluster_end_to_end", **res)
-    if (rows.shape[0] != n_distinct or far or n_cent != CLUSTER_CENTROIDS
+    if (records.shape[0] != n_distinct or far or n_cent != CLUSTER_CENTROIDS
             or cent_line.size != n_cent or bad or sha != CLUSTER_SHA256):
         raise AssertionError(
-            f"cluster output wrong: {rows.shape[0]} lines for {n_distinct} "
+            f"cluster output wrong: {records.shape[0]} lines for {n_distinct} "
             f"distinct records, {far} lines beyond {max_div}, {n_cent} "
             f"centroids (want {CLUSTER_CENTROIDS}), oracle mismatches at "
             f"{bad[:5]}, sha256 {sha}")
+    return res, inp
+
+
+def with_and_without_native(fn):
+    """(fn()'s result natively, its seconds, its result under
+    SMAFA_TPU_NO_NATIVE=1, its seconds), in this process."""
+    t0 = time.perf_counter()
+    native = fn()
+    t1 = time.perf_counter()
+    saved = os.environ.get("SMAFA_TPU_NO_NATIVE")
+    os.environ["SMAFA_TPU_NO_NATIVE"] = "1"
+    try:
+        plain = fn()
+    finally:
+        if saved is None:
+            del os.environ["SMAFA_TPU_NO_NATIVE"]
+        else:
+            os.environ["SMAFA_TPU_NO_NATIVE"] = saved
+    return native, t1 - t0, plain, time.perf_counter() - t1
+
+
+def host_parity(sizes, query_mod, cluster_mod, e2e: dict, cluster_inp: str,
+                codes: np.ndarray) -> dict:
+    """Phase 6: the native host runtime against its pure-Python paths on
+    the same data, both timed; any difference fails the run."""
+    import io
+
+    from smafa_tpu_torch.core.windowset import WindowSet
+    from smafa_tpu_torch.io import fastx, postcard
+
+    def batches(path, batch_size):
+        def run():
+            ids, raws, blocks = [], [], []
+            for i, r, c in fastx.read_encoded_batches(path, batch_size):
+                ids += i
+                raws += r
+                blocks.append(c)
+            return ids, raws, np.concatenate(blocks)
+        return run
+
+    res = {}
+    # each at the batch size its engine reads at (the cluster's ceiling)
+    for name, path, bs in (("read_query_smoke", e2e["reads"], sizes.main_batch),
+                           ("read_cluster_1m", cluster_inp,
+                            cluster_mod._adaptive_max())):
+        nat, nat_s, plain, plain_s = with_and_without_native(batches(path, bs))
+        same = (nat[0] == plain[0] and nat[1] == plain[1]
+                and np.array_equal(nat[2], plain[2]))
+        res[name] = {"records": len(nat[0]), "batch": bs, "native_s": nat_s,
+                     "plain_s": plain_s, "equal": same}
+
+    def emit():
+        raw = io.BytesIO()
+        text = io.TextIOWrapper(raw, encoding="utf-8", newline="")
+        for qnums, subj, d, db in e2e["emitted"]:
+            query_mod._emit_bulk(text, qnums, subj, d, db)
+        text.flush()
+        return raw.getvalue()
+
+    nat, nat_s, plain, plain_s = with_and_without_native(emit)
+    with open(e2e["output"], "rb") as f:
+        written = f.read()
+    res["emit_query_smoke"] = {"bytes": len(nat), "native_s": nat_s,
+                               "plain_s": plain_s,
+                               "equal": nat == plain == written}
+    ws = WindowSet.from_matrix(codes, 2)
+    nat, nat_s, plain, plain_s = with_and_without_native(
+        lambda: postcard.dumps(ws))
+    res["postcard_dumps"] = {"rows": len(ws), "bytes": len(nat),
+                             "native_s": nat_s, "plain_s": plain_s,
+                             "equal": nat == plain}
+    back, back_s, back_p, back_p_s = with_and_without_native(
+        lambda: postcard.loads(nat).codes)
+    res["postcard_loads"] = {"rows": len(ws), "native_s": back_s,
+                             "plain_s": back_p_s,
+                             "equal": bool(np.array_equal(back, codes)
+                                           and np.array_equal(back_p, codes))}
+    log("host_parity", **res)
+    bad = [k for k, v in res.items() if not v["equal"]]
+    if bad:
+        raise AssertionError(f"native and plain host paths differ: {bad}")
+    return res
+
+
+def cluster_crash_point(cluster_mod, n: int) -> int:
+    """The write at which a cluster of n distinct-rich records crashes
+    just past half: one write per batch, on the adaptive schedule."""
+    target, cap = cluster_mod.DEFAULT_BATCH, cluster_mod._adaptive_max()
+    done, writes = 0, 0
+    while done < n // 2:
+        done += target
+        writes += 1
+        target = min(target * 2, cap)
+    return writes + 1
+
+
+def resume_phase(sizes, cli, query_mod, cluster_mod, dev, e2e: dict, db: str,
+                 cluster_inp: str, tmp: str) -> dict:
+    """Phase 7: crash the query smoke and cluster 1M through the engine,
+    resume each through the CLI, and hold the output to the straight
+    run's."""
+    from smafa_tpu_torch.utils.testing import CrashError, CrashyFile
+
+    def crash(run, out_path, fail_at):
+        t0 = time.perf_counter()
+        with open(out_path, "w") as f:
+            try:
+                run(CrashyFile(f, fail_at=fail_at))
+            except CrashError:
+                return time.perf_counter() - t0
+        raise AssertionError(f"no crash at write {fail_at}")
+
+    st, out = os.path.join(tmp, "q_state.json"), os.path.join(tmp, "q_resumed.tsv")
+    crash_s = crash(lambda f: query_mod.query(
+        db, e2e["reads"], dev, max_divergence=5, out=f, resume_state=st),
+        out, 2)
+    with open(st) as f:
+        done = json.load(f)["done"]
+    rc, wall, timers = cli_query(cli, query_mod, [
+        "query", "-d", db, "-q", e2e["reads"], "--max-divergence", "5",
+        "-o", out, "--resume-state", st, "--quiet"])
+    with open(out, "rb") as f, open(e2e["output"], "rb") as g:
+        same = f.read() == g.read()
+    res = {"query": {"crashed_s": crash_s, "done_at_crash": done,
+                     "resumed_wall_s": wall, "rc": rc,
+                     "stage_s": timers and timers.seconds,
+                     "bytes_equal": same}}
+    if rc != 0 or not same or done != sizes.main_batch:
+        log("resume", **res)
+        raise AssertionError(f"query resume: rc={rc}, done at crash {done}, "
+                             f"bytes equal {same}")
+    for path in (st, out):
+        os.remove(path)
+
+    n, max_div = sizes.cluster_records, sizes.cluster_div
+    st, out = os.path.join(tmp, "c_state.json"), os.path.join(tmp, "c_resumed.tsv")
+    fail_at = cluster_crash_point(cluster_mod, n)
+    crash_s = crash(lambda f: cluster_mod.cluster(
+        cluster_inp, max_div, dev, out=f, resume_state=st), out, fail_at)
+    with open(st) as f:
+        state = json.load(f)
+    rc, wall, timers, _ = cluster_cli(cli, cluster_mod, [
+        "cluster", "-i", cluster_inp, "-d", str(max_div), "-o", out,
+        "--resume-state", st, "--quiet"])
+    with open(out, "rb") as f:
+        sha, _, _, n_cent = cluster_lines(f.read(), L_SMOKE)
+    res["cluster"] = {"crash_at_write": fail_at, "crashed_s": crash_s,
+                      "done_at_crash": state["done"],
+                      "centroids_at_crash": state["n_centroids"],
+                      "resumed_wall_s": wall, "rc": rc,
+                      "resume_prefix_s": timers and timers.seconds.get(
+                          "resume-prefix"),
+                      "stage_s": timers and timers.seconds,
+                      "sha256": sha, "centroids": n_cent,
+                      "sha256_equals_smafa_tpu": sha == CLUSTER_SHA256}
+    log("resume", **res)
+    if (rc != 0 or sha != CLUSTER_SHA256 or n_cent != CLUSTER_CENTROIDS
+            or not 0.4 * n <= state["done"] <= 0.6 * n):
+        raise AssertionError(f"cluster resume: rc={rc}, done at crash "
+                             f"{state['done']}, {n_cent} centroids, sha256 {sha}")
+    for path in (st, st + ".centroids.npy", out):
+        os.remove(path)
     return res
 
 
@@ -1026,6 +1285,15 @@ def main() -> int:
     log("build", seconds=time.perf_counter() - t0,
         library=str(_build.library_path().name), **ptxas)
 
+    from smafa_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.load()  # a failed build raises, and fails the run
+    gxx = subprocess.run([native.CXX, "--version"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    log("native_build", gxx=gxx.splitlines()[0],
+        seconds=time.perf_counter() - t0, library=native.library_path().name)
+
     # the query batch the CLI picks for this db (engine.query._auto_batch)
     sizes = smoke_sizes(query_mod)
     rng = np.random.default_rng(seed)
@@ -1051,9 +1319,13 @@ def main() -> int:
                              codes, rng_k)
         kmode = kmode_end_to_end(sizes, cli, query_mod, K, ks_mod,
                                  compact_mod, codes, db, tmp, rng_k)
-    del codes
-    clu = cluster_end_to_end(sizes, cli, cluster_mod, mc_mod, D, K, dev, rng,
-                             np.random.default_rng([seed, 9]))
+        clu, cluster_inp = cluster_end_to_end(
+            sizes, cli, cluster_mod, mc_mod, D, K, dev, rng,
+            np.random.default_rng([seed, 9]), tmp)
+        host_parity(sizes, query_mod, cluster_mod, e2e, cluster_inp, codes)
+        del codes
+        resume_phase(sizes, cli, query_mod, cluster_mod, dev, e2e, db,
+                     cluster_inp, tmp)
 
     launches = {"min2": e2e["launches"]["min2"],
                 "compact_mask": e2e["launches"]["compact_mask"],

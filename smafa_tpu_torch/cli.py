@@ -12,8 +12,9 @@ of ``smafa_tpu.cli`` (itself the reference's, main.rs:64-116):
 Errors print their message to stderr and exit 101; usage errors exit 2.
 ``makedb``, ``query`` (best-hit and K-mode, with ``--max-divergence``
 and ``--limit-per-sequence``), ``cluster`` and ``count`` on one device
-run here. The other paths (``--resume-state``, multi-host) exit 101
-with a message that points to ROADMAP.md.
+run here, and ``query`` and ``cluster`` take ``--resume-state``.
+Multi-host (``--coordinator``, ``--num-processes``) exits 101 with a
+message that points to ROADMAP.md.
 
 The device is resolved once, here: ``cuda`` by default, and ``cpu`` only
 when ``SMAFA_TPU_TORCH_DEVICE=cpu`` asks for it. Without a visible CUDA
@@ -199,8 +200,6 @@ def resolve_device():
 def _not_ported_option(args) -> str | None:
     if getattr(args, "coordinator", None) or getattr(args, "num_processes", None):
         return "Multi-host (--coordinator/--num-processes)"
-    if getattr(args, "resume_state", None):
-        return "--resume-state"
     return None
 
 
@@ -219,6 +218,9 @@ def main(argv: list[str] | None = None) -> int:
         print(str(NotPortedError(what)), file=sys.stderr)
         return 101
     out_stream = None
+    # a+ keeps the bytes there (a resume truncates a torn tail itself)
+    # and allows the seek and truncate of an exactly-once resume
+    out_mode = "a+" if getattr(args, "resume_state", None) else "w"
     try:
         if args.subcommand == "makedb":
             from smafa_tpu_torch.engine.makedb import makedb
@@ -229,7 +231,7 @@ def main(argv: list[str] | None = None) -> int:
 
             device = resolve_device()
             if args.output:
-                out_stream = open(args.output, "w")
+                out_stream = open(args.output, out_mode)
             query(
                 args.database, args.query, device,
                 max_divergence=args.max_divergence,
@@ -237,6 +239,7 @@ def main(argv: list[str] | None = None) -> int:
                 limit_per_sequence=args.limit_per_sequence,
                 batch_size=args.batch_size,
                 out=out_stream,
+                resume_state=args.resume_state,
             )
         elif args.subcommand == "cluster":
             if args.max_divergence is None:
@@ -248,9 +251,10 @@ def main(argv: list[str] | None = None) -> int:
 
             device = resolve_device()
             if args.output:
-                out_stream = open(args.output, "w")
+                out_stream = open(args.output, out_mode)
             cluster(args.input, args.max_divergence, device, out=out_stream,
-                    batch_size=args.batch_size)
+                    batch_size=args.batch_size,
+                    resume_state=args.resume_state)
         else:
             from smafa_tpu_torch.engine.count import count
 

@@ -20,12 +20,20 @@ or the K-mode cutoff passes) is launched before batch k is resolved and
 emitted, on a stream of its own on a GPU (``ScanRunner._ahead``), so
 batch k's compaction and read-back do not wait for it and the device
 scans while the host parses and formats.
-``--resume-state`` is not ported yet (ROADMAP.md).
+
+Hit lines are formatted by the native library (``native.ingest``):
+decoded from the db's channel codes inside the threaded C++ fill, else
+from a decoded blob, else, under ``SMAFA_TPU_NO_NATIVE=1``, in Python;
+the ``--limit-per-sequence`` rows stay in Python, as in ``smafa_tpu``.
+
+``resume_state`` checkpoints the query stream after each emitted batch
+(``_ResumeState``), as ``smafa_tpu`` does on one process.
 """
 
 from __future__ import annotations
 
 import io
+import json
 import logging
 import os
 import sys
@@ -103,9 +111,18 @@ def query(
     limit_per_sequence: int | None = None,
     out: TextIO | None = None,
     batch_size: int | None = None,
+    resume_state: str | Path | None = None,
 ) -> StageTimers:
     """Scan query_fasta against db_path on ``device``, emitting
-    reference-format TSV. Returns the stage timers of the run."""
+    reference-format TSV. Returns the stage timers of the run.
+
+    ``resume_state``: optional JSON checkpoint path. After each emitted
+    batch the output is flushed, then the count of finished queries and
+    the output's byte offset are recorded (atomic rename); a restart with
+    the same state file skips the finished prefix. On a seekable output
+    (a file appended with ``>>``, or a file object) the restart truncates
+    a torn last batch first, so the output is exactly once; on a pipe it
+    is at least once."""
     out = out or sys.stdout
     logger.info("Decoding db file %s", db_path)
     t0 = time.time()
@@ -129,9 +146,21 @@ def query(
     if not Path(query_fasta).exists():
         # Reference panic text on open failure (lib.rs:221).
         raise QueryError(f"valid path/file of query fasta: {query_fasta}")
+    state = _ResumeState(resume_state, query_fasta, config={
+        "database": str(db_path),
+        "max_divergence": max_divergence,
+        # K=1 is None (lib.rs:224): the normalized mode, so equivalent
+        # invocations resume each other.
+        "max_num_hits": k_mode,
+        "limit_per_sequence": limit_per_sequence,
+    })
+    state.restore_output(out)
+    if state.done:
+        logger.info("Resuming after %d completed queries", state.done)
     pending: tuple | None = None  # (qnum0, nq, codes, handle)
-    query_number = 0
-    batches = read_encoded_batches(query_fasta, batch_size=batch_size)
+    query_number = state.done
+    batches = read_encoded_batches(query_fasta, batch_size=batch_size,
+                                   skip_records=state.done)
     while True:
         # Parsing, validating, or launching the next batch can raise
         # (invalid base, length mismatch). The already-scanned pending
@@ -162,10 +191,12 @@ def query(
             if pending is not None:
                 _drain_batch(out, db, pending, k_mode, max_divergence,
                              limit_per_sequence, timers)
+                state.mark_done(pending[0] + pending[1], out)
             raise
         if pending is not None:
             _drain_batch(out, db, pending, k_mode, max_divergence,
                          limit_per_sequence, timers)
+            state.mark_done(pending[0] + pending[1], out)
         pending = current
         if current is None:
             break
@@ -224,14 +255,27 @@ def _write_bytes(out, data: bytes) -> None:
 
 
 def _emit_bulk(out, qnums, subj, d, db):
+    """Format and write hit lines: decoded from the db's codes inside the
+    native fill, else from a decoded blob natively, else in Python."""
+    from smafa_tpu_torch.native.ingest import (format_hits_tsv,
+                                               format_hits_tsv_codes)
+
     L = db.seq_len
+    buf = format_hits_tsv_codes(qnums, subj, d, db.windows.codes, L)
+    if buf is not None:
+        _write_bytes(out, buf)
+        return
     blob = alphabet.DECODE_BYTES[db.windows.codes[subj]]
+    offs = np.arange(subj.size, dtype=np.int64) * L
+    buf = format_hits_tsv(qnums, subj, d, blob.reshape(-1), offs, L)
+    if buf is not None:
+        _write_bytes(out, buf)
+        return
     flat = blob.tobytes().decode("ascii")
-    text = "".join(
+    out.write("".join(
         f"{q}\t{s}\t{dd}\t{flat[k * L:(k + 1) * L]}\n"
         for k, (q, s, dd) in enumerate(zip(qnums.tolist(), subj.tolist(), d.tolist()))
-    )
-    _write_bytes(out, text.encode("ascii"))
+    ))
 
 
 def _emit_kmode_row(out, qnum, dists, idxs, db, limit_per_sequence):
@@ -251,3 +295,117 @@ def _emit_kmode_row(out, qnum, dists, idxs, db, limit_per_sequence):
             last_seq = (s, 1)
         lines.append(f"{qnum}\t{i}\t{d}\t{s}\n")
     out.write("".join(lines))
+
+
+class _ResumeState:
+    """JSON query-stream checkpoint: {"query_fasta", "done", "out_pos",
+    "config"}, ``smafa_tpu.engine.query._ResumeState`` on one process.
+
+    The output is flushed BEFORE the state is renamed into place (a flush
+    that fails propagates rather than record unwritten batches as done).
+    A crash between flush and rename leaves ``done`` before the batch
+    already written; on a seekable output ``restore_output`` truncates it
+    back to the recorded offset on resume, so a restart is exactly once.
+    A pipe gets at least once: the torn batch's lines repeat.
+
+    Subclass hooks (cluster resume): ``PATH_KEY`` / ``PATH_NOUN`` name the
+    identity field; ``_load_extra`` / ``_extra_payload`` carry more JSON
+    fields.
+    """
+
+    PATH_KEY = "query_fasta"
+    PATH_NOUN = "query file"
+
+    def __init__(self, path: str | Path | None, stream_path,
+                 config: dict | None = None):
+        self.path = Path(path) if path else None
+        self.done = 0
+        self.out_pos: int | None = None
+        self._config = config or {}
+        self._had_checkpoint = self.path is not None and self.path.exists()
+        if self._had_checkpoint:
+            data = json.loads(self.path.read_text())
+            if data.get(self.PATH_KEY) != str(stream_path):
+                raise QueryError(
+                    f"Resume state {self.path} is for {self.PATH_NOUN} "
+                    f"{data.get(self.PATH_KEY)!r}, not {str(stream_path)!r}"
+                )
+            # A prefix run under one set of options and a suffix under
+            # another is no valid output for either. (A state without
+            # "config" predates its recording and is accepted.)
+            saved = data.get("config")
+            if saved is not None and saved != self._config:
+                diffs = sorted(
+                    k for k in set(saved) | set(self._config)
+                    if saved.get(k) != self._config.get(k)
+                )
+                raise QueryError(
+                    f"Resume state {self.path} was created with different "
+                    f"options ({', '.join(diffs)}); rerun with the original "
+                    "options or delete the state file"
+                )
+            self.done = int(data.get("done", 0))
+            self.out_pos = data.get("out_pos")
+            self._load_extra(data)
+        self._stream_path = str(stream_path)
+
+    def _load_extra(self, data: dict) -> None:
+        pass
+
+    def _extra_payload(self) -> dict:
+        return {}
+
+    def restore_output(self, out) -> None:
+        if self.path is None:
+            return
+        if not self._had_checkpoint:
+            # Fresh run: the stream may hold bytes this run did not write
+            # (runs appended with '>>'), so its current END is the
+            # baseline, persisted as a done=0 checkpoint before anything
+            # is emitted: a crash in batch 0 then truncates back to it.
+            pos = None
+            try:
+                pos = out.seek(0, 2)
+            except (AttributeError, OSError, io.UnsupportedOperation):
+                pass  # not seekable: at least once
+            self.out_pos = pos
+            self._persist(0, pos)
+            return
+        if self.out_pos is None:
+            # The first run's output was not seekable, and what survived
+            # of it may have been gathered into this file by other means:
+            # truncating could destroy emitted queries. Leave it alone.
+            return
+        target = self.out_pos
+        try:
+            end = out.seek(0, 2)
+            if end >= target:
+                out.seek(target)
+                out.truncate()
+            # else: the output was reset (a shell '>'); seeking forward
+            # would punch a sparse hole, so leave it alone.
+        except (AttributeError, OSError, io.UnsupportedOperation):
+            pass  # not seekable: at least once
+
+    def mark_done(self, done: int, out) -> None:
+        self.done = done
+        if self.path is None:
+            return
+        # flushes the text layer and the binary buffer _write_bytes wrote
+        # to; must succeed before the batch counts as done
+        out.flush()
+        pos = None
+        try:
+            pos = out.tell()
+        except (AttributeError, OSError, io.UnsupportedOperation):
+            pass
+        self._persist(done, pos)
+
+    def _persist(self, done: int, pos: int | None) -> None:
+        tmp = self.path.with_suffix(self.path.suffix + ".tmp")
+        tmp.write_text(json.dumps({
+            self.PATH_KEY: self._stream_path, "done": done, "out_pos": pos,
+            "config": self._config,
+            **self._extra_payload(),
+        }))
+        tmp.replace(self.path)

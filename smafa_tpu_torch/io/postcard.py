@@ -22,10 +22,11 @@ The version can be "peeked" by parsing the first varint, mirroring
 2 raises UnsupportedDbVersion with the reference's panic text
 (lib.rs:215-217).
 
-This is the vectorized-numpy codec of ``smafa_tpu.io.postcard``; its
-native C++ codec is not ported yet (ROADMAP.md queue 1). The numpy path
-goes superlinear past ~1M rows (temporary-array pressure), so large dbs
-use ``makedb --format native`` (io.native_format).
+The window-stream varint coding has two implementations with identical
+bytes: a native C++ single-pass codec (smafa_tpu/native/fastx.cpp —
+10M-row dbs encode in ~4s / decode in ~4s, memory-bound) used whenever
+the extension is built, and a vectorized-numpy fallback that is fine to
+~1M rows but goes superlinear beyond (temporary-array pressure).
 """
 
 from __future__ import annotations
@@ -176,9 +177,20 @@ def _decode_varints(data: np.ndarray, count: int, pos: int) -> tuple[np.ndarray,
 # WindowSet (de)serialization
 
 
+def _native_lib():
+    from smafa_tpu_torch.native import load
+
+    return load()
+
+
 def dumps(ws: WindowSet) -> bytes:
     """Serialize a WindowSet to postcard v2 bytes, byte-identical to the
-    reference writer (lib.rs:160-162)."""
+    reference writer (lib.rs:160-162).
+
+    The window stream is encoded by the native C++ codec when built (the
+    numpy path goes superlinear past ~1M rows); both paths are
+    byte-identical and differentially tested.
+    """
     out = bytearray()
     write_varint(ws.version, out)
     n = len(ws)
@@ -187,6 +199,22 @@ def dumps(ws: WindowSet) -> bytes:
         from smafa_tpu_torch.core.encoding import words_per_seq
 
         wps = words_per_seq(ws.length)
+        lib = _native_lib()
+        if lib is not None:
+            import ctypes
+
+            codes = np.ascontiguousarray(ws.codes, dtype=np.uint8)
+            buf = np.empty(n * (10 * wps + 10), dtype=np.uint8)
+            written = lib.postcard_encode_codes(
+                codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                n, ws.length,
+                buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            )
+            tail = bytearray([0x01])  # Some
+            write_varint(ws.length, tail)
+            # One join: bytearray.extend + bytes() would copy the ~45B/row
+            # body two extra times (tens of seconds at 10M rows).
+            return b"".join([bytes(out), buf[:written].tobytes(), bytes(tail)])
         words = ws.packed_words()  # [n, wps]
         # stream: per window, varint(wps) then wps varints. Encode all words
         # vectorized, then interleave the per-window length prefixes.
@@ -241,17 +269,52 @@ def loads(buf: bytes) -> WindowSet:
         return ws
     # Window word counts are uniform in any db written by makedb (equal
     # lengths enforced, lib.rs:91-111), so the stream is a flat run of
-    # n*(wps+1) varints, decoded vectorized.
+    # n*(wps+1) varints: decode via the native C++ codec when built,
+    # else vectorized numpy.
     wps, _ = read_varint(data, pos)
-    flat, pos = _decode_varints(data, n * (wps + 1), pos)
-    flat = flat.reshape(n, wps + 1)
-    if not np.all(flat[:, 0] == wps):
-        raise PostcardError("Non-uniform window word counts in db")
-    words = np.ascontiguousarray(flat[:, 1:])
+    lib = _native_lib()
+    if lib is not None:
+        import ctypes
+
+        words = np.empty((n, wps), dtype=np.uint64)
+        consumed = lib.postcard_decode_windows(
+            data[pos:].ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            len(data) - pos, n, wps,
+            words.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        )
+        if consumed == -4:
+            raise PostcardError("Found a varint that didn't terminate")
+        if consumed == -3:
+            raise PostcardError("Hit the end of buffer, expected more data")
+        if consumed < 0:
+            raise PostcardError("Non-uniform window word counts in db")
+        pos += consumed
+    else:
+        flat, pos = _decode_varints(data, n * (wps + 1), pos)
+        flat = flat.reshape(n, wps + 1)
+        if not np.all(flat[:, 0] == wps):
+            raise PostcardError("Non-uniform window word counts in db")
+        words = np.ascontiguousarray(flat[:, 1:])
     tag, pos = _read_option_tag(data, pos)
     length = None
     if tag:
         length, pos = read_varint(data, pos)
+    from smafa_tpu_torch.core.encoding import words_per_seq
+
+    if lib is not None and length and wps == words_per_seq(length):
+        import ctypes
+
+        codes = np.empty((n, length), dtype=np.uint8)
+        bad = ctypes.c_int32()
+        rc = lib.unpack_words_codes(
+            words.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+            n, wps, length,
+            codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            ctypes.byref(bad),
+        )
+        if rc == -2:
+            raise ValueError(f"Invalid character in query sequence: {bad.value}")
+        return WindowSet.from_matrix(codes, version)
     return WindowSet.from_packed(words, length, version)
 
 

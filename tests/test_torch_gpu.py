@@ -1,5 +1,5 @@
 """The runner, cluster and query engines on the card against the CPU,
-and the wrappers' operand checks on the card. The kernels' card tests
+resumed runs included, and the wrappers' operand checks on the card. The kernels' card tests
 are in tests/test_torch_gpu_min2.py, tests/test_torch_gpu_compact.py,
 tests/test_torch_gpu_kstats.py and tests/test_torch_gpu_min_count.py.
 
@@ -129,6 +129,68 @@ def test_best_hit_query_batches_on_card_equal_cpu(cuda, tmp_path):
         want = _query_text(cuda, db, q, cuda.torch.device("cpu"),
                            batch_size=512, **kw)
         assert got == want and got, kw
+
+
+def _crash_then_resume(run, path, state, fail_at):
+    """run(out, resume_state) crashed at write ``fail_at`` into ``path``,
+    then run again on it: the file's text after the resume."""
+    from smafa_tpu_torch.utils.testing import CrashError, CrashyFile
+
+    with open(path, "w") as f:
+        with pytest.raises(CrashError):
+            run(CrashyFile(f, fail_at=fail_at), state)
+    with open(path, "a+") as f:
+        run(f, state)
+    return path.read_text()
+
+
+def test_resumed_query_on_card_equals_cpu(cuda, tmp_path):
+    """Best-hit and K-mode queries on the card, crashed in their second
+    batch (a torn write) and resumed from the state file, print what one
+    straight run on the CPU prints."""
+    db, q = _query_files(tmp_path)
+    for i, kw in enumerate(({}, {"max_num_hits": 99, "max_divergence": 5})):
+        want = _query_text(cuda, db, q, cuda.torch.device("cpu"),
+                           batch_size=512, **kw)
+
+        def run(out, state):
+            cuda.Q.query(db, q, cuda.dev, out=out, batch_size=512,
+                         resume_state=state, **kw)
+
+        got = _crash_then_resume(run, tmp_path / f"o{i}.tsv",
+                                 tmp_path / f"st{i}.json", fail_at=2)
+        assert got == want and got, kw
+
+
+def test_resumed_cluster_on_card_equals_cpu(cuda, tmp_path):
+    """cluster on the card, crashed after some batches and resumed: its
+    centroid sidecar goes back onto the card (past 16,384 rows in the
+    second case), and the output is what one straight run on the CPU
+    prints."""
+    rng = np.random.default_rng(3)
+    anc = rng.integers(0, 4, (300, 60), dtype=np.uint8)
+    mutated = anc[rng.integers(0, 300, 20000)]
+    sel = rng.integers(0, 20000, 30000)
+    mutated[sel, rng.integers(0, 60, sel.size)] = rng.integers(0, 4, sel.size)
+    cases = [(mutated, 5, None, 3),
+             (rng.integers(0, 4, (20000, 20), dtype=np.uint8), 1, 4100, 5)]
+    for i, (codes, max_div, bs, fail_at) in enumerate(cases):
+        path = tmp_path / f"in{i}.fna"
+        with open(path, "w") as f:
+            for j, row in enumerate(np.frombuffer(b"ACGTN", np.uint8)[codes]):
+                f.write(f">s{j}\n{row.tobytes().decode()}\n")
+        want = _cluster_text(cuda, path, cuda.torch.device("cpu"), max_div, bs)
+
+        def run(out, state):
+            cuda.CL.cluster(path, max_div, cuda.dev, out=out, batch_size=bs,
+                            resume_state=state)
+
+        state = tmp_path / f"st{i}.json"
+        got = _crash_then_resume(run, tmp_path / f"o{i}.tsv", state, fail_at)
+        assert got == want and got, i
+        if bs is not None:
+            side = np.load(tmp_path / f"st{i}.json.centroids.npy")
+            assert side.shape[0] > 16384
 
 
 def test_cuda_operands_checked(cuda):

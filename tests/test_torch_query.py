@@ -1,7 +1,7 @@
 """End to end on the CPU: smafa_tpu_torch's makedb + best-hit query print
 byte for byte what smafa_tpu's print, on the golden data and on a seeded
-fuzz db with heavy ties; errors keep their texts and exit codes; paths
-not ported yet (resume, multi-host) exit 101 pointing to ROADMAP.md.
+fuzz db with heavy ties; errors keep their texts and exit codes; the
+path not ported yet (multi-host) exits 101 pointing to ROADMAP.md.
 
 The best-hit grid over every golden file is in
 test_torch_query_best_hit_{a,b,c}.py, the CLI's usage, device and
@@ -190,7 +190,6 @@ def test_empty_db(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["query", "--resume-state", "st.json"], "--resume-state"),
     (["query", "--coordinator", "localhost:1", "--num-processes", "2",
       "--process-id", "0"], "Multi-host"),
 ])
@@ -203,8 +202,6 @@ def test_not_ported_query_paths(capsys, argv, what):
 
 
 @pytest.mark.parametrize("argv", [
-    ["cluster", "-i", f"{D}/cluster_bug1.fna", "-d", "2", "--resume-state",
-     "st.json"],
     ["cluster", "-i", f"{D}/cluster_bug1.fna", "-d", "2", "--coordinator",
      "localhost:1", "--num-processes", "2", "--process-id", "0"]])
 def test_not_ported_subcommands(capsys, argv):
