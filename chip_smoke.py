@@ -71,6 +71,27 @@ Phases, one line each:
    --resume-state`` through the CLI: smafa_tpu's sha256 and centroid
    count. Logs the resumed walls and the seconds spent re-filtering the
    prefix.
+8. stream: the out-of-core stream layout (parallel/slab.py) and the
+   layout choice (parallel/select.py). (a) The query smoke's best-hit
+   run and K-mode run (b) again through the CLI with
+   SMAFA_TPU_LAYOUT=stream in 4 slabs of 2^18 rows, in the resident
+   tier, then the streaming tier (SMAFA_TPU_SLAB_RESIDENT=0): each
+   output byte-equal to phases 3 and 4's, min2 launched once per slab
+   per batch, kstats 3 times. (b) A seeded db of 2^25 + 2^20 =
+   34,603,008 windows (random_db's duplicate groups, plus groups of 2,
+   5 and 40 across every slab boundary and across index 2^25) written
+   in the native format, queried through the CLI with no layout
+   variable: the log must show the stream layout chosen, its resident
+   tier and the slab plan. 65,536 reads (a third from indices >= 2^25)
+   at --max-divergence 5, then 16,384 reads at --max-num-hits 99; each
+   again with SMAFA_TPU_SLAB_RESIDENT=0, bytes equal; min2 once per
+   slab per batch, kstats 3 per slab, compact_mask launched; 64 sampled
+   reads a run against a brute force over the uint8 codes in plain
+   torch on the card. Each run logs its wall, stages, reads/s,
+   comparisons/s over the scan stage, the seconds and bytes of the
+   host-to-device copies of db codes and the host seconds filling their
+   staging buffers, beside the card's name and power limit. The db file
+   is deleted at the end.
 
 After the kernels' build, ``native_build`` builds the native host
 library (g++; a failed build fails the run) and logs g++'s version, the
@@ -152,9 +173,11 @@ def smoke_sizes(query_mod) -> types.SimpleNamespace:
         kmode_runs=(("a", 16384, None, None, 16384), ("b", 4096, 5, 1, None),
                     ("c", 65536, 5, None, 16384)),
         kmode_sample=256,
+        # phase 8 (b): K-mode reads and sampled reads a run
+        stream_kmode_queries=16384, stream_sample=64,
         # the query batch the CLI picks for this db
         main_batch=query_mod._auto_batch(
-            types.SimpleNamespace(n_windows=db_rows)))
+            types.SimpleNamespace(n_windows=db_rows, runner=None)))
 
 
 def log(phase: str, **fields) -> None:
@@ -922,8 +945,12 @@ def kmode_end_to_end(sizes, cli, query_mod, K, ks_mod, compact_mod, codes,
                 qnum = int(line[:line.index("\t")])
                 if qnum in sample:
                     by_q.setdefault(qnum, []).append(line.rstrip("\n"))
-        os.remove(out)
-        os.remove(q_fa)
+        if name == "b":  # phase 8 replays run (b) in the stream layout
+            os.replace(q_fa, q_fa.replace(".fna", "_b.fna"))
+            os.replace(out, out.replace(".tsv", "_b.tsv"))
+        else:
+            os.remove(out)
+            os.remove(q_fa)
         for i in sorted(sample):
             want = brute_force_kmode(codes_t, codes, q[i], i, sizes.kmode_k,
                                      max_div, limit)
@@ -938,6 +965,10 @@ def kmode_end_to_end(sizes, cli, query_mod, K, ks_mod, compact_mod, codes,
                "sampled_exact": len(sample), "launches": launches,
                "host_calls": spies.counts}
         log("kmode_end_to_end", run=name, db_rows=n, **res)
+        if name == "b":
+            res.update(reads_file=q_fa.replace(".fna", "_b.fna"),
+                       output_file=out.replace(".tsv", "_b.tsv"),
+                       flags=argv[5:7] + argv[10:])  # less -o, --quiet
         results[name] = res
     return results
 
@@ -1250,6 +1281,294 @@ def resume_phase(sizes, cli, query_mod, cluster_mod, dev, e2e: dict, db: str,
     return res
 
 
+# Phase 8: 4 slabs of 2^18 rows over phase 3's 2^20-row db (a); the
+# full-size db past the 31-bit key budget (b).
+STREAM_SLAB_BYTES_A = (1 << 18) * L_SMOKE
+STREAM_ROWS = (1 << 25) + (1 << 20)
+STREAM_VARS = ("SMAFA_TPU_LAYOUT", "SMAFA_TPU_SLAB_BYTES",
+               "SMAFA_TPU_SLAB_RESIDENT", "SMAFA_TPU_HBM_BYTES")
+
+
+class StreamRun:
+    """While active: the layout variables set to ``env`` (the others
+    unset), the "smafa" logger's records kept in ``lines`` and not
+    printed, and each runner ``select.make_runner`` builds kept in
+    ``runners``."""
+
+    def __init__(self, select_mod, env: dict):
+        import logging
+
+        self._select, self._env = select_mod, env
+        self._logger = logging.getLogger("smafa")
+        self.lines: list[str] = []
+        self.runners: list = []
+
+    def __enter__(self) -> "StreamRun":
+        import logging
+
+        self._saved_env = {v: os.environ.pop(v, None) for v in STREAM_VARS}
+        os.environ.update(self._env)
+        lines = self.lines
+
+        class Keep(logging.Handler):
+            def emit(self, record):
+                lines.append(record.getMessage())
+
+        self._handler = Keep()
+        self._saved_log = (self._logger.level, self._logger.propagate)
+        self._logger.setLevel(logging.DEBUG)
+        self._logger.propagate = False
+        self._logger.addHandler(self._handler)
+        self._make = self._select.make_runner
+
+        def spy(*a, **kw):
+            self.runners.append(self._make(*a, **kw))
+            return self.runners[-1]
+
+        self._select.make_runner = spy
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._select.make_runner = self._make
+        self._logger.removeHandler(self._handler)
+        self._logger.setLevel(self._saved_log[0])
+        self._logger.propagate = self._saved_log[1]
+        for v, val in self._saved_env.items():
+            os.environ.pop(v, None)
+            if val is not None:
+                os.environ[v] = val
+
+
+def file_digest(path: str) -> tuple[str, int]:
+    """(sha256, line count) of a file, read in 64 MiB chunks."""
+    import hashlib
+
+    h, lines = hashlib.sha256(), 0
+    with open(path, "rb") as f:
+        while chunk := f.read(1 << 26):
+            h.update(chunk)
+            lines += chunk.count(b"\n")
+    return h.hexdigest(), lines
+
+
+def stream_query(cli, query_mod, select_mod, mods: dict, argv: list[str],
+                 env: dict, nq: int, n: int, card: str) -> dict:
+    """One query through the CLI in the stream layout's setting ``env``:
+    the kernels' counts set to 0 just before and read just after; the
+    runner's layout, tier, slab plan and upload seconds beside the wall,
+    stages and rates."""
+    for mod in mods.values():
+        mod.launches = 0
+    with StreamRun(select_mod, env) as sr:
+        rc, wall, timers = cli_query(cli, query_mod, argv)
+    launches = {name: mod.launches for name, mod in mods.items()}
+    if rc != 0 or len(sr.runners) != 1:
+        raise AssertionError(f"stream: rc={rc}, runners {sr.runners}, "
+                             f"log {sr.lines[-3:]}")
+    r = sr.runners[0]
+    stages = timers.seconds
+    scan_s = stages.get("dispatch", 0.0) + stages.get("scan", 0.0)
+    return {"rc": rc, "layout": type(r).__name__,
+            "tier": getattr(r, "tier", None),
+            "n_slabs": getattr(r, "n_slabs", None),
+            "slab_rows": getattr(r, "slab_rows", None),
+            "log": [line for line in sr.lines if "layout" in line],
+            "wall_s": wall, "stage_s": stages,
+            "setup_s": wall - sum(stages.values()),
+            "reads_per_s": nq / wall, "scan_s": scan_s,
+            "comparisons_per_s_scan": nq * n / scan_s,
+            "h2d_s": r.h2d_seconds() if hasattr(r, "h2d_seconds") else None,
+            "h2d_bytes": getattr(r, "h2d_bytes", None),
+            "fill_s": getattr(r, "fill_s", None),
+            "launches": launches, "card": card}
+
+
+def stream_parity(sizes, cli, query_mod, select_mod, mods, e2e: dict,
+                  kmode: dict, db: str, tmp: str, card: str) -> None:
+    """Phase 8 (a): the query smoke's best-hit run and K-mode run (b)
+    again, SMAFA_TPU_LAYOUT=stream in 4 slabs, the resident tier then the
+    streaming one: their outputs byte-equal to phases 3 and 4's; min2
+    once per slab per batch, kstats 3 per slab per K-mode batch."""
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "stream_a.tsv")
+    runs = [("best", e2e["reads"], ["--max-divergence", "5"],
+             e2e["output"], sizes.queries),
+            ("kmode_b", kmode["b"]["reads_file"], kmode["b"]["flags"],
+             kmode["b"]["output_file"], kmode["b"]["reads"])]
+    for resident in ("1", "0"):
+        for name, reads, flags, want, nq in runs:
+            env = {"SMAFA_TPU_LAYOUT": "stream",
+                   "SMAFA_TPU_SLAB_BYTES": str(STREAM_SLAB_BYTES_A),
+                   "SMAFA_TPU_SLAB_RESIDENT": resident}
+            res = stream_query(cli, query_mod, select_mod, mods,
+                               ["query", "-d", db, "-q", reads, *flags,
+                                "-o", out, "--quiet"], env, nq, 1 << 20, card)
+            with open(out, "rb") as f, open(want, "rb") as g:
+                res["bytes_equal"] = f.read() == g.read()
+            os.remove(out)
+            n_slabs = res["n_slabs"]
+            batches = -(-nq // 65536)
+            ok = (res["bytes_equal"] and n_slabs == 4
+                  and res["tier"] == ("resident" if resident == "1"
+                                      else "streaming"))
+            if name == "best":
+                ok = ok and res["launches"]["min2"] == n_slabs * batches
+            else:
+                ok = ok and (res["launches"]["kstats"]
+                             == 3 * n_slabs * batches)
+            log("stream", part="a", run=name, **res)
+            if not ok:
+                raise AssertionError(f"stream (a) {name}, resident "
+                                     f"{resident}: {res}")
+    for path in (kmode["b"]["reads_file"], kmode["b"]["output_file"]):
+        os.remove(path)
+    log("stream", part="a", seconds=time.perf_counter() - t0)
+
+
+def stream_db(rng, slab_plan) -> tuple[np.ndarray, list[int]]:
+    """The full-size db: random_db's 2^25 + 2^20 windows, plus groups of
+    2, 5 and 40 across every slab boundary and across index 2^25; returns
+    (codes, the first row of each such group)."""
+    n = STREAM_ROWS
+    codes = random_db(rng, n, L_SMOKE)
+    slab_rows, n_slabs = slab_plan(n, L_SMOKE)
+    starts = []
+    for edge in [b * slab_rows for b in range(1, n_slabs)] + [1 << 25]:
+        for g, gap in ((2, 0), (5, 100), (40, 1000)):
+            s0 = edge - g // 2 - gap
+            codes[s0:s0 + g] = codes[s0]
+            starts.append(s0)
+    return codes, starts
+
+
+def stream_reads(rng, codes: np.ndarray, starts: list[int], nq: int):
+    """nq db windows with 0-6 substitutions, a third drawn from indices
+    >= 2^25, the first ones from the groups across slab edges."""
+    n = codes.shape[0]
+    src = np.concatenate([rng.integers(0, 1 << 25, nq - nq // 3),
+                          rng.integers(1 << 25, n, nq // 3)])
+    src = rng.permutation(src)
+    src[:len(starts)] = starts
+    return mutate(rng, codes[src], 6)
+
+
+def brute_force_stream(codes: np.ndarray, codes_t, q: np.ndarray,
+                       qnums: list[int], k: int | None,
+                       max_div: int | None) -> dict:
+    """Reference lines of the sampled reads (qnum -> lines), from uint8
+    code comparisons in plain torch on the card (``codes_t``, the db
+    transposed, [L, W]): best-hit (lib.rs:306-313) when k is None, else
+    K-mode (lib.rs:241-295) with no divergence limit."""
+    L, n = codes_t.shape
+    qt = torch.from_numpy(np.ascontiguousarray(q[qnums].T)).to(codes_t.device)
+    dist = torch.empty((len(qnums), n), dtype=torch.uint8,
+                       device=codes_t.device)
+    step = 1 << 22
+    for lo in range(0, n, step):
+        d = torch.zeros((len(qnums), min(step, n - lo)), dtype=torch.uint8,
+                        device=codes_t.device)
+        for c in range(L):
+            d += codes_t[c, lo:lo + step].unsqueeze(0) != qt[c].unsqueeze(1)
+        dist[:, lo:lo + step] = d
+    letters = np.frombuffer(b"ACGTN", np.uint8)
+    out = {}
+    for s, qnum in enumerate(qnums):
+        row = dist[s]
+        if k is None:
+            eff = int(row.min())
+            sel = (torch.nonzero(row == eff).flatten() if eff <= max_div
+                   else None)
+        else:
+            cum = torch.cumsum(torch.bincount(row.to(torch.int64),
+                                              minlength=L + 1), 0)
+            eff = int(torch.nonzero(cum >= min(k, n))[0])
+            sel = torch.nonzero(row <= eff).flatten()
+        if sel is None:
+            out[qnum] = []
+            continue
+        dv = row[sel].to(torch.int64)
+        order = torch.sort(dv, stable=True).indices  # sel ascends
+        idx, dv = sel[order].cpu().numpy(), dv[order].cpu().numpy()
+        out[qnum] = [
+            f"{qnum}\t{i}\t{d}\t{letters[codes[i]].tobytes().decode()}"
+            for i, d in zip(idx.tolist(), dv.tolist())]
+    return out
+
+
+def sampled_lines(path: str, sample: set) -> dict:
+    by_q: dict[int, list[str]] = {}
+    with open(path) as f:
+        for line in f:
+            qnum = int(line[:line.index("\t")])
+            if qnum in sample:
+                by_q.setdefault(qnum, []).append(line.rstrip("\n"))
+    return by_q
+
+
+def stream_full(sizes, cli, query_mod, select_mod, slab_mod, mods, dev,
+                tmp: str, rng, card: str) -> None:
+    """Phase 8 (b): the 34,603,008-window db through the CLI with no
+    layout variable set: the stream layout chosen, its resident tier, then
+    SMAFA_TPU_SLAB_RESIDENT=0 (the streaming tier), bytes equal; best-hit
+    and K-mode, sampled reads against a brute force on the card."""
+    from smafa_tpu_torch.core.windowset import WindowSet
+    from smafa_tpu_torch.io import native_format
+
+    t0 = time.perf_counter()
+    codes, starts = stream_db(rng, slab_mod.slab_plan)
+    n = codes.shape[0]
+    db = os.path.join(tmp, "stream.native")
+    native_format.save(WindowSet.from_matrix(codes, 2), db)
+    log("stream", part="b", db_rows=n, build_db_s=time.perf_counter() - t0,
+        straddling_groups=len(starts))
+    codes_t = torch.from_numpy(codes).to(dev).T.contiguous()
+    for name, nq, flags, k, max_div in (
+            ("best", sizes.queries, ["--max-divergence", "5"], None, 5),
+            ("kmode", sizes.stream_kmode_queries,
+             ["--max-num-hits", str(sizes.kmode_k)], sizes.kmode_k, None)):
+        q = stream_reads(rng, codes, starts, nq)
+        q_fa = os.path.join(tmp, "sq.fna")
+        write_fasta(q_fa, q, "r")
+        digests = []
+        for env, tier in (({}, "resident"),
+                          ({"SMAFA_TPU_SLAB_RESIDENT": "0"}, "streaming")):
+            out = os.path.join(tmp, f"s_{tier}.tsv")
+            res = stream_query(cli, query_mod, select_mod, mods,
+                               ["query", "-d", db, "-q", q_fa, *flags, "-o",
+                                out, "--quiet"], env, nq, n, card)
+            res["sha256"], res["hit_lines"] = file_digest(out)
+            digests.append(res["sha256"])
+            want_log = [f"db layout: stream ({n} windows, length {L_SMOKE})"]
+            n_slabs, batches = res["n_slabs"], -(-nq // 65536)
+            key = "min2" if k is None else "kstats"
+            per = n_slabs * batches * (1 if k is None else 3)
+            ok = (res["tier"] == tier and res["log"][:1] == want_log
+                  and f"{tier} tier" in res["log"][-1]
+                  and res["launches"][key] == per
+                  and res["launches"]["compact_mask"] >= 1)
+            if tier == "resident":
+                sample = sorted(rng.choice(nq, size=sizes.stream_sample,
+                                           replace=False).tolist())
+                got = sampled_lines(out, set(sample))
+                want = brute_force_stream(codes, codes_t, q, sample, k,
+                                          max_div)
+                bad = [i for i in sample if got.get(i, []) != want[i]]
+                res["sampled_exact"] = len(sample) - len(bad)
+                ok = ok and not bad
+            os.remove(out)
+            log("stream", part="b", run=name, reads=nq, db_rows=n, **res)
+            if not ok:
+                raise AssertionError(f"stream (b) {name} {tier}: {res}")
+        os.remove(q_fa)
+        if digests[0] != digests[1]:
+            raise AssertionError(f"stream (b) {name}: the tiers' outputs "
+                                 "differ")
+    del codes_t
+    os.remove(db)
+    torch.cuda.empty_cache()
+    log("stream", part="b", seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1266,6 +1585,7 @@ def main() -> int:
     from smafa_tpu_torch.ops import distance as D, keys as K, min2 as min2_mod
     from smafa_tpu_torch.ops import kstats as ks_mod, min_count as mc_mod
     from smafa_tpu_torch.parallel import hitops
+    from smafa_tpu_torch.parallel import select as select_mod, slab as slab_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions exact
     card = nvidia_smi()
@@ -1326,6 +1646,12 @@ def main() -> int:
         del codes
         resume_phase(sizes, cli, query_mod, cluster_mod, dev, e2e, db,
                      cluster_inp, tmp)
+        stream_mods = {"min2": min2_mod, "compact_mask": compact_mod,
+                       "kstats": ks_mod}
+        stream_parity(sizes, cli, query_mod, select_mod, stream_mods, e2e,
+                      kmode, db, tmp, card)
+        stream_full(sizes, cli, query_mod, select_mod, slab_mod, stream_mods,
+                    dev, tmp, np.random.default_rng([seed, 10]), card)
 
     launches = {"min2": e2e["launches"]["min2"],
                 "compact_mask": e2e["launches"]["compact_mask"],

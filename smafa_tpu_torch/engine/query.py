@@ -65,16 +65,16 @@ class NotPortedError(QueryError):
 
 
 class _DbOnDevice:
-    """A loaded db, resident on one device as codes and embedded twin."""
+    """A loaded db and its runner on one device, in the layout
+    ``parallel.select.make_runner`` chooses."""
 
     def __init__(self, windows, device: torch.device):
-        from smafa_tpu_torch.parallel.runner import ScanRunner
+        from smafa_tpu_torch.parallel.select import make_runner
 
         self.windows = windows
         self.n_windows = len(windows)
         self.seq_len = windows.length
-        self.runner = ScanRunner.from_codes(windows.codes, self.seq_len or 1,
-                                            device)
+        self.runner = make_runner(windows.codes, self.seq_len or 1, device)
         self._decoded: dict[int, str] = {}
 
     def decoded(self, idx: int) -> str:
@@ -87,9 +87,15 @@ class _DbOnDevice:
 
 def _auto_batch(db: _DbOnDevice) -> int:
     """Bigger query batches for bigger dbs, so per-batch device work
-    outweighs the per-batch host round trip. These tiers were tuned on a
-    TPU (smafa_tpu.engine.query._auto_batch) and are kept as they are
-    until they are measured again on the GPU (ROADMAP.md)."""
+    outweighs the per-batch host round trip; the stream layout goes
+    biggest, since its streaming tier uploads the whole db every pass.
+    These tiers were tuned on a TPU (smafa_tpu.engine.query._auto_batch)
+    and are kept as they are until they are measured again on the GPU
+    (ROADMAP.md)."""
+    from smafa_tpu_torch.parallel.slab import SlabStreamRunner
+
+    if isinstance(db.runner, SlabStreamRunner):
+        return 65536
     n_windows = db.n_windows
     if n_windows >= 1 << 22:
         return 65536

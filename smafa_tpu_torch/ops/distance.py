@@ -126,6 +126,52 @@ def min2_reference(q_emb: torch.Tensor, db_emb: torch.Tensor,
     return (lo, hi, cnt) if with_count else (lo, hi)
 
 
+def min2_pair_init(b: int, device: torch.device) -> tuple[torch.Tensor, ...]:
+    """Empty carry of ``min2_pair_merge``: (dist 2^30, i_lo and i_hi
+    2^31 - 1, count 0) int32 [b]."""
+    def full(v: int) -> torch.Tensor:
+        return torch.full((b,), v, dtype=torch.int32, device=device)
+
+    return full(2**30), full(BIG_KEY), full(BIG_KEY), full(0)
+
+
+def min2_pair_merge(carry: tuple[torch.Tensor, ...], lo: torch.Tensor,
+                    hi: torch.Tensor, cnt: torch.Tensor, off: int, span: int,
+                    shift: int, seq_len: int) -> tuple[torch.Tensor, ...]:
+    """Fold one db slab's min2 result into the carry (dist, i_lo, i_hi,
+    count) of global indices (``smafa_tpu.parallel.slab._min2_step``,
+    plus the tie count). The slab's keys pack slab-locally: lo decodes to
+    index ``off + (lo & mask)`` and hi to ``off + (span - 1 - (hi &
+    mask))``. Slabs come in ascending ``off``, so the lowest index keeps
+    ties (strict <) and the highest takes them (<=); the count is
+    replaced where the slab's min is smaller and summed where it is
+    equal. A slab with no real row (its min decodes past ``seq_len``)
+    leaves the carry as it is."""
+    d, i_lo, i_hi, c = carry
+    mask = (1 << shift) - 1
+    empty = (lo == BIG_KEY) | ((lo >> shift) > seq_len)
+    d2 = torch.where(empty, 2**30, lo >> shift)
+    il2 = torch.where(empty, BIG_KEY, (lo & mask) + off)
+    ih2 = torch.where(empty, BIG_KEY, (span - 1 - (hi & mask)) + off)
+    c2 = torch.where(empty, 0, cnt)
+    c = torch.where(d2 < d, c2, torch.where(d2 == d, c + c2, c))
+    return (torch.minimum(d, d2), torch.where(d2 < d, il2, i_lo),
+            torch.where(d2 <= d, ih2, i_hi), c)
+
+
+def min2_pair_finish(carry: tuple[torch.Tensor, ...]) -> tuple[torch.Tensor, ...]:
+    """A merged carry -> (pair int32 [3, b] = (dist, i_lo, i_hi), count),
+    the pair form ``HitModesMixin._min2_unpack`` reads (the convention of
+    ``smafa_tpu.ops.distance.min2_pair_finish``): rows with no window
+    read dist 2^30 and index 2^31 - 1 on both sides, count 0."""
+    d, i_lo, i_hi, c = carry
+    empty = d >= 2**30
+    return (torch.stack([torch.where(empty, 2**30, d),
+                         torch.where(empty, BIG_KEY, i_lo),
+                         torch.where(empty, BIG_KEY, i_hi)]).to(torch.int32),
+            torch.where(empty, 0, c).to(torch.int32))
+
+
 def min_count_reference(q_emb: torch.Tensor, db_emb: torch.Tensor,
                         zc: torch.Tensor, n_valid: int, seq_len: int,
                         shift: int,

@@ -61,11 +61,15 @@ class HitModesMixin:
     """Host orchestration over the runner's primitives: ``_pad``,
     ``_embed_queries``, ``_ahead(q_emb, launch) -> Ahead`` (a batch's
     first pass, read back without waiting for later work),
-    ``_phase_a(q_emb) -> (lo, hi, cnt)``,
+    ``_phase_a(q_emb)`` -> packed keys ``(lo, hi, cnt)`` or the pair form
+    ``(pair [3, B], cnt)`` (``distance.min2_pair_finish``),
     ``_compact(q_emb, row_ids, thresh) -> (rows, idx, counts)``,
     ``_kstats(q_emb, ts) -> (cnt, mx)``, ``_compactd(q_padded, q_emb,
-    row_ids, thresh) -> (rows, idx, dist, counts)``, and the attributes
-    seq_len, n_windows, wp, shift, _codes_host."""
+    row_ids, thresh) -> (rows, idx, dist, counts)``, ``_compact_span_rows()``
+    (the db rows one compaction mask spans), and the attributes seq_len,
+    n_windows, wp, shift, _codes_host. A runner that scans the db in
+    slabs overrides ``_compact_groups`` / ``_compactd_groups`` to run
+    every dispatch of a batch in one pass over the slabs."""
 
     def _require_windows(self) -> None:
         if self.n_windows == 0:
@@ -79,9 +83,16 @@ class HitModesMixin:
         keys = self._ahead(q_emb, lambda: self._phase_a(q_emb))
         return keys, nq, q_padded, q_emb
 
-    def _min2_unpack(self, lo: np.ndarray, hi: np.ndarray):
-        """Packed keys -> (dist, idx_lo, idx_hi, found) per row."""
+    def _min2_unpack(self, lo: np.ndarray, hi: np.ndarray | None = None):
+        """Phase A's result -> (dist, idx_lo, idx_hi, found) per row, from
+        packed keys ``lo``, ``hi``, or from the pair form ``lo`` = [3, nq]
+        (dist, idx_lo, idx_hi) of global indices with ``hi`` None (the
+        stream layout, whose keys pack slab-locally). Rows with no window
+        read dist 2^30, idx 2^31 - 1 on both sides, found False."""
         big = np.int32(K.BIG_KEY)
+        if hi is None:
+            dist, idx_lo, idx_hi = lo
+            return dist, idx_lo, idx_hi, dist < K.BIG
         dist, idx_lo = K.unpack_key(lo, self.shift)
         _, idx_rev = K.unpack_key(hi, self.shift)
         idx_hi = np.where(hi == big, big, self.wp - 1 - idx_rev).astype(np.int32)
@@ -95,8 +106,8 @@ class HitModesMixin:
         if handle is None:
             handle = self.min_count_async(q_codes)
         keys, nq, q_padded, q_emb = handle
-        lo, hi, cnt = (a[:nq] for a in keys.numpy())
-        dist, idx_lo, idx_hi, keep = self._min2_unpack(lo, hi)
+        *keys, cnt = (a[..., :nq] for a in keys.numpy())
+        dist, idx_lo, idx_hi, keep = self._min2_unpack(*keys)
         if max_divergence is not None:
             keep = keep & (dist <= max_divergence)
         tied = keep & (idx_lo != idx_hi)
@@ -131,7 +142,7 @@ class HitModesMixin:
         hits per dispatch and the mask-memory row cap. Yields (start,
         end, on_host): a single row whose count exceeds COMPACT_MAX is a
         group of its own, enumerated on the host."""
-        cap = mask_row_cap(self.wp)
+        cap = mask_row_cap(self._compact_span_rows())
         n = int(counts.shape[0])
         start = 0
         while start < n:
@@ -157,12 +168,27 @@ class HitModesMixin:
                                f"hits, expected {count}")
         return hit_idx
 
+    def _compact_span_rows(self) -> int:
+        """Db rows one compaction mask spans: the whole padded db here;
+        a slab for the stream layout."""
+        return self.wp
+
+    def _compact_groups(self, q_emb, groups):
+        """One compaction per (row_ids, thresh) group: a list of ``_compact``
+        results."""
+        return [self._compact(q_emb, ids, th) for ids, th in groups]
+
+    def _compactd_groups(self, q_padded, q_emb, groups):
+        """One K-mode compaction per (row_ids, thresh) group: a list of
+        ``_compactd`` results."""
+        return [self._compactd(q_padded, q_emb, ids, th) for ids, th in groups]
+
     def _compact_grouped_rows(self, q_padded, q_emb, row_ids, thresh_vals,
                               counts):
         """Enumerate rows with known exact counts, one compaction per
         group of ``_row_groups``; each dispatch is checked against the
         counts. Returns flat (rows, idx) sorted by (row, index)."""
-        out_r, out_i = [], []
+        out_r, out_i, groups, spans = [], [], [], []
         for start, end, on_host in self._row_groups(counts):
             if on_host:
                 gid = int(row_ids[start])
@@ -171,9 +197,11 @@ class HitModesMixin:
                 out_i.append(self._host_row(q_padded[gid],
                                             int(thresh_vals[start]), c0))
                 continue
-            ids = row_ids[start:end]
-            rows, idx, got = self._compact(
-                q_emb, ids, thresh_vals[start:end].astype(np.int32))
+            groups.append((row_ids[start:end],
+                           thresh_vals[start:end].astype(np.int32)))
+            spans.append((start, end))
+        for (start, end), (ids, _), (rows, idx, got) in zip(
+                spans, groups, self._compact_groups(q_emb, groups)):
             if not np.array_equal(got, counts[start:end]):
                 raise RuntimeError("compaction hit counts disagree with "
                                    "the phase-A tie counts")
@@ -219,7 +247,9 @@ class HitModesMixin:
         eff, hits = (a[:nq] for a in stats.numpy())
         counts = hits.astype(np.int64)
         sel = np.nonzero(counts > 0)[0].astype(np.int32)
-        out_r, out_i, out_d = [], [], []
+        # pieces in row order: host rows are enumerated here, device
+        # groups all go to one _compactd_groups call (None placeholders)
+        pieces, groups = [], []
         for start, end, on_host in self._row_groups(counts[sel]):
             if on_host:
                 gid = int(sel[start])
@@ -231,25 +261,26 @@ class HitModesMixin:
                     torch.zeros(c0, dtype=torch.int64),
                     torch.arange(c0)).numpy()
                 order = np.lexsort((hit_idx, dv))
-                out_r.append(np.full(c0, gid, np.int32))
-                out_i.append(hit_idx[order])
-                out_d.append(dv[order])
+                pieces.append((np.full(c0, gid, np.int32), hit_idx[order],
+                               dv[order]))
                 continue
             ids = sel[start:end]
-            rows, idx, dv, got = self._compactd(q_padded, q_emb, ids, eff[ids])
-            if not np.array_equal(got, counts[ids]):
-                raise RuntimeError("compaction hit counts disagree with "
-                                   "the kstats hit counts")
-            out_r.append(rows)
-            out_i.append(idx)
-            out_d.append(dv)
+            groups.append((ids, eff[ids]))
+            pieces.append(None)
+        done = zip(groups, self._compactd_groups(q_padded, q_emb, groups))
+        for i, piece in enumerate(pieces):
+            if piece is None:
+                (ids, _), (rows, idx, dv, got) = next(done)
+                if not np.array_equal(got, counts[ids]):
+                    raise RuntimeError("compaction hit counts disagree with "
+                                       "the kstats hit counts")
+                pieces[i] = (rows, idx, dv)
         e = np.empty(0, np.int32)
         # groups cover ascending disjoint row ranges, each sorted by
         # (row, distance, index): the concatenation is in emission order
         return (counts.astype(np.int32),
-                np.concatenate(out_r) if out_r else e,
-                np.concatenate(out_i) if out_i else e,
-                np.concatenate(out_d) if out_d else e)
+                *(np.concatenate([p[k] for p in pieces]) if pieces else e
+                  for k in range(3)))
 
     def _host_enumerate_row(self, q_row: np.ndarray, thresh: int) -> np.ndarray:
         """All window indices with distance <= thresh for ONE query row,

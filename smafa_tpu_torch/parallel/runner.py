@@ -1,13 +1,15 @@
 """Single-device scan runner: the db resident on one ``torch.device``.
 
-Counterpart of ``smafa_tpu.parallel.sharded.ScanRunner`` on a 1x1 mesh
-(the runner ``smafa_tpu.parallel.select.make_runner`` picks for one
-device). It holds the db channel codes and their embedded twin on
+Counterpart of ``smafa_tpu.parallel.sharded.ScanRunner`` on a 1x1 mesh.
+It holds the db channel codes and their embedded twin on
 ``self.device`` and supplies the primitives of ``HitModesMixin``; the
 kernels it calls are the min2 kernel (best-hit phase A), the kstats
 kernel (the K-mode cutoff passes) and the compact_mask kernel (tie and
-K-mode hit enumeration). Multi-device layouts and the out-of-core stream
-layout are later work (ROADMAP.md queue 1).
+K-mode hit enumeration). ``parallel.select.make_runner`` picks it while
+the db's global packed keys fit 31 bits and its resident form fits the
+card; past either, the stream layout (``parallel.slab``) serves.
+``DeviceRunner`` holds what both runners share: query padding and
+embedding, and the side stream of a batch's first pass.
 """
 
 from __future__ import annotations
@@ -42,12 +44,52 @@ class Ahead:
         return [t.numpy() for t in self._host]
 
 
-class ScanRunner(HitModesMixin):
+class DeviceRunner(HitModesMixin):
+    """Query-side primitives of a runner on ``self.device``."""
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+        self._side = None  # CUDA stream of the passes launched ahead
+
+    def _pad(self, q_codes: np.ndarray):
+        q_padded, nq, _b = K.pad_batch(q_codes, multiple=1, minimum=16)
+        return q_padded, nq
+
+    def _embed_queries(self, q_padded: np.ndarray) -> torch.Tensor:
+        codes = torch.from_numpy(np.ascontiguousarray(q_padded))
+        return D.expand_embed_query(codes.to(self.device), self.seq_len)
+
+    def _ahead(self, q_emb: torch.Tensor, launch) -> Ahead:
+        """Run ``launch() -> tensors``, a batch's first pass over the db,
+        so that reading its results waits for it alone. On a GPU it runs
+        on a side stream, after the work queued so far on the current
+        stream (the embedding of ``q_emb``), and its results are copied
+        to pinned host memory behind it: the batch before, whose
+        compaction the current stream then runs, does not queue behind
+        this pass, nor does the host wait for it (the stream layout's
+        streaming tier excepted: its host feeds every slab)."""
+        if not q_emb.is_cuda:
+            return Ahead([t.cpu() for t in launch()], None)
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        self._side.wait_stream(torch.cuda.current_stream(self.device))
+        q_emb.record_stream(self._side)
+        with torch.cuda.stream(self._side):
+            outs = launch()
+            host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    for t in outs]
+            for h, t in zip(host, outs):
+                h.copy_(t, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self._side)
+        return Ahead(host, done)
+
+
+class ScanRunner(DeviceRunner):
     """Holds a db on one device and runs exact best-hit and K-mode scans."""
 
     def __init__(self, codes: np.ndarray, seq_len: int, device: torch.device):
-        self.device = torch.device(device)
-        self._side = None  # CUDA stream of the passes launched ahead
+        super().__init__(device)
         self.seq_len = max(1, seq_len)
         self.n_windows = int(codes.shape[0])
         # Host view of the codes (often a memmap): host enumeration of
@@ -67,8 +109,10 @@ class ScanRunner(HitModesMixin):
         if self.shift is None:
             raise KeyPackingError(
                 f"{self.n_windows} windows of length {self.seq_len} do not "
-                "pack into 31-bit keys; the top-M fallback for this case is "
-                "not ported yet (see ROADMAP.md)")
+                "pack into 31-bit keys; the stream layout "
+                "(SMAFA_TPU_LAYOUT=auto or stream) packs them per slab, "
+                "and past it the top-M fallback is not ported yet (see "
+                "ROADMAP.md)")
         # np.array copies: the host view may be a read-only memmap
         self.db_codes = torch.from_numpy(
             np.array(codes, dtype=np.uint8)).to(self.device)
@@ -84,38 +128,6 @@ class ScanRunner(HitModesMixin):
         """A runner over the same uint8 [W, L] code matrix that
         ``smafa_tpu.parallel.sharded.ScanRunner`` takes."""
         return cls(codes, seq_len, device)
-
-    def _pad(self, q_codes: np.ndarray):
-        q_padded, nq, _b = K.pad_batch(q_codes, multiple=1, minimum=16)
-        return q_padded, nq
-
-    def _embed_queries(self, q_padded: np.ndarray) -> torch.Tensor:
-        codes = torch.from_numpy(np.ascontiguousarray(q_padded)).to(self.device)
-        return D.expand_embed_query(codes, self.seq_len)
-
-    def _ahead(self, q_emb: torch.Tensor, launch) -> Ahead:
-        """Run ``launch() -> tensors``, a batch's first pass over the db,
-        so that reading its results waits for it alone. On a GPU it runs
-        on a side stream, after the work queued so far on the current
-        stream (the embedding of ``q_emb``), and its results are copied
-        to pinned host memory behind it: the batch before, whose
-        compaction the current stream then runs, does not queue behind
-        this pass, nor does the host wait for it."""
-        if not q_emb.is_cuda:
-            return Ahead([t.cpu() for t in launch()], None)
-        if self._side is None:
-            self._side = torch.cuda.Stream(self.device)
-        self._side.wait_stream(torch.cuda.current_stream(self.device))
-        q_emb.record_stream(self._side)
-        with torch.cuda.stream(self._side):
-            outs = launch()
-            host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                    for t in outs]
-            for h, t in zip(host, outs):
-                h.copy_(t, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(self._side)
-        return Ahead(host, done)
 
     def _phase_a(self, q_emb: torch.Tensor):
         return min2(q_emb, self.db_emb, self.zc, self.seq_len, self.shift,

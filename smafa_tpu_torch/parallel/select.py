@@ -1,0 +1,108 @@
+"""Db layout selection on one device: which runner the query engine builds.
+
+Counterpart of ``smafa_tpu.parallel.select`` (``choose_layout`` /
+``make_runner``) on one device. Two layouts serve the same exact
+hit-mode contract (``parallel.hitops.HitModesMixin``):
+
+- ``sharded``: ``parallel.runner.ScanRunner``, the db resident on the
+  card as codes and embedded twin, global packed keys
+  ``(dist << shift) | idx``;
+- ``stream``: ``parallel.slab.SlabStreamRunner``, the db scanned in row
+  slabs with slab-local keys merged as (dist, index) pairs, so any row
+  count packs; its slabs stay on the card when they fit
+  (``slab.CODES_RESIDENT_FRACTION``), else they stream from host memory
+  every pass.
+
+``SMAFA_TPU_LAYOUT`` is ``auto`` (the default), ``sharded`` or
+``stream``; ``ring`` and ``col`` (``smafa_tpu``'s multi-device layouts)
+are not ported and raise ``LayoutNotPortedError``, which the CLI reports
+with exit 101. ``SMAFA_TPU_HBM_BYTES`` overrides the card's memory, as
+it does in ``smafa_tpu``.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+
+import numpy as np
+import torch
+
+from smafa_tpu_torch.ops import distance as D
+from smafa_tpu_torch.ops import keys as K
+from smafa_tpu_torch.parallel.runner import KeyPackingError, ScanRunner
+
+logger = logging.getLogger("smafa")
+
+# Stream the db when its resident form needs more than this fraction of
+# the card's memory (programs need working space beside it).
+HBM_FRACTION = 0.75
+
+# The widest span a layout packs keys over locally: where even this many
+# rows cannot pack, only smafa_tpu's exact top-M fallback serves.
+LOCAL_SPAN = 1 << 24
+
+
+class LayoutNotPortedError(ValueError):
+    def __init__(self, layout: str):
+        super().__init__(f"SMAFA_TPU_LAYOUT={layout} is not ported to "
+                         "smafa_tpu_torch yet (see ROADMAP.md); use "
+                         "smafa_tpu for it")
+
+
+def hbm_capacity(device: torch.device) -> int | None:
+    """The card's memory in bytes: ``SMAFA_TPU_HBM_BYTES`` if set, else
+    ``torch.cuda.mem_get_info``'s total for a CUDA device, else None."""
+    env = os.environ.get("SMAFA_TPU_HBM_BYTES")
+    if env:
+        return int(env)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return int(torch.cuda.mem_get_info(device)[1])
+
+
+def resident_row_bytes(seq_len: int) -> int:
+    """Device bytes a db row takes in the form the kernels read: its int8
+    embedded twin, its uint8 codes and its int32 zc."""
+    return D.embed_width(seq_len) + seq_len + 4
+
+
+def choose_layout(n_windows: int, seq_len: int, device: torch.device) -> str:
+    """``sharded`` or ``stream`` for a db of ``n_windows`` windows of
+    length ``seq_len`` on ``device`` (``smafa_tpu.parallel.select``'s
+    rule on one device)."""
+    env = os.environ.get("SMAFA_TPU_LAYOUT", "auto").lower()
+    if env in ("ring", "col"):
+        raise LayoutNotPortedError(env)
+    if env in ("sharded", "stream"):
+        return env
+    if env not in ("", "auto"):
+        raise ValueError(f"SMAFA_TPU_LAYOUT={env!r}: expected auto, "
+                         "sharded, ring, col, or stream")
+    if K.packing_shift(seq_len, max(2, 2 * n_windows)) is None:
+        # Global keys overflow 31 bits; the stream layout packs per slab.
+        if K.packing_shift(seq_len, LOCAL_SPAN) is None:
+            raise KeyPackingError(
+                f"{n_windows} windows of length {seq_len} do not pack into "
+                f"31-bit keys even over {LOCAL_SPAN} rows; smafa_tpu's "
+                "exact top-M fallback (topm_scan) is not ported yet (see "
+                "ROADMAP.md)")
+        return "stream"
+    cap = hbm_capacity(device)
+    if (cap is not None
+            and resident_row_bytes(seq_len) * n_windows > HBM_FRACTION * cap):
+        return "stream"
+    return "sharded"
+
+
+def make_runner(codes: np.ndarray, seq_len: int, device: torch.device):
+    """The chosen layout's runner over the uint8 [W, L] code matrix."""
+    layout = choose_layout(int(codes.shape[0]), seq_len, device)
+    logger.debug("db layout: %s (%d windows, length %d)",
+                 layout, codes.shape[0], seq_len)
+    if layout == "stream":
+        from smafa_tpu_torch.parallel.slab import SlabStreamRunner
+
+        return SlabStreamRunner(codes, seq_len, device)
+    return ScanRunner(codes, seq_len, device)

@@ -99,6 +99,7 @@ def test_import_loads_no_jax_or_triton():
     code = ("import sys, smafa_tpu_torch, smafa_tpu_torch.cli, "
             "smafa_tpu_torch.engine.query, smafa_tpu_torch.engine.makedb, "
             "smafa_tpu_torch.parallel.runner, smafa_tpu_torch.ops.min2, "
+            "smafa_tpu_torch.parallel.select, smafa_tpu_torch.parallel.slab, "
             "smafa_tpu_torch.ops.compact, smafa_tpu_torch.ops.min_count, "
             "smafa_tpu_torch.ops.kstats, "
             "smafa_tpu_torch.engine.cluster, smafa_tpu_torch.engine.count; "
