@@ -92,6 +92,34 @@ Phases, one line each:
    host-to-device copies of db codes and the host seconds filling their
    staging buffers, beside the card's name and power limit. The db file
    is deleted at the end.
+9. long windows: 2^22 + 2^20 = 5,242,880 windows of 150 bp (random_db's
+   duplicate groups, plus groups across the slab edge) in the native
+   format, queried through the CLI with no layout variable. Global keys
+   (8 distance + 24 index bits) do not pack, nor does smafa_tpu's
+   2^24-row span, so smafa_tpu takes its top-M sort-merge there; the log
+   must show the port's auto rule choosing the stream layout, its
+   resident tier and 2 slabs of 2,621,440 rows at shift 22. 32,768
+   reads (0-15 substitutions, a third from the second slab) at
+   --max-divergence 12, then 4,096 at --max-num-hits 99, each again with
+   SMAFA_TPU_SLAB_RESIDENT=0, bytes equal; min2 once and kstats 4 times
+   per slab per batch, compact_mask launched; 64 sampled reads a run
+   against the brute force. Then min2, kstats and compact_mask on their
+   long routes at this phase's shapes (one slab each), exact against
+   their plain versions, timed by CUDA events beside their bounds. The
+   db file is deleted at the end.
+10. cluster spans: (a) cluster 1M through the CLI again with the port's
+   key budget cut in-process to 12 index bits (``keys.packing_shift``
+   patched, as the CPU tests do; the package has no knob for it), so
+   the 32,768-row buffer scans in spans of 4,096 rows: phase 5's
+   centroid count and sha256, one min_count launch per span per batch.
+   (b) ``_CentroidStore.from_codes`` over 5,242,880 random 300 bp
+   centroids: cap 2^23 does not pack at 9 distance bits, so it scans 2
+   spans of 2^22 rows; one batch of 32,768 reads through ``scan_async``
+   / ``scan_fetch``, timed, 256 sampled rows (64 of them exact copies of
+   rows duplicated across the spans) against a brute force on the card,
+   and min_count on its first span exact against its plain version and
+   timed. A whole cluster run past the real budget is O(n^2), so (b)
+   drives the engine's store, not the CLI.
 
 After the kernels' build, ``native_build`` builds the native host
 library (g++; a failed build fails the run) and logs g++'s version, the
@@ -116,6 +144,7 @@ import sys
 import tempfile
 import time
 import types
+from unittest import mock
 
 import numpy as np
 import torch
@@ -175,13 +204,22 @@ def smoke_sizes(query_mod) -> types.SimpleNamespace:
         kmode_sample=256,
         # phase 8 (b): K-mode reads and sampled reads a run
         stream_kmode_queries=16384, stream_sample=64,
+        # phase 9: best-hit and K-mode reads; calls a long-route kernel
+        # is timed over; phase 10 (b): reads and sampled reads
+        long_queries=32768, long_kmode_queries=4096, long_reps=3,
+        span_queries=32768, span_sample=256,
         # the query batch the CLI picks for this db
         main_batch=query_mod._auto_batch(
             types.SimpleNamespace(n_windows=db_rows, runner=None)))
 
 
+_START = time.perf_counter()
+
+
 def log(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line, with the script's seconds so far (``elapsed_s``)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - _START}), flush=True)
 
 
 PEAK_INT8_OPS = 1.979e15  # H100 SXM dense int8 tensor-core peak, op/s
@@ -599,10 +637,10 @@ def replay_min_count(mc_mod, D, K, shapes, rng, dev,
 
 
 def kstats_check(ks_mod, D, q_emb, db_emb, zc, ts, n_valid: int,
-                 where: str) -> None:
+                 where: str, L: int = L_SMOKE) -> None:
     """The kernel's (cnt, mx), held exactly to the plain version's."""
-    got = ks_mod.kstats(q_emb, db_emb, zc, ts, n_valid, L_SMOKE)
-    want = D.stats_reference(q_emb, db_emb, zc, ts, n_valid, L_SMOKE)
+    got = ks_mod.kstats(q_emb, db_emb, zc, ts, n_valid, L)
+    want = D.stats_reference(q_emb, db_emb, zc, ts, n_valid, L)
     torch.cuda.synchronize()
     err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
     if err != 0:
@@ -1425,15 +1463,16 @@ def stream_parity(sizes, cli, query_mod, select_mod, mods, e2e: dict,
     log("stream", part="a", seconds=time.perf_counter() - t0)
 
 
-def stream_db(rng, slab_plan) -> tuple[np.ndarray, list[int]]:
-    """The full-size db: random_db's 2^25 + 2^20 windows, plus groups of
-    2, 5 and 40 across every slab boundary and across index 2^25; returns
-    (codes, the first row of each such group)."""
-    n = STREAM_ROWS
-    codes = random_db(rng, n, L_SMOKE)
-    slab_rows, n_slabs = slab_plan(n, L_SMOKE)
+def stream_db(rng, slab_plan, n: int = STREAM_ROWS, L: int = L_SMOKE,
+              marks: tuple = (1 << 25,)) -> tuple[np.ndarray, list[int]]:
+    """A full-size db: random_db's n windows of L bp (phase 8: 2^25 +
+    2^20 at 60 bp), plus groups of 2, 5 and 40 across every slab boundary
+    and across each index of ``marks``; returns (codes, the first row of
+    each such group)."""
+    codes = random_db(rng, n, L)
+    slab_rows, n_slabs = slab_plan(n, L)
     starts = []
-    for edge in [b * slab_rows for b in range(1, n_slabs)] + [1 << 25]:
+    for edge in [b * slab_rows for b in range(1, n_slabs)] + list(marks):
         for g, gap in ((2, 0), (5, 100), (40, 1000)):
             s0 = edge - g // 2 - gap
             codes[s0:s0 + g] = codes[s0]
@@ -1441,15 +1480,16 @@ def stream_db(rng, slab_plan) -> tuple[np.ndarray, list[int]]:
     return codes, starts
 
 
-def stream_reads(rng, codes: np.ndarray, starts: list[int], nq: int):
-    """nq db windows with 0-6 substitutions, a third drawn from indices
-    >= 2^25, the first ones from the groups across slab edges."""
+def stream_reads(rng, codes: np.ndarray, starts: list[int], nq: int,
+                 split: int = 1 << 25, max_subs: int = 6):
+    """nq db windows with 0-max_subs substitutions, a third drawn from
+    indices >= split, the first ones from the groups across slab edges."""
     n = codes.shape[0]
-    src = np.concatenate([rng.integers(0, 1 << 25, nq - nq // 3),
-                          rng.integers(1 << 25, n, nq // 3)])
+    src = np.concatenate([rng.integers(0, split, nq - nq // 3),
+                          rng.integers(split, n, nq // 3)])
     src = rng.permutation(src)
     src[:len(starts)] = starts
-    return mutate(rng, codes[src], 6)
+    return mutate(rng, codes[src], max_subs)
 
 
 def brute_force_stream(codes: np.ndarray, codes_t, q: np.ndarray,
@@ -1569,6 +1609,306 @@ def stream_full(sizes, cli, query_mod, select_mod, slab_mod, mods, dev,
     log("stream", part="b", seconds=time.perf_counter() - t0)
 
 
+# Phase 9: long windows past the global key budget, where smafa_tpu
+# takes its top-M sort-merge and the port streams 2 slabs.
+LONG_L = 150
+LONG_ROWS = (1 << 22) + (1 << 20)
+LONG_SLAB = (2_621_440, 2, 22)  # slab rows, slabs, slab-local shift
+
+
+def events_ms(fn) -> tuple[float, object]:
+    """(device ms of one fn() call by CUDA events, its result)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop), out
+
+
+def long_window_kernels(sizes, D, K, mods: dict, min2_mod, hitops, codes,
+                        q_best, q_kmode, slab_rows: int, dev) -> dict:
+    """Phase 9's kernels at its own shapes, each on its long route, held
+    exactly to its plain version on the card and timed (CUDA events;
+    plain once, the kernel over ``sizes.long_reps`` calls): min2 at the
+    best-hit batch x one slab; kstats at the K-mode batch x one slab, at
+    the first cutoff pass's probes; compact_mask at one K-mode dispatch
+    (mask_row_cap(slab) reads) x one slab, at the reads' K = 99 cutoffs
+    over the whole db (the cutoff search over the kstats kernel)."""
+    L, ep = LONG_L, D.embed_width(LONG_L)
+    n = codes.shape[0]
+    shift = K.packing_shift(L, slab_rows)
+    sms = min2_mod.sm_count(dev)
+    slabs = []
+    for off in range(0, n, slab_rows):
+        part = torch.from_numpy(codes[off:off + slab_rows]).to(dev)
+        slabs.append((*D.embed_db(part, L, slab_rows), part.shape[0]))
+        del part
+    emb, zc, n0 = slabs[0]
+    out = {}
+
+    def held(name, fn, ref, b, rows, bnd, **extra):
+        plain_ms, want = events_ms(ref)
+        got = fn()
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{name} kernel differs from its plain "
+                                 f"version at phase 9's shape B={b}")
+        ms = time_ms(fn, sizes.long_reps)
+        out[name] = log_time(name, L, b, rows, ms, plain_ms, bnd,
+                             cell="long_windows", exact=True, **extra)
+
+    m = mods["min2"]
+    q_emb = D.expand_embed_query(torch.from_numpy(q_best).to(dev), L)
+    b = q_emb.shape[0]
+    held("min2", lambda: m.min2(q_emb, emb, zc, L, shift, True),
+         lambda: D.min2_reference(q_emb, emb, zc, L, shift, True), b,
+         n0, bound(b, n0, L, ep, out_bytes=3 * 4 * b),
+         route=min2_mod.launch_plan(b, slab_rows, ep, sms)[0], shift=shift)
+    del q_emb
+    ks = mods["kstats"]
+    q_emb = D.expand_embed_query(torch.from_numpy(q_kmode).to(dev), L)
+    b = q_emb.shape[0]
+    P = K.KSTATS_PROBES
+    ts = torch.tensor([[L * i // P] for i in range(1, P)] + [[L]],
+                      dtype=torch.int32, device=dev).expand(P, b).contiguous()
+    held("kstats", lambda: ks.kstats(q_emb, emb, zc, ts, n0, L),
+         lambda: D.stats_reference(q_emb, emb, zc, ts, n0, L), b, n0,
+         bound(b, n0, L, ep, out_bytes=4 * (P + 1) * b,
+               extra_in_bytes=4 * P * b),
+         route=min2_mod.live_plan(b, n0, ep, sms)[0])
+
+    def stats(t):
+        cnt = mx = None
+        for e, z, nv in slabs:
+            c, x = ks.kstats(q_emb, e, z, t, nv, L)
+            cnt, mx = (c, x) if cnt is None else (cnt + c,
+                                                  torch.maximum(mx, x))
+        return cnt, mx
+
+    eff, _ = D.kmode_phase1(stats, sizes.kmode_k, L + 1, n, L, b, dev)
+    cm = mods["compact_mask"]
+    rows = min(hitops.mask_row_cap(slab_rows), b)
+    qc, th = q_emb[:rows].contiguous(), eff[:rows].contiguous()
+    held("compact_mask", lambda: (cm.compact_mask(qc, emb, zc, th, L),),
+         lambda: (D.compact_mask_reference(qc, emb, zc, th, L),), rows, n0,
+         bound(rows, n0, L, ep, out_bytes=rows * slab_rows // 8,
+               extra_in_bytes=4 * rows),
+         route=min2_mod.launch_plan(rows, slab_rows, ep, sms)[0],
+         k=sizes.kmode_k, thresh_median=float(th.float().median()))
+    del slabs, emb, zc, q_emb, qc, ts
+    torch.cuda.empty_cache()
+    return out
+
+
+def long_windows(sizes, cli, query_mod, select_mod, slab_mod, hitops, mods,
+                 D, K, min2_mod, dev, tmp: str, rng, card: str) -> dict:
+    """Phase 9: 5,242,880 windows of 150 bp through the CLI with no layout
+    variable set. Global keys (8 distance bits + 24 index bits) do not
+    pack, nor does smafa_tpu's 2^24-row span, so smafa_tpu would take its
+    top-M sort-merge; the port streams 2 slabs of 2,621,440 rows at shift
+    22. Best-hit at --max-divergence 12 and K-mode at --max-num-hits 99,
+    each in the resident tier and again with SMAFA_TPU_SLAB_RESIDENT=0:
+    the tiers' bytes equal, min2 once and kstats kstats_steps(150) = 4
+    times per slab per batch, compact_mask launched, 64 sampled reads a
+    run against the brute force; then each long-route kernel at these
+    shapes (``long_window_kernels``)."""
+    from smafa_tpu_torch.core.windowset import WindowSet
+    from smafa_tpu_torch.io import native_format
+
+    t0 = time.perf_counter()
+    L, n = LONG_L, LONG_ROWS
+    codes, starts = stream_db(rng, slab_mod.slab_plan, n, L, ())
+    slab_rows, n_slabs, shift = LONG_SLAB
+    if (slab_mod.slab_plan(n, L) != (slab_rows, n_slabs)
+            or K.packing_shift(L, 2 * n) is not None):
+        raise AssertionError(f"long windows: plan {slab_mod.slab_plan(n, L)}")
+    db = os.path.join(tmp, "long.native")
+    native_format.save(WindowSet.from_matrix(codes, 2), db)
+    log("long_windows", db_rows=n, L=L, build_db_s=time.perf_counter() - t0,
+        straddling_groups=len(starts))
+    codes_t = torch.from_numpy(codes).to(dev).T.contiguous()
+    steps = K.kstats_steps(L)
+    want_log = [f"db layout: stream ({n} windows, length {L})",
+                f"stream layout: {n_slabs} slabs of {slab_rows} rows "
+                f"(slab-local shift {shift}), resident tier"]
+    reads = {}
+    for name, nq, flags, k, max_div in (
+            ("best", sizes.long_queries, ["--max-divergence", "12"], None,
+             12),
+            ("kmode", sizes.long_kmode_queries,
+             ["--max-num-hits", str(sizes.kmode_k)], sizes.kmode_k, None)):
+        q = stream_reads(rng, codes, starts, nq, split=slab_rows, max_subs=15)
+        reads[name] = q
+        q_fa = os.path.join(tmp, "lq.fna")
+        write_fasta(q_fa, q, "r")
+        digests = []
+        for env, tier in (({}, "resident"),
+                          ({"SMAFA_TPU_SLAB_RESIDENT": "0"}, "streaming")):
+            out = os.path.join(tmp, f"l_{tier}.tsv")
+            res = stream_query(cli, query_mod, select_mod, mods,
+                               ["query", "-d", db, "-q", q_fa, *flags, "-o",
+                                out, "--quiet"], env, nq, n, card)
+            res["sha256"], res["hit_lines"] = file_digest(out)
+            digests.append(res["sha256"])
+            batches = -(-nq // 65536)
+            key = "min2" if k is None else "kstats"
+            per = n_slabs * batches * (1 if k is None else steps)
+            ok = (res["tier"] == tier and res["n_slabs"] == n_slabs
+                  and res["slab_rows"] == slab_rows
+                  and res["log"][:1] == want_log[:1]
+                  and res["log"][-1] == want_log[1].replace("resident", tier)
+                  and res["launches"][key] == per
+                  and res["launches"]["compact_mask"] >= 1)
+            if tier == "resident":
+                sample = sorted(rng.choice(nq, size=sizes.stream_sample,
+                                           replace=False).tolist())
+                got = sampled_lines(out, set(sample))
+                want = brute_force_stream(codes, codes_t, q, sample, k,
+                                          max_div)
+                bad = [i for i in sample if got.get(i, []) != want[i]]
+                res["sampled_exact"] = len(sample) - len(bad)
+                ok = ok and not bad
+            os.remove(out)
+            log("long_windows", run=name, reads=nq, db_rows=n, L=L, **res)
+            if not ok:
+                raise AssertionError(f"long windows {name} {tier}: {res}")
+        os.remove(q_fa)
+        if digests[0] != digests[1]:
+            raise AssertionError(f"long windows {name}: the tiers' outputs "
+                                 "differ")
+    del codes_t
+    os.remove(db)
+    torch.cuda.empty_cache()
+    timing = long_window_kernels(sizes, D, K, mods, min2_mod, hitops, codes,
+                                 reads["best"], reads["kmode"], slab_rows,
+                                 dev)
+    log("long_windows", seconds=time.perf_counter() - t0, card=card)
+    return timing
+
+
+# Phase 10: the cluster's centroid scan in spans past the key budget.
+SPAN_CUT_BITS = 12             # (a): cluster 1M's 32,768-row buffer in 4,096-row spans
+SPAN_L = 300
+SPAN_ROWS = (1 << 22) + (1 << 20)  # (b): cap 2^23 does not pack at 300 bp
+
+
+def cut_index_bits(real, bits: int):
+    """``keys.packing_shift`` that packs no span wider than 2^bits rows
+    (patched in-process over the keys module, which the cluster engine
+    reaches as ``cluster.K``; the package has no knob for this)."""
+    def packing_shift(seq_len, wp):
+        shift = real(seq_len, wp)
+        return shift if shift is not None and shift <= bits else None
+    return packing_shift
+
+
+def cluster_spans(sizes, cli, cluster_mod, mc_mod, D, K, min2_mod, clu: dict,
+                  cluster_inp: str, dev, tmp: str, rng, card: str) -> dict:
+    """Phase 10. (a) Cluster 1M through the CLI with the key budget cut so
+    that its 32,768-row buffer scans in spans of 4,096 rows: phase 5's
+    centroid count and sha256, one min_count launch per span holding
+    centroids per batch. (b) A store of 5,242,880 random 300 bp
+    centroids (cap 2^23, which does not pack at 9 distance bits: 2 spans
+    of 2^22 rows) built with ``_CentroidStore.from_codes``; one batch of
+    reads through ``scan_async`` / ``scan_fetch``, timed, 256 sampled
+    rows against a brute force over the codes on the card; min_count at
+    its first span held to its plain version and timed."""
+    t0 = time.perf_counter()
+    span = 1 << SPAN_CUT_BITS
+    out = os.path.join(tmp, "c_spans.tsv")
+    mc_mod.launches = 0
+    with mock.patch.object(cluster_mod.K, "packing_shift", cut_index_bits(
+            cluster_mod.K.packing_shift, SPAN_CUT_BITS)):
+        rc, wall, timers, shapes = cluster_cli(cli, cluster_mod, [
+            "cluster", "-i", cluster_inp, "-d", str(sizes.cluster_div), "-o",
+            out, "--quiet"])
+    launches = mc_mod.launches
+    with open(out, "rb") as f:
+        sha, _, _, n_cent = cluster_lines(f.read(), L_SMOKE)
+    os.remove(out)
+    want_launches = sum(-(-nv // span) for _, nv, _ in clu["min_count_shapes"])
+    res_a = {"part": "a", "span_rows": span, "rc": rc, "wall_s": wall,
+             "stage_s": timers and timers.seconds, "sha256": sha,
+             "centroids": n_cent, "sha256_equals_smafa_tpu":
+             sha == CLUSTER_SHA256, "launches": {"min_count": launches},
+             "want_launches": want_launches,
+             "buffer_rows": sorted({w for *_, w in shapes}), "card": card}
+    log("cluster_spans", **res_a)
+    if (rc != 0 or sha != CLUSTER_SHA256 or n_cent != CLUSTER_CENTROIDS
+            or launches != want_launches or len(shapes) != launches
+            or {w for *_, w in shapes} != {span}):
+        raise AssertionError(f"cluster spans (a): {res_a}")
+
+    t1 = time.perf_counter()
+    L, n, b = SPAN_L, SPAN_ROWS, sizes.span_queries
+    codes = rng.integers(0, 4, (n, L), dtype=np.uint8)
+    half = K.packing_span(L)  # 2^22 rows at 9 distance bits
+    # copies of span-0 rows in span 1: exact reads tie across the spans
+    dup_src = rng.integers(0, half, 64)
+    codes[half + rng.permutation(n - half)[:64]] = codes[dup_src]
+    store = cluster_mod._CentroidStore.from_codes(codes, dev)
+    build_s = time.perf_counter() - t1
+    if store.span != half or store.cap <= half:
+        raise AssertionError(f"cluster spans (b): cap {store.cap}, span "
+                             f"{store.span}")
+    src = np.concatenate([rng.integers(0, half, b - b // 3),
+                          rng.integers(half, n, b // 3)])
+    q = mutate(rng, codes[rng.permutation(src)], 20)
+    q[:64] = codes[dup_src]
+    mc_mod.launches = 0
+    scan_ms, (dist, idx) = events_ms(
+        lambda: store.scan_fetch(store.scan_async(q)))
+    launches = mc_mod.launches
+    codes_t = torch.from_numpy(codes).to(dev).T.contiguous()
+    sample = np.concatenate([np.arange(64), np.sort(rng.choice(
+        np.arange(64, b), size=sizes.span_sample - 64, replace=False))])
+    qt = torch.from_numpy(np.ascontiguousarray(q[sample].T)).to(dev)
+    d = torch.zeros((sample.size, n), dtype=torch.int16, device=dev)
+    for c in range(L):
+        d += codes_t[c].unsqueeze(0) != qt[c].unsqueeze(1)
+    want_d, want_i = d.min(dim=1)  # min(dim) takes the first index
+    bad = np.nonzero((want_d.cpu().numpy() != dist[sample])
+                     | (want_i.cpu().numpy() != idx[sample]))[0]
+    del codes_t, qt, d
+    # min_count on its first span, as the scan launched it
+    ep = D.embed_width(L)
+    q_emb = D.expand_embed_query(torch.from_numpy(q).to(dev), L)
+    emb, zc = store.db_emb[:half], store.zc[:half]
+    plain_ms, want = events_ms(lambda: D.min_count_reference(
+        q_emb, emb, zc, half, L, store.shift, False))
+    got = mc_mod.min_count(q_emb, emb, zc, half, L, store.shift, False)
+    torch.cuda.synchronize()
+    if not torch.equal(got[0], want[0]):
+        raise AssertionError("min_count kernel differs from its plain "
+                             "version at phase 10's span")
+    ms = time_ms(lambda: mc_mod.min_count(q_emb, emb, zc, half, L,
+                                          store.shift, False),
+                 sizes.long_reps)
+    timing = log_time("min_count", L, b, half, ms, plain_ms,
+                      bound(b, half, L, ep, out_bytes=4 * b),
+                      cell="cluster_spans", exact=True,
+                      **live_plan(min2_mod, b, half, ep, dev))
+    res_b = {"part": "b", "centroids": n, "L": L, "cap": store.cap,
+             "span": store.span, "shift": store.shift, "reads": b,
+             "build_s": build_s, "scan_ms": scan_ms,
+             "comparisons_per_s": b * n / (scan_ms / 1e3),
+             "launches": {"min_count": launches},
+             "sampled": int(sample.size), "sampled_exact":
+             int(sample.size - bad.size), "mismatches": bad[:5].tolist(),
+             "tied_reads_lowest_index": bool(
+                 (idx[:64] == dup_src).all()), "card": card}
+    log("cluster_spans", **res_b)
+    del store, q_emb, emb, zc, got, want
+    torch.cuda.empty_cache()
+    if (bad.size or launches != -(-n // half)
+            or not res_b["tied_reads_lowest_index"]):
+        raise AssertionError(f"cluster spans (b): {res_b}")
+    log("cluster_spans", seconds=time.perf_counter() - t0)
+    return timing
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1652,6 +1992,12 @@ def main() -> int:
                       kmode, db, tmp, card)
         stream_full(sizes, cli, query_mod, select_mod, slab_mod, stream_mods,
                     dev, tmp, np.random.default_rng([seed, 10]), card)
+        long_windows(sizes, cli, query_mod, select_mod, slab_mod, hitops,
+                     stream_mods, D, K, min2_mod, dev, tmp,
+                     np.random.default_rng([seed, 11]), card)
+        cluster_spans(sizes, cli, cluster_mod, mc_mod, D, K, min2_mod, clu,
+                      cluster_inp, dev, tmp, np.random.default_rng([seed, 12]),
+                      card)
 
     launches = {"min2": e2e["launches"]["min2"],
                 "compact_mask": e2e["launches"]["compact_mask"],

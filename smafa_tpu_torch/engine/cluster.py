@@ -121,7 +121,14 @@ class _CentroidStore:
     are centroids; the min_count kernel masks the rest by count. Growth
     doubles ``cap`` into new tensors (a scan in flight keeps the old ones
     referenced through its handle); ``append`` writes only the new rows,
-    in place."""
+    in place.
+
+    The scan runs over spans of ``span`` rows: the whole buffer, one
+    min_count launch, while its keys ``(dist << shift) | idx`` pack into
+    31 bits; past that (2^22 centroids at 300 bp, 2^25 at 60 bp) spans of
+    ``keys.packing_span`` rows at their own shift, merged as (dist,
+    index) pairs. ``smafa_tpu``'s ``min_scan`` switches to a pair carry
+    over its whole buffer there instead (ROADMAP.md, queue 1 item 5)."""
 
     def __init__(self, seq_len: int, device: torch.device):
         self.seq_len = seq_len
@@ -129,11 +136,11 @@ class _CentroidStore:
         self.ws = WindowSet(version=0)  # version unused, reference cluster.rs:22
         self.decoded: list[str] = []
         self.cap = INITIAL_CAPACITY
+        self.shift, self.span = self._plan()
         self.db_emb = torch.zeros((self.cap, D.embed_width(seq_len)),
                                   dtype=torch.int8, device=self.device)
         self.zc = torch.full((self.cap,), -1, dtype=torch.int32,
                              device=self.device)
-        self.shift = self._shift()
 
     @classmethod
     def from_codes(cls, codes: np.ndarray,
@@ -143,14 +150,18 @@ class _CentroidStore:
         store.append(codes)
         return store
 
-    def _shift(self) -> int:
+    def _plan(self) -> tuple[int, int]:
+        """(shift, span) of the scan over a buffer of ``cap`` rows."""
         shift = K.packing_shift(self.seq_len, self.cap)
-        if shift is None:
+        if shift is not None:
+            return shift, self.cap
+        span = K.packing_span(self.seq_len)
+        if span is None:
             raise KeyPackingError(
-                f"{self.cap} centroids of length {self.seq_len} do not pack "
-                "into 31-bit keys; the pair-carry scan for this case is not "
-                "ported yet (see ROADMAP.md)")
-        return shift
+                f"centroids of length {self.seq_len} do not pack into "
+                "31-bit keys even over one 64-row tile (windows of "
+                "2^25 - 1 bp or more; see ROADMAP.md, queue 1 item 5)")
+        return K.packing_shift(self.seq_len, span), span
 
     def __len__(self) -> int:
         return len(self.ws)
@@ -179,7 +190,7 @@ class _CentroidStore:
             emb[:n0] = self.db_emb[:n0]
             zc[:n0] = self.zc[:n0]
             self.db_emb, self.zc, self.cap = emb, zc, cap
-            self.shift = self._shift()
+            self.shift, self.span = self._plan()
         rows = torch.from_numpy(np.ascontiguousarray(codes_rows, np.uint8))
         emb, zc = D.expand_embed_db(rows.to(self.device), self.seq_len)
         self.db_emb[n0:n0 + k] = emb
@@ -191,16 +202,28 @@ class _CentroidStore:
 
     def scan_async(self, q_codes: np.ndarray) -> _Scan:
         """Move a batch to the device and launch its centroid scan over
-        the first ``len(self)`` rows (the snapshot); nothing waits for
-        the device. Fetch the result with ``scan_fetch``."""
+        the first ``len(self)`` rows (the snapshot), one min_count launch
+        per span that holds centroids; nothing waits for the device.
+        Fetch the result with ``scan_fetch``."""
         codes = torch.from_numpy(np.ascontiguousarray(q_codes, np.uint8))
         codes = codes.to(self.device)
         q_emb = D.expand_embed_query(codes, self.seq_len)
-        if not len(self):
+        n, span = len(self), self.span
+        if not n:
             return _Scan(codes, q_emb, None, ())
-        (key,) = min_count(q_emb, self.db_emb, self.zc, len(self),
-                           self.seq_len, self.shift, with_count=False)
-        dist, idx = D.unpack_min_key(key, self.shift)
+        for off in range(0, n, span):
+            (key,) = min_count(q_emb, self.db_emb[off:off + span],
+                               self.zc[off:off + span], min(span, n - off),
+                               self.seq_len, self.shift, with_count=False)
+            d, i = D.unpack_min_key(key, self.shift)
+            if not off:
+                dist, idx = d, i
+                continue
+            # every span scanned holds a centroid, so no row is empty;
+            # strict <: earlier spans keep ties (cluster.rs:62-68)
+            better = d < dist
+            dist = torch.where(better, d, dist)
+            idx = torch.where(better, i + off, idx)
         return _Scan(codes, q_emb, torch.stack([dist, idx]),
                      (self.db_emb, self.zc))
 

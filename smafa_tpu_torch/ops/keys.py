@@ -44,6 +44,18 @@ def packing_shift(seq_len: int, wp: int) -> int | None:
     return bits_idx
 
 
+def packing_span(seq_len: int) -> int | None:
+    """Port-only (no counterpart in ``smafa_tpu``): the widest span of
+    db rows, a multiple of 64 (the kernels' tile), whose local keys pack
+    into 31 bits, 2^(31 - ceil(log2(L + 2))) rows; None when not even 64
+    rows pack (windows of 2^25 - 1 bp or more). Found through
+    ``packing_shift``, so it follows that one packing rule."""
+    for bits in range(31, 5, -1):
+        if packing_shift(seq_len, 1 << bits) is not None:
+            return 1 << bits
+    return None
+
+
 def unpack_key(key: np.ndarray, shift: int) -> tuple[np.ndarray, np.ndarray]:
     """Packed keys -> (distance, index); BIG/int32-max for empty rows."""
     big = key == np.int32(BIG_KEY)

@@ -109,10 +109,9 @@ class ScanRunner(DeviceRunner):
         if self.shift is None:
             raise KeyPackingError(
                 f"{self.n_windows} windows of length {self.seq_len} do not "
-                "pack into 31-bit keys; the stream layout "
-                "(SMAFA_TPU_LAYOUT=auto or stream) packs them per slab, "
-                "and past it the top-M fallback is not ported yet (see "
-                "ROADMAP.md)")
+                "pack into 31-bit global keys; the stream layout "
+                "(parallel.slab, which select.make_runner builds for such "
+                "a db) packs them per slab (see ROADMAP.md)")
         # np.array copies: the host view may be a read-only memmap
         self.db_codes = torch.from_numpy(
             np.array(codes, dtype=np.uint8)).to(self.device)

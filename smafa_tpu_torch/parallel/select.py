@@ -9,9 +9,17 @@ hit-mode contract (``parallel.hitops.HitModesMixin``):
   ``(dist << shift) | idx``;
 - ``stream``: ``parallel.slab.SlabStreamRunner``, the db scanned in row
   slabs with slab-local keys merged as (dist, index) pairs, so any row
-  count packs; its slabs stay on the card when they fit
-  (``slab.CODES_RESIDENT_FRACTION``), else they stream from host memory
-  every pass.
+  count packs, at any window length below 2^25 - 1 bp; its slabs stay on
+  the card when they fit (``slab.CODES_RESIDENT_FRACTION``), else they
+  stream from host memory every pass.
+
+Where global keys overflow, ``smafa_tpu`` streams too, unless a span of
+2^24 rows cannot pack either (windows of 127 bp or more); it then serves
+the db with its exact top-M sort-merge (``topm_scan``). The port's slabs
+are never wider than ``keys.packing_span``, so the stream layout serves
+that case as well, with the same output; a forced ``sharded`` past the
+global budget also streams. Only windows of 2^25 - 1 bp or more, where
+not even a 64-row tile packs, raise ``KeyPackingError``.
 
 ``SMAFA_TPU_LAYOUT`` is ``auto`` (the default), ``sharded`` or
 ``stream``; ``ring`` and ``col`` (``smafa_tpu``'s multi-device layouts)
@@ -37,10 +45,6 @@ logger = logging.getLogger("smafa")
 # Stream the db when its resident form needs more than this fraction of
 # the card's memory (programs need working space beside it).
 HBM_FRACTION = 0.75
-
-# The widest span a layout packs keys over locally: where even this many
-# rows cannot pack, only smafa_tpu's exact top-M fallback serves.
-LOCAL_SPAN = 1 << 24
 
 
 class LayoutNotPortedError(ValueError):
@@ -82,12 +86,12 @@ def choose_layout(n_windows: int, seq_len: int, device: torch.device) -> str:
                          "sharded, ring, col, or stream")
     if K.packing_shift(seq_len, max(2, 2 * n_windows)) is None:
         # Global keys overflow 31 bits; the stream layout packs per slab.
-        if K.packing_shift(seq_len, LOCAL_SPAN) is None:
+        if K.packing_span(seq_len) is None:
             raise KeyPackingError(
-                f"{n_windows} windows of length {seq_len} do not pack into "
-                f"31-bit keys even over {LOCAL_SPAN} rows; smafa_tpu's "
-                "exact top-M fallback (topm_scan) is not ported yet (see "
-                "ROADMAP.md)")
+                f"windows of length {seq_len} do not pack into 31-bit keys "
+                "even over one 64-row tile (windows of 2^25 - 1 bp or "
+                "more); smafa_tpu's top-M sort-merge for them is not "
+                "ported (see ROADMAP.md, queue 1 item 5)")
         return "stream"
     cap = hbm_capacity(device)
     if (cap is not None
@@ -98,9 +102,16 @@ def choose_layout(n_windows: int, seq_len: int, device: torch.device) -> str:
 
 def make_runner(codes: np.ndarray, seq_len: int, device: torch.device):
     """The chosen layout's runner over the uint8 [W, L] code matrix."""
-    layout = choose_layout(int(codes.shape[0]), seq_len, device)
+    n = int(codes.shape[0])
+    layout = choose_layout(n, seq_len, device)
     logger.debug("db layout: %s (%d windows, length %d)",
-                 layout, codes.shape[0], seq_len)
+                 layout, n, seq_len)
+    wp = -(-n // D.WP_MULTIPLE) * D.WP_MULTIPLE
+    if layout == "sharded" and K.packing_shift(seq_len, wp) is None:
+        # forced past the global key budget: ScanRunner cannot pack it
+        logger.debug("sharded layout past the global key budget: the "
+                     "stream layout serves it")
+        layout = "stream"
     if layout == "stream":
         from smafa_tpu_torch.parallel.slab import SlabStreamRunner
 

@@ -9,7 +9,9 @@ slab results into one accumulator:
   into global (dist, index, count) by ``distance.min2_pair_merge``. Only
   a slab's span must fit the 31-bit key, so any row count packs: this
   is the layout for dbs past the global key budget (2^25 windows at
-  60 bp);
+  60 bp, 2^22 at 150 bp). A slab is never wider than
+  ``keys.packing_span`` (2^23 rows at 127-254 bp), so every window
+  length below 2^25 - 1 bp packs;
 - K-mode cutoff passes: kstats over each slab's real rows, counts summed
   and maxima taken over slabs;
 - compactions: compact_mask per slab, hits offset by the slab's first
@@ -30,7 +32,8 @@ Two tiers, as in ``smafa_tpu``:
   and the next slab's copy overlaps this slab's scan.
 
 ``SMAFA_TPU_SLAB_BYTES`` sets the slab's budget in code bytes
-(``SLAB_BYTES``), balanced so the last slab carries real rows.
+(``SLAB_BYTES``), capped at the widest span that packs and balanced so
+the last slab carries real rows.
 """
 
 from __future__ import annotations
@@ -57,14 +60,19 @@ _INFLIGHT = 4          # slabs alive on the card in the streaming tier
 CODES_RESIDENT_FRACTION = 0.4
 
 
-def slab_plan(n_windows: int, row_bytes: int) -> tuple[int, int]:
+def slab_plan(n_windows: int, seq_len: int) -> tuple[int, int]:
     """(slab_rows, n_slabs): slabs of whole 64-row tiles within the byte
-    budget, as few as it allows, balanced so the last one carries real
-    rows (``smafa_tpu.parallel.slab``'s plan with chunk = 64)."""
+    budget (seq_len code bytes a row) and within ``keys.packing_span``,
+    as few as they allow, balanced so the last one carries real rows
+    (``smafa_tpu.parallel.slab``'s plan with chunk = 64, plus the span
+    cap)."""
     m = D.WP_MULTIPLE
     budget = int(os.environ.get("SMAFA_TPU_SLAB_BYTES", str(SLAB_BYTES)))
     need = max(m, -(-n_windows // m) * m)
-    budget_rows = max(m, budget // max(1, row_bytes) // m * m)
+    budget_rows = max(m, budget // max(1, seq_len) // m * m)
+    span = K.packing_span(seq_len)
+    if span is not None:
+        budget_rows = min(budget_rows, span)
     n_slabs = -(-need // budget_rows)
     slab_rows = -(-need // (n_slabs * m)) * m
     return slab_rows, max(1, -(-n_windows // slab_rows))
@@ -94,8 +102,9 @@ class SlabStreamRunner(DeviceRunner):
         if self.shift is None:
             raise KeyPackingError(
                 f"slabs of {slab_rows} windows of length {self.seq_len} do "
-                "not pack into 31-bit keys; the top-M fallback for this "
-                "case is not ported yet (see ROADMAP.md)")
+                "not pack into 31-bit keys (at 2^25 - 1 bp or more not "
+                "even one 64-row tile does); smafa_tpu's top-M sort-merge "
+                "for them is not ported (see ROADMAP.md, queue 1 item 5)")
         # device seconds of the code uploads (CUDA event pairs not yet
         # summed), their bytes, and the host seconds filling staging
         self.h2d_bytes = 0

@@ -2,9 +2,10 @@
 mirroring smafa_tpu.parallel.select's one-device rule: past the global
 31-bit key budget, or past HBM_FRACTION of the card's memory, the stream
 layout; SMAFA_TPU_LAYOUT forces sharded or stream; ring and col are not
-ported; the top-M case raises KeyPackingError. Also a 40M-row db whose
-rows are never read builds a SlabStreamRunner, and the query batch of a
-stream runner is 65,536.
+ported; long windows past the global budget (smafa_tpu's top-M case)
+stream too, and only windows of 2^25 - 1 bp or more raise
+KeyPackingError. Also a 40M-row db whose rows are never read builds a
+SlabStreamRunner, and the query batch of a stream runner is 65,536.
 
 The port's modules are imported inside the tests: collecting must not
 load torch (tests/torch_gpu_common.py says why)."""
@@ -85,10 +86,15 @@ def test_bad_layout_raises(select, monkeypatch):
 
 
 def test_topm_case_raises(select):
+    """smafa_tpu's top-M case (no 2^24-row span packs) streams; only
+    windows where not even a 64-row tile packs still raise."""
     from smafa_tpu_torch.parallel.runner import KeyPackingError
 
-    with pytest.raises(KeyPackingError, match="topm_scan.*ROADMAP.md"):
-        select.mod.choose_layout(2**30, 2**20, select.cpu)
+    assert select.mod.choose_layout(2**30, 2**20, select.cpu) == "stream"
+    for L in (2**25 - 1, 2**25):
+        with pytest.raises(KeyPackingError,
+                           match="2\\^25 - 1 bp.*ROADMAP.md, queue 1 item 5"):
+            select.mod.choose_layout(2**30, L, select.cpu)
 
 
 def test_make_runner_classes(select, monkeypatch):

@@ -153,7 +153,6 @@ def test_reduced_key_budget_picks_stream(capsys, tmp_path, monkeypatch,
         return shift if fits else None
 
     monkeypatch.setattr(K, "packing_shift", budget16)
-    monkeypatch.setattr(select, "LOCAL_SPAN", 1 << 10)
     monkeypatch.setenv("SMAFA_TPU_SLAB_BYTES", str(1024 * 60))
     made, make = [], select.make_runner
     monkeypatch.setattr(select, "make_runner",
