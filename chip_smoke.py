@@ -120,6 +120,23 @@ Phases, one line each:
    and min_count on its first span exact against its plain version and
    timed. A whole cluster run past the real budget is O(n^2), so (b)
    drives the engine's store, not the CLI.
+11. multiprocess: ``query`` and ``cluster`` through the CLI as 2 ranks
+   (subprocesses of this script, ``--rank``, each with its kernels'
+   counts set to 0 before and read after its run) sharing the card over
+   gloo, ``--coordinator 127.0.0.1:<free port>``, each rank holding one
+   row shard. (a) BASELINE config 5 cut to one card: 10,000,000 windows
+   of 60 bp from random_db in the native format (5,000,000 a rank),
+   best-hit on 65,536 reads at --max-divergence 5 and K = 99 on 16,384
+   reads, both with the query split: sha256 equal to the port's
+   single-process run on the same files, 64 sampled reads a run equal
+   to a brute force. (b) phase 8's 34,603,008-window db (kept from phase
+   8) in 2 ranks, where global keys overflow and each shard packs
+   alone: phase 8's best-hit sha256. (c) cluster 1M in 2 ranks: phase
+   5's sha256 and 29,321 centroids. (d) one rank with a coordinator,
+   whose device collectives take NCCL on the card, on (a)'s best-hit
+   run: its sha256. Each line logs the walls, stages, reads/s, launches
+   and the merges' seconds of every rank; two ranks on one card measure
+   contention, not scaling.
 
 After the kernels' build, ``native_build`` builds the native host
 library (g++; a failed build fails the run) and logs g++'s version, the
@@ -1546,11 +1563,13 @@ def sampled_lines(path: str, sample: set) -> dict:
 
 
 def stream_full(sizes, cli, query_mod, select_mod, slab_mod, mods, dev,
-                tmp: str, rng, card: str) -> None:
+                tmp: str, rng, card: str) -> dict:
     """Phase 8 (b): the 34,603,008-window db through the CLI with no
     layout variable set: the stream layout chosen, its resident tier, then
     SMAFA_TPU_SLAB_RESIDENT=0 (the streaming tier), bytes equal; best-hit
-    and K-mode, sampled reads against a brute force on the card."""
+    and K-mode, sampled reads against a brute force on the card. The db
+    and the best-hit reads stay in ``tmp`` for phase 11 (b); returns
+    their paths and the best-hit output's sha256."""
     from smafa_tpu_torch.core.windowset import WindowSet
     from smafa_tpu_torch.io import native_format
 
@@ -1567,7 +1586,7 @@ def stream_full(sizes, cli, query_mod, select_mod, slab_mod, mods, dev,
             ("kmode", sizes.stream_kmode_queries,
              ["--max-num-hits", str(sizes.kmode_k)], sizes.kmode_k, None)):
         q = stream_reads(rng, codes, starts, nq)
-        q_fa = os.path.join(tmp, "sq.fna")
+        q_fa = os.path.join(tmp, f"sq_{name}.fna")
         write_fasta(q_fa, q, "r")
         digests = []
         for env, tier in (({}, "resident"),
@@ -1599,14 +1618,18 @@ def stream_full(sizes, cli, query_mod, select_mod, slab_mod, mods, dev,
             log("stream", part="b", run=name, reads=nq, db_rows=n, **res)
             if not ok:
                 raise AssertionError(f"stream (b) {name} {tier}: {res}")
-        os.remove(q_fa)
+        if name == "best":
+            kept = {"db": db, "reads": q_fa, "flags": flags,
+                    "sha256": digests[0], "reads_n": nq}
+        else:
+            os.remove(q_fa)
         if digests[0] != digests[1]:
             raise AssertionError(f"stream (b) {name}: the tiers' outputs "
                                  "differ")
     del codes_t
-    os.remove(db)
     torch.cuda.empty_cache()
     log("stream", part="b", seconds=time.perf_counter() - t0)
+    return kept
 
 
 # Phase 9: long windows past the global key budget, where smafa_tpu
@@ -1909,7 +1932,269 @@ def cluster_spans(sizes, cli, cluster_mod, mc_mod, D, K, min2_mod, clu: dict,
     return timing
 
 
+# Phase 11: the multi-process path, ranks as subprocesses of the CLI on
+# the one card (gloo: NCCL refuses two ranks on one card).
+MP_ROWS = 10_000_000  # (a): BASELINE config 5 cut to one card
+MP_RANKS = 2
+MP_TIMEOUT = 300      # seconds a rank may take before every rank is killed
+
+
+def rank_worker(out_json: str, argv: list[str]) -> int:
+    """``chip_smoke.py --rank OUT ARGV...``: one rank of phase 11. Runs the
+    CLI on ARGV with the kernels' counts set to 0 just before and read
+    just after, and writes to OUT its exit code, wall, stages, launches,
+    the seconds its merges' collectives took and its layout."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from smafa_tpu_torch import cli
+    from smafa_tpu_torch.engine import cluster as cluster_mod, query as query_mod
+    from smafa_tpu_torch.ops import compact, kstats, min2, min_count
+    from smafa_tpu_torch.parallel import select as select_mod
+
+    mods = {"min2": min2, "compact_mask": compact, "kstats": kstats,
+            "min_count": min_count}
+    runners, stores, timers = [], [], []
+    make, store_cls = select_mod.make_runner, cluster_mod._CentroidStore
+
+    def make_spy(*a, **kw):
+        runners.append(make(*a, **kw))
+        return runners[-1]
+
+    class Store(store_cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            stores.append(self)
+
+    def engine_spy(fn):
+        def run(*a, **kw):
+            timers.append(fn(*a, **kw))
+            return timers[-1]
+        return run
+
+    select_mod.make_runner = make_spy
+    cluster_mod._CentroidStore = Store
+    query_mod.query = engine_spy(query_mod.query)
+    cluster_mod.cluster = engine_spy(cluster_mod.cluster)
+    for mod in mods.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    res = {"rc": rc, "wall_s": wall,
+           "launches": {name: mod.launches for name, mod in mods.items()},
+           "stage_s": timers[0].seconds if timers else None}
+    if runners:
+        r = runners[0]
+        res.update(layout=type(r).__name__, merge_s=getattr(r, "merge_s", None),
+                   local=type(getattr(r, "local", None)).__name__,
+                   rows=[getattr(r, "off", 0),
+                         getattr(r, "n_local", r.n_windows)])
+    if stores:
+        res.update(merge_s=stores[0].merge_s, shard_rows=stores[0].shard_rows,
+                   sharded=stores[0].comm is not None)
+    with open(out_json, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def run_ranks(argv: list[str], tmp: str, n: int = MP_RANKS) -> list[dict]:
+    """The CLI on ``argv`` as n ranks (``rank_worker`` subprocesses) with a
+    coordinator on a free local port: each rank's record and its log's
+    lines about the process group and the layout. Kills every rank when
+    one fails or times out."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs, outs = [], []
+    try:
+        for r in range(n):
+            out = os.path.join(tmp, f"rank{r}.json")
+            outs.append(out)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank", out,
+                 *argv, "--coordinator", f"127.0.0.1:{port}",
+                 "--num-processes", str(n), "--process-id", str(r)],
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
+        errs = [p.communicate(timeout=MP_TIMEOUT)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    runs = []
+    for p, out, err in zip(procs, outs, errs):
+        if p.returncode != 0 or not os.path.exists(out):
+            raise AssertionError(f"rank failed: rc={p.returncode}, "
+                                 f"stderr {err[-3000:]}")
+        with open(out) as f:
+            rec = json.load(f)
+        os.remove(out)
+        rec["log"] = [line.split("] ", 1)[-1] for line in err.splitlines()
+                      if "distributed:" in line or "layout" in line
+                      or "split" in line]
+        if rec["rc"] != 0:
+            raise AssertionError(f"rank CLI failed: {rec}, {err[-3000:]}")
+        runs.append(rec)
+    return runs
+
+
+def multiprocess(sizes, cli, query_mod, cluster_mod, mods: dict, dev,
+                 tmp: str, rng, card: str, stream_kept: dict,
+                 cluster_inp: str) -> None:
+    """Phase 11: ``query`` and ``cluster`` through the CLI as 2 ranks on
+    the card (gloo), each rank holding one row shard. (a) BASELINE config
+    5 cut to one card: 10,000,000 windows of 60 bp in the native format
+    (5,000,000 a rank), best-hit on 65,536 reads at --max-divergence 5
+    and K = 99 on 16,384 reads, both with the query split; each sha256
+    equal to the port's single-process run on the same files, 64 sampled
+    reads a run equal to a brute force. (b) Phase 8's 34,603,008-window
+    db in 2 ranks (global keys overflow, each shard packs alone): the
+    best-hit sha256 equal to phase 8's. (c) cluster 1M in 2 ranks:
+    phase 5's sha256 and centroid count. (d) one rank with a coordinator,
+    which takes NCCL on the card, on (a)'s best-hit run."""
+    from smafa_tpu_torch.core.windowset import WindowSet
+    from smafa_tpu_torch.io import native_format
+
+    t0 = time.perf_counter()
+    codes = random_db(rng, MP_ROWS, L_SMOKE)
+    db = os.path.join(tmp, "mp.native")
+    native_format.save(WindowSet.from_matrix(codes, 2), db)
+    log("multiprocess", part="a", db_rows=MP_ROWS,
+        build_db_s=time.perf_counter() - t0, card=card)
+    codes_t = torch.from_numpy(codes).to(dev).T.contiguous()
+    best_run = None
+    for name, nq, flags, k, max_div in (
+            ("best", sizes.queries, ["--max-divergence", "5"], None, 5),
+            ("kmode", sizes.stream_kmode_queries,
+             ["--max-num-hits", str(sizes.kmode_k)], sizes.kmode_k, None)):
+        src = rng.integers(0, MP_ROWS, nq)
+        q = mutate(rng, codes[src], 6)
+        q_fa = os.path.join(tmp, f"mp_{name}.fna")
+        write_fasta(q_fa, q, "r")
+        single = os.path.join(tmp, "mp_single.tsv")
+        for mod in mods.values():
+            mod.launches = 0
+        rc, wall1, timers = cli_query(cli, query_mod, [
+            "query", "-d", db, "-q", q_fa, *flags, "-o", single, "--quiet"])
+        launches1 = {k_: mod.launches for k_, mod in mods.items()}
+        want_sha, lines = file_digest(single)
+        out = os.path.join(tmp, "mp_ranks.tsv")
+        runs = run_ranks(["query", "-d", db, "-q", q_fa, *flags, "-o", out,
+                          "-v"], tmp)
+        sha, _ = file_digest(out)
+        sample = sorted(rng.choice(nq, size=sizes.stream_sample,
+                                   replace=False).tolist())
+        got = sampled_lines(out, set(sample))
+        want = brute_force_stream(codes, codes_t, q, sample, k, max_div)
+        bad = [i for i in sample if got.get(i, []) != want[i]]
+        key = "min2" if k is None else "kstats"
+        res = {"part": "a", "run": name, "reads": nq, "db_rows": MP_ROWS,
+               "ranks": MP_RANKS, "rc": rc, "hit_lines": lines,
+               "sha256": sha, "sha256_single": want_sha,
+               "sha256_equal": sha == want_sha,
+               "sampled_exact": len(sample) - len(bad),
+               "single_wall_s": wall1, "single_stage_s": timers.seconds,
+               "single_reads_per_s": nq / wall1,
+               "single_launches": launches1,
+               "wall_s": [r["wall_s"] for r in runs],
+               "reads_per_s": nq / max(r["wall_s"] for r in runs),
+               "stage_s": [r["stage_s"] for r in runs],
+               "merge_s": [r["merge_s"] for r in runs],
+               "launches": [r["launches"] for r in runs],
+               "rows": [r["rows"] for r in runs],
+               "log": runs[0]["log"] + runs[1]["log"], "card": card}
+        log("multiprocess", **res)
+        split = any("split across 2 processes" in x for x in runs[0]["log"])
+        if (rc != 0 or sha != want_sha or bad or not split
+                or any(r["launches"][key] <= 0 for r in runs)
+                or [r["rows"] for r in runs] != [[0, MP_ROWS // 2],
+                                                [MP_ROWS // 2, MP_ROWS // 2]]):
+            raise AssertionError(f"multiprocess (a) {name}: {res}")
+        os.remove(out)
+        os.remove(single)
+        if name == "best":
+            best_run = (q_fa, flags, want_sha)
+        else:
+            os.remove(q_fa)
+    del codes_t, codes
+    torch.cuda.empty_cache()
+
+    # (b): past the global key budget, each rank's shard alone packs
+    out = os.path.join(tmp, "mp_b.tsv")
+    runs = run_ranks(["query", "-d", stream_kept["db"], "-q",
+                      stream_kept["reads"], *stream_kept["flags"], "-o", out,
+                      "-v"], tmp)
+    sha, lines = file_digest(out)
+    os.remove(out)
+    nq = stream_kept["reads_n"]
+    res = {"part": "b", "db_rows": STREAM_ROWS, "reads": nq,
+           "hit_lines": lines, "sha256": sha,
+           "sha256_phase8": stream_kept["sha256"],
+           "sha256_equal": sha == stream_kept["sha256"],
+           "wall_s": [r["wall_s"] for r in runs],
+           "reads_per_s": nq / max(r["wall_s"] for r in runs),
+           "stage_s": [r["stage_s"] for r in runs],
+           "merge_s": [r["merge_s"] for r in runs],
+           "launches": [r["launches"] for r in runs],
+           "local": [r["local"] for r in runs],
+           "rows": [r["rows"] for r in runs],
+           "log": runs[0]["log"] + runs[1]["log"], "card": card}
+    log("multiprocess", **res)
+    if sha != stream_kept["sha256"] or any(r["launches"]["min2"] <= 0
+                                           for r in runs):
+        raise AssertionError(f"multiprocess (b): {res}")
+    os.remove(stream_kept["db"])
+    os.remove(stream_kept["reads"])
+
+    # (c): cluster 1M, the centroid buffer sharded over the ranks
+    out = os.path.join(tmp, "mp_c.tsv")
+    runs = run_ranks(["cluster", "-i", cluster_inp, "-d",
+                      str(sizes.cluster_div), "-o", out, "-v"], tmp)
+    with open(out, "rb") as f:
+        sha, _, _, n_cent = cluster_lines(f.read(), L_SMOKE)
+    os.remove(out)
+    res = {"part": "c", "records": sizes.cluster_records, "sha256": sha,
+           "sha256_equals_smafa_tpu": sha == CLUSTER_SHA256,
+           "centroids": n_cent, "wall_s": [r["wall_s"] for r in runs],
+           "records_per_s": sizes.cluster_records / max(
+               r["wall_s"] for r in runs),
+           "stage_s": [r["stage_s"] for r in runs],
+           "merge_s": [r["merge_s"] for r in runs],
+           "launches": [r["launches"] for r in runs],
+           "sharded": [r["sharded"] for r in runs],
+           "shard_rows": [r["shard_rows"] for r in runs],
+           "log": runs[0]["log"] + runs[1]["log"], "card": card}
+    log("multiprocess", **res)
+    if (sha != CLUSTER_SHA256 or n_cent != CLUSTER_CENTROIDS
+            or not all(res["sharded"])
+            or any(r["launches"]["min_count"] <= 0 for r in runs)):
+        raise AssertionError(f"multiprocess (c): {res}")
+
+    # (d): one rank with a coordinator: NCCL for the device collectives
+    q_fa, flags, want_sha = best_run
+    out = os.path.join(tmp, "mp_d.tsv")
+    runs = run_ranks(["query", "-d", db, "-q", q_fa, *flags, "-o", out,
+                      "-v"], tmp, n=1)
+    sha, _ = file_digest(out)
+    os.remove(out)
+    res = {"part": "d", "ranks": 1, "sha256": sha,
+           "sha256_equal": sha == want_sha, "wall_s": runs[0]["wall_s"],
+           "stage_s": runs[0]["stage_s"], "merge_s": runs[0]["merge_s"],
+           "launches": runs[0]["launches"], "log": runs[0]["log"],
+           "card": card}
+    log("multiprocess", **res)
+    nccl = any("device collectives nccl" in x for x in runs[0]["log"])
+    if sha != want_sha or not nccl or runs[0]["launches"]["min2"] <= 0:
+        raise AssertionError(f"multiprocess (d): {res}")
+    os.remove(q_fa)
+    os.remove(db)
+    log("multiprocess", seconds=time.perf_counter() - t0, card=card)
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--rank"]:
+        return rank_worker(sys.argv[2], sys.argv[3:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of every generated db, query and threshold")
@@ -1990,14 +2275,19 @@ def main() -> int:
                        "kstats": ks_mod}
         stream_parity(sizes, cli, query_mod, select_mod, stream_mods, e2e,
                       kmode, db, tmp, card)
-        stream_full(sizes, cli, query_mod, select_mod, slab_mod, stream_mods,
-                    dev, tmp, np.random.default_rng([seed, 10]), card)
+        stream_kept = stream_full(sizes, cli, query_mod, select_mod,
+                                  slab_mod, stream_mods, dev, tmp,
+                                  np.random.default_rng([seed, 10]), card)
         long_windows(sizes, cli, query_mod, select_mod, slab_mod, hitops,
                      stream_mods, D, K, min2_mod, dev, tmp,
                      np.random.default_rng([seed, 11]), card)
         cluster_spans(sizes, cli, cluster_mod, mc_mod, D, K, min2_mod, clu,
                       cluster_inp, dev, tmp, np.random.default_rng([seed, 12]),
                       card)
+        multiprocess(sizes, cli, query_mod, cluster_mod,
+                     {**stream_mods, "min_count": mc_mod}, dev, tmp,
+                     np.random.default_rng([seed, 13]), card, stream_kept,
+                     cluster_inp)
 
     launches = {"min2": e2e["launches"]["min2"],
                 "compact_mask": e2e["launches"]["compact_mask"],

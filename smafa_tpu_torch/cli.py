@@ -10,11 +10,13 @@ of ``smafa_tpu.cli`` (itself the reference's, main.rs:64-116):
 - no subcommand -> print help, exit 0
 
 Errors print their message to stderr and exit 101; usage errors exit 2.
-``makedb``, ``query`` (best-hit and K-mode, with ``--max-divergence``
-and ``--limit-per-sequence``), ``cluster`` and ``count`` on one device
-run here, and ``query`` and ``cluster`` take ``--resume-state``.
-Multi-host (``--coordinator``, ``--num-processes``) exits 101 with a
-message that points to ROADMAP.md.
+``query`` and ``cluster`` take ``--resume-state``, and run over several
+processes, one per GPU, with ``--coordinator HOST:PORT --num-processes P
+--process-id p`` (``parallel.multihost``): process 0 writes the output
+(``-o`` is opened by it alone), the others write to ``os.devnull``. An
+error on any process exits 101 with its message; a peer waiting in a
+collective then fails too, at the latest after the process group's
+timeout.
 
 The device is resolved once, here: ``cuda`` by default, and ``cpu`` only
 when ``SMAFA_TPU_TORCH_DEVICE=cpu`` asks for it. Without a visible CUDA
@@ -197,12 +199,6 @@ def resolve_device():
     return device
 
 
-def _not_ported_option(args) -> str | None:
-    if getattr(args, "coordinator", None) or getattr(args, "num_processes", None):
-        return "Multi-host (--coordinator/--num-processes)"
-    return None
-
-
 def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -211,16 +207,7 @@ def main(argv: list[str] | None = None) -> int:
         print()
         return 0
     set_log_level(args.verbose, args.quiet)
-    from smafa_tpu_torch.engine.query import NotPortedError
-
-    what = _not_ported_option(args)
-    if what is not None:
-        print(str(NotPortedError(what)), file=sys.stderr)
-        return 101
     out_stream = None
-    # a+ keeps the bytes there (a resume truncates a torn tail itself)
-    # and allows the seek and truncate of an exactly-once resume
-    out_mode = "a+" if getattr(args, "resume_state", None) else "w"
     try:
         if args.subcommand == "makedb":
             from smafa_tpu_torch.engine.makedb import makedb
@@ -229,9 +216,7 @@ def main(argv: list[str] | None = None) -> int:
         elif args.subcommand == "query":
             from smafa_tpu_torch.engine.query import query
 
-            device = resolve_device()
-            if args.output:
-                out_stream = open(args.output, out_mode)
+            device, out_stream = _start(args)
             query(
                 args.database, args.query, device,
                 max_divergence=args.max_divergence,
@@ -249,9 +234,7 @@ def main(argv: list[str] | None = None) -> int:
                 return 101
             from smafa_tpu_torch.engine.cluster import cluster
 
-            device = resolve_device()
-            if args.output:
-                out_stream = open(args.output, out_mode)
+            device, out_stream = _start(args)
             cluster(args.input, args.max_divergence, device, out=out_stream,
                     batch_size=args.batch_size,
                     resume_state=args.resume_state)
@@ -267,7 +250,30 @@ def main(argv: list[str] | None = None) -> int:
     finally:
         if out_stream is not None:
             out_stream.close()
+        # also after a failure: a peer still in a collective then fails
+        # as this process's connections close
+        multihost = sys.modules.get("smafa_tpu_torch.parallel.multihost")
+        if multihost is not None:
+            multihost.shutdown()
     return 0
+
+
+def _start(args):
+    """(device, output stream or None for stdout) of a query or cluster
+    run: the process group joined first when the run has several
+    processes; process 0 alone opens ``-o``."""
+    from smafa_tpu_torch.parallel import multihost
+
+    device = multihost.initialize(args.coordinator, args.num_processes,
+                                  args.process_id, resolve_device())
+    if not multihost.is_emitter():
+        # a late starter must not truncate process 0's file
+        return device, open(os.devnull, "w")
+    if not args.output:
+        return device, None
+    # a+ keeps the bytes there (a resume truncates a torn tail itself)
+    # and allows the seek and truncate of an exactly-once resume
+    return device, open(args.output, "a+" if args.resume_state else "w")
 
 
 if __name__ == "__main__":

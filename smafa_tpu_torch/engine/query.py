@@ -27,7 +27,14 @@ from a decoded blob, else, under ``SMAFA_TPU_NO_NATIVE=1``, in Python;
 the ``--limit-per-sequence`` rows stay in Python, as in ``smafa_tpu``.
 
 ``resume_state`` checkpoints the query stream after each emitted batch
-(``_ResumeState``), as ``smafa_tpu`` does on one process.
+(``_ResumeState``).
+
+In a multi-process run (``parallel.multihost``) every process runs this
+loop in lockstep over its row shard of the db (``parallel.sharded``):
+each parses its own byte range of a plain FASTA or FASTQ query file and
+receives every batch from the range's owner (``parallel.querysplit``;
+``SMAFA_TPU_QUERYSPLIT=0`` parses the whole file on every process), and
+process 0's checkpoint is the one every process resumes from.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ import torch
 from smafa_tpu_torch.core import alphabet
 from smafa_tpu_torch.io.db import load_db
 from smafa_tpu_torch.io.fastx import read_encoded_batches
+from smafa_tpu_torch.parallel import multihost
 from smafa_tpu_torch.utils.profiling import StageTimers
 
 logger = logging.getLogger("smafa")
@@ -58,15 +66,10 @@ class QueryError(ValueError):
     pass
 
 
-class NotPortedError(QueryError):
-    def __init__(self, what: str):
-        super().__init__(f"{what} is not ported to smafa_tpu_torch yet "
-                         "(see ROADMAP.md); use smafa_tpu for it")
-
-
 class _DbOnDevice:
-    """A loaded db and its runner on one device, in the layout
-    ``parallel.select.make_runner`` chooses."""
+    """A loaded db and its runner, in the layout
+    ``parallel.select.make_runner`` chooses (in a multi-process run, the
+    rank's row shard of the db's codes, a memmap in the native format)."""
 
     def __init__(self, windows, device: torch.device):
         from smafa_tpu_torch.parallel.select import make_runner
@@ -160,13 +163,25 @@ def query(
         "max_num_hits": k_mode,
         "limit_per_sequence": limit_per_sequence,
     })
+    state.sync_processes()
     state.restore_output(out)
     if state.done:
         logger.info("Resuming after %d completed queries", state.done)
     pending: tuple | None = None  # (qnum0, nq, codes, handle)
     query_number = state.done
-    batches = read_encoded_batches(query_fasta, batch_size=batch_size,
-                                   skip_records=state.done)
+    batches = None
+    if (multihost.world_size() > 1
+            and os.environ.get("SMAFA_TPU_QUERYSPLIT", "") != "0"):
+        from smafa_tpu_torch.parallel import querysplit
+
+        batches = querysplit.split_encoded_batches(
+            query_fasta, batch_size, skip_records=state.done)
+        if batches is not None:
+            logger.info("Query stream split across %d processes",
+                        multihost.world_size())
+    if batches is None:
+        batches = read_encoded_batches(query_fasta, batch_size=batch_size,
+                                       skip_records=state.done)
     while True:
         # Parsing, validating, or launching the next batch can raise
         # (invalid base, length mismatch). The already-scanned pending
@@ -305,7 +320,7 @@ def _emit_kmode_row(out, qnum, dists, idxs, db, limit_per_sequence):
 
 class _ResumeState:
     """JSON query-stream checkpoint: {"query_fasta", "done", "out_pos",
-    "config"}, ``smafa_tpu.engine.query._ResumeState`` on one process.
+    "config"}, ``smafa_tpu.engine.query._ResumeState``.
 
     The output is flushed BEFORE the state is renamed into place (a flush
     that fails propagates rather than record unwritten batches as done).
@@ -327,6 +342,7 @@ class _ResumeState:
         self.path = Path(path) if path else None
         self.done = 0
         self.out_pos: int | None = None
+        self.write_enabled = True  # multi-process: process 0 alone persists
         self._config = config or {}
         self._had_checkpoint = self.path is not None and self.path.exists()
         if self._had_checkpoint:
@@ -361,8 +377,22 @@ class _ResumeState:
     def _extra_payload(self) -> dict:
         return {}
 
+    def sync_processes(self) -> None:
+        """Multi-process: every process must skip the same prefix, so
+        process 0's checkpoint rules: its ``done`` is broadcast (the state
+        file need not exist where the others run), and the others neither
+        persist nor truncate."""
+        comm = multihost.comm()
+        if self.path is None or comm is None or comm.size <= 1:
+            return
+        self.done = int(comm.broadcast(
+            torch.tensor([self.done], dtype=torch.int64), 0))
+        if comm.rank != 0:
+            self.write_enabled = False
+            self.out_pos = None
+
     def restore_output(self, out) -> None:
-        if self.path is None:
+        if self.path is None or not self.write_enabled:
             return
         if not self._had_checkpoint:
             # Fresh run: the stream may hold bytes this run did not write
@@ -395,7 +425,7 @@ class _ResumeState:
 
     def mark_done(self, done: int, out) -> None:
         self.done = done
-        if self.path is None:
+        if self.path is None or not self.write_enabled:
             return
         # flushes the text layer and the binary buffer _write_bytes wrote
         # to; must succeed before the batch counts as done

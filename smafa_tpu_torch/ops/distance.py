@@ -147,13 +147,25 @@ def min2_pair_merge(carry: tuple[torch.Tensor, ...], lo: torch.Tensor,
     replaced where the slab's min is smaller and summed where it is
     equal. A slab with no real row (its min decodes past ``seq_len``)
     leaves the carry as it is."""
-    d, i_lo, i_hi, c = carry
     mask = (1 << shift) - 1
     empty = (lo == BIG_KEY) | ((lo >> shift) > seq_len)
-    d2 = torch.where(empty, 2**30, lo >> shift)
-    il2 = torch.where(empty, BIG_KEY, (lo & mask) + off)
-    ih2 = torch.where(empty, BIG_KEY, (span - 1 - (hi & mask)) + off)
-    c2 = torch.where(empty, 0, cnt)
+    return min2_pair_fold(carry, (
+        torch.where(empty, 2**30, lo >> shift),
+        torch.where(empty, BIG_KEY, (lo & mask) + off),
+        torch.where(empty, BIG_KEY, (span - 1 - (hi & mask)) + off),
+        torch.where(empty, 0, cnt)))
+
+
+def min2_pair_fold(carry: tuple[torch.Tensor, ...],
+                   later: tuple[torch.Tensor, ...]) -> tuple[torch.Tensor, ...]:
+    """Fold the carry ``later`` (dist, i_lo, i_hi, count) of rows whose
+    indices all exceed the carry's into ``carry``: the lowest index keeps
+    ties (strict <), the highest takes them (<=), and the count is
+    replaced where ``later``'s min is smaller and summed where it is
+    equal. An empty ``later`` (dist 2^30, count 0) leaves the carry as it
+    is."""
+    d, i_lo, i_hi, c = carry
+    d2, il2, ih2, c2 = later
     c = torch.where(d2 < d, c2, torch.where(d2 == d, c + c2, c))
     return (torch.minimum(d, d2), torch.where(d2 < d, il2, i_lo),
             torch.where(d2 <= d, ih2, i_hi), c)

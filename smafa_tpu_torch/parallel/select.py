@@ -1,8 +1,14 @@
-"""Db layout selection on one device: which runner the query engine builds.
+"""Db layout selection: which runner the query engine builds.
 
 Counterpart of ``smafa_tpu.parallel.select`` (``choose_layout`` /
-``make_runner``) on one device. Two layouts serve the same exact
-hit-mode contract (``parallel.hitops.HitModesMixin``):
+``make_runner``). In a multi-process run (``parallel.multihost``) the
+layout is ``sharded``: ``parallel.sharded.ShardedRunner`` shards the
+db's rows over the ranks, and each rank serves its shard by the
+one-device rule below. ``smafa_tpu`` picks its column-sharded layout
+there at windows of ``COL_SEQ_THRESHOLD`` bp or more; the port has no
+``col`` yet and keeps ``sharded`` (same output; ROADMAP.md, queue 1
+item 3.4). On one device two layouts serve the same exact hit-mode
+contract (``parallel.hitops.HitModesMixin``):
 
 - ``sharded``: ``parallel.runner.ScanRunner``, the db resident on the
   card as codes and embedded twin, global packed keys
@@ -22,9 +28,10 @@ global budget also streams. Only windows of 2^25 - 1 bp or more, where
 not even a 64-row tile packs, raise ``KeyPackingError``.
 
 ``SMAFA_TPU_LAYOUT`` is ``auto`` (the default), ``sharded`` or
-``stream``; ``ring`` and ``col`` (``smafa_tpu``'s multi-device layouts)
-are not ported and raise ``LayoutNotPortedError``, which the CLI reports
-with exit 101. ``SMAFA_TPU_HBM_BYTES`` overrides the card's memory, as
+``stream`` (in a multi-process run a forced ``stream`` scans the whole
+db on every rank); ``ring`` and ``col`` (``smafa_tpu``'s other
+multi-device layouts) are not ported and raise ``LayoutNotPortedError``,
+which the CLI reports with exit 101. ``SMAFA_TPU_HBM_BYTES`` overrides the card's memory, as
 it does in ``smafa_tpu``.
 """
 
@@ -38,6 +45,7 @@ import torch
 
 from smafa_tpu_torch.ops import distance as D
 from smafa_tpu_torch.ops import keys as K
+from smafa_tpu_torch.parallel import multihost
 from smafa_tpu_torch.parallel.runner import KeyPackingError, ScanRunner
 
 logger = logging.getLogger("smafa")
@@ -45,6 +53,10 @@ logger = logging.getLogger("smafa")
 # Stream the db when its resident form needs more than this fraction of
 # the card's memory (programs need working space beside it).
 HBM_FRACTION = 0.75
+
+# smafa_tpu.parallel.select.COL_SEQ_THRESHOLD: where it takes the
+# column-sharded layout on more than one device
+COL_SEQ_THRESHOLD = 8192
 
 
 class LayoutNotPortedError(ValueError):
@@ -72,10 +84,12 @@ def resident_row_bytes(seq_len: int) -> int:
     return D.embed_width(seq_len) + seq_len + 4
 
 
-def choose_layout(n_windows: int, seq_len: int, device: torch.device) -> str:
+def choose_layout(n_windows: int, seq_len: int, device: torch.device,
+                  one_device: bool = False) -> str:
     """``sharded`` or ``stream`` for a db of ``n_windows`` windows of
-    length ``seq_len`` on ``device`` (``smafa_tpu.parallel.select``'s
-    rule on one device)."""
+    length ``seq_len`` on ``device``: ``smafa_tpu.parallel.select``'s
+    rule, ``sharded`` in a multi-process run, else (or with
+    ``one_device``, for a rank's own shard) the one-device rule."""
     env = os.environ.get("SMAFA_TPU_LAYOUT", "auto").lower()
     if env in ("ring", "col"):
         raise LayoutNotPortedError(env)
@@ -84,6 +98,13 @@ def choose_layout(n_windows: int, seq_len: int, device: torch.device) -> str:
     if env not in ("", "auto"):
         raise ValueError(f"SMAFA_TPU_LAYOUT={env!r}: expected auto, "
                          "sharded, ring, col, or stream")
+    if multihost.comm() is not None and not one_device:
+        if seq_len >= COL_SEQ_THRESHOLD and multihost.world_size() > 1:
+            logger.info("windows of %d bp: smafa_tpu takes its column-"
+                        "sharded layout here, which waits for ROADMAP.md "
+                        "queue 1 item 3.4; the sharded layout serves them",
+                        seq_len)
+        return "sharded"
     if K.packing_shift(seq_len, max(2, 2 * n_windows)) is None:
         # Global keys overflow 31 bits; the stream layout packs per slab.
         if K.packing_span(seq_len) is None:
@@ -102,8 +123,21 @@ def choose_layout(n_windows: int, seq_len: int, device: torch.device) -> str:
 
 def make_runner(codes: np.ndarray, seq_len: int, device: torch.device):
     """The chosen layout's runner over the uint8 [W, L] code matrix."""
+    if multihost.comm() is not None and choose_layout(
+            int(codes.shape[0]), seq_len, device) == "sharded":
+        from smafa_tpu_torch.parallel.sharded import ShardedRunner
+
+        logger.debug("db layout: sharded over %d processes (%d windows, "
+                     "length %d)", multihost.world_size(), codes.shape[0],
+                     seq_len)
+        return ShardedRunner(codes, seq_len, device)
+    return one_device_runner(codes, seq_len, device)
+
+
+def one_device_runner(codes: np.ndarray, seq_len: int, device: torch.device):
+    """The one-device rule's runner over the uint8 [W, L] code matrix."""
     n = int(codes.shape[0])
-    layout = choose_layout(n, seq_len, device)
+    layout = choose_layout(n, seq_len, device, one_device=True)
     logger.debug("db layout: %s (%d windows, length %d)",
                  layout, n, seq_len)
     wp = -(-n // D.WP_MULTIPLE) * D.WP_MULTIPLE

@@ -1,7 +1,6 @@
 """End to end on the CPU: smafa_tpu_torch's makedb + best-hit query print
 byte for byte what smafa_tpu's print, on the golden data and on a seeded
-fuzz db with heavy ties; errors keep their texts and exit codes; the
-path not ported yet (multi-host) exits 101 pointing to ROADMAP.md.
+fuzz db with heavy ties; errors keep their texts and exit codes.
 
 The best-hit grid over every golden file is in
 test_torch_query_best_hit_{a,b,c}.py, the CLI's usage, device and
@@ -187,26 +186,6 @@ def test_empty_db(capsys, tmp_path):
     (c0, _, e0), (c1, _, e1) = both(capsys, "query", "-d", str(ws), "-q",
                                     f"{D}/random_3_2.fna", "--quiet")
     assert c0 == c1 == 101 and e0 == e1
-
-
-@pytest.mark.parametrize("argv,what", [
-    (["query", "--coordinator", "localhost:1", "--num-processes", "2",
-      "--process-id", "0"], "Multi-host"),
-])
-def test_not_ported_query_paths(capsys, argv, what):
-    code, out, err = run(capsys, main1, argv[0], "-d",
-                         f"{D}/random_3_2.fna.smafadb", "-q",
-                         f"{D}/random_3_2.fna", *argv[1:])
-    assert code == 101 and out == ""
-    assert what in err and "ROADMAP.md" in err
-
-
-@pytest.mark.parametrize("argv", [
-    ["cluster", "-i", f"{D}/cluster_bug1.fna", "-d", "2", "--coordinator",
-     "localhost:1", "--num-processes", "2", "--process-id", "0"]])
-def test_not_ported_subcommands(capsys, argv):
-    code, out, err = run(capsys, main1, *argv)
-    assert code == 101 and out == "" and "ROADMAP.md" in err
 
 
 def test_help_and_version(capsys):
