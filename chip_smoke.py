@@ -137,6 +137,22 @@ Phases, one line each:
    run: its sha256. Each line logs the walls, stages, reads/s, launches
    and the merges' seconds of every rank; two ranks on one card measure
    contention, not scaling.
+12. layouts: ``query`` through the CLI under SMAFA_TPU_LAYOUT=ring and
+   col, as ranks like phase 11's. (a) the ring (db shards rotate around
+   the ranks) on phase 11 (a)'s db and reads in 2 ranks over gloo: each
+   sha256 equal to phase 11's single-process run, 64 sampled reads a run
+   against the brute force, every rank launching min2 (best-hit),
+   kstats and compact_mask (K-mode) on the shards it holds, with its
+   rotations, bytes rotated and seconds in rotate and in the gathers;
+   then 1 rank on NCCL. (b) 32,768 random windows of 29,903 bp (a
+   SARS-CoV-2 genome's width): best-hit on 4,096 reads at
+   --max-divergence 300 in 2 ranks under col and under sharded, timed
+   side by side (the times behind the auto rule), and K = 99 on 1,024
+   reads in 2 ranks under the auto rule (col), each sha256 equal to the
+   single process's; then col in 1 rank on NCCL. (c) the query smoke's
+   best-hit run in a process of its own, untraced and with
+   SMAFA_TPU_TRACE_DIR set: one torch.profiler trace that names the min2
+   kernel, and the smoke's bytes both times.
 
 After the kernels' build, ``native_build`` builds the native host
 library (g++; a failed build fails the run) and logs g++'s version, the
@@ -1940,10 +1956,12 @@ MP_TIMEOUT = 300      # seconds a rank may take before every rank is killed
 
 
 def rank_worker(out_json: str, argv: list[str]) -> int:
-    """``chip_smoke.py --rank OUT ARGV...``: one rank of phase 11. Runs the
-    CLI on ARGV with the kernels' counts set to 0 just before and read
-    just after, and writes to OUT its exit code, wall, stages, launches,
-    the seconds its merges' collectives took and its layout."""
+    """``chip_smoke.py --rank OUT ARGV...``: one rank of phases 11-12 (or
+    phase 12 (c)'s process without a coordinator). Runs the CLI on ARGV
+    with the kernels' counts set to 0 just before and read just after,
+    and writes to OUT its exit code, wall, stages, launches, the seconds
+    its merges' collectives took, its layout, the ring's rotations and
+    the col layout's columns."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from smafa_tpu_torch import cli
     from smafa_tpu_torch.engine import cluster as cluster_mod, query as query_mod
@@ -1987,7 +2005,12 @@ def rank_worker(out_json: str, argv: list[str]) -> int:
         res.update(layout=type(r).__name__, merge_s=getattr(r, "merge_s", None),
                    local=type(getattr(r, "local", None)).__name__,
                    rows=[getattr(r, "off", 0),
-                         getattr(r, "n_local", r.n_windows)])
+                         getattr(r, "n_local", r.n_windows)],
+                   # the ring's rotations; the col layout's column slice
+                   rotations=getattr(r, "rotations", None),
+                   rotate_bytes=getattr(r, "rotate_bytes", None),
+                   rotate_s=getattr(r, "rotate_s", None),
+                   columns=[getattr(r, "c0", None), getattr(r, "c1", None)])
     if stores:
         res.update(merge_s=stores[0].merge_s, shard_rows=stores[0].shard_rows,
                    sharded=stores[0].comm is not None)
@@ -1996,11 +2019,12 @@ def rank_worker(out_json: str, argv: list[str]) -> int:
     return 0
 
 
-def run_ranks(argv: list[str], tmp: str, n: int = MP_RANKS) -> list[dict]:
-    """The CLI on ``argv`` as n ranks (``rank_worker`` subprocesses) with a
-    coordinator on a free local port: each rank's record and its log's
-    lines about the process group and the layout. Kills every rank when
-    one fails or times out."""
+def run_ranks(argv: list[str], tmp: str, n: int = MP_RANKS,
+              env: dict | None = None) -> list[dict]:
+    """The CLI on ``argv`` as n ranks (``rank_worker`` subprocesses, with
+    ``env`` added to their environment) with a coordinator on a free
+    local port: each rank's record and its log's lines about the process
+    group and the layout. Kills every rank when one fails or times out."""
     import socket
 
     with socket.socket() as s:
@@ -2015,7 +2039,8 @@ def run_ranks(argv: list[str], tmp: str, n: int = MP_RANKS) -> list[dict]:
                 [sys.executable, os.path.abspath(__file__), "--rank", out,
                  *argv, "--coordinator", f"127.0.0.1:{port}",
                  "--num-processes", str(n), "--process-id", str(r)],
-                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+                env={**os.environ, **(env or {})}))
         errs = [p.communicate(timeout=MP_TIMEOUT)[1] for p in procs]
     finally:
         for p in procs:
@@ -2041,7 +2066,7 @@ def run_ranks(argv: list[str], tmp: str, n: int = MP_RANKS) -> list[dict]:
 
 def multiprocess(sizes, cli, query_mod, cluster_mod, mods: dict, dev,
                  tmp: str, rng, card: str, stream_kept: dict,
-                 cluster_inp: str) -> None:
+                 cluster_inp: str) -> dict:
     """Phase 11: ``query`` and ``cluster`` through the CLI as 2 ranks on
     the card (gloo), each rank holding one row shard. (a) BASELINE config
     5 cut to one card: 10,000,000 windows of 60 bp in the native format
@@ -2052,7 +2077,8 @@ def multiprocess(sizes, cli, query_mod, cluster_mod, mods: dict, dev,
     db in 2 ranks (global keys overflow, each shard packs alone): the
     best-hit sha256 equal to phase 8's. (c) cluster 1M in 2 ranks:
     phase 5's sha256 and centroid count. (d) one rank with a coordinator,
-    which takes NCCL on the card, on (a)'s best-hit run."""
+    which takes NCCL on the card, on (a)'s best-hit run. (a)'s db, codes,
+    reads and single-process sha256s stay for phase 12: returns them."""
     from smafa_tpu_torch.core.windowset import WindowSet
     from smafa_tpu_torch.io import native_format
 
@@ -2063,7 +2089,7 @@ def multiprocess(sizes, cli, query_mod, cluster_mod, mods: dict, dev,
     log("multiprocess", part="a", db_rows=MP_ROWS,
         build_db_s=time.perf_counter() - t0, card=card)
     codes_t = torch.from_numpy(codes).to(dev).T.contiguous()
-    best_run = None
+    kept = {"db": db, "codes": codes, "runs": []}
     for name, nq, flags, k, max_div in (
             ("best", sizes.queries, ["--max-divergence", "5"], None, 5),
             ("kmode", sizes.stream_kmode_queries,
@@ -2113,11 +2139,10 @@ def multiprocess(sizes, cli, query_mod, cluster_mod, mods: dict, dev,
             raise AssertionError(f"multiprocess (a) {name}: {res}")
         os.remove(out)
         os.remove(single)
-        if name == "best":
-            best_run = (q_fa, flags, want_sha)
-        else:
-            os.remove(q_fa)
-    del codes_t, codes
+        kept["runs"].append({"name": name, "q": q, "reads": q_fa,
+                             "flags": flags, "k": k, "max_div": max_div,
+                             "sha256": want_sha})
+    del codes_t
     torch.cuda.empty_cache()
 
     # (b): past the global key budget, each rank's shard alone packs
@@ -2172,7 +2197,8 @@ def multiprocess(sizes, cli, query_mod, cluster_mod, mods: dict, dev,
         raise AssertionError(f"multiprocess (c): {res}")
 
     # (d): one rank with a coordinator: NCCL for the device collectives
-    q_fa, flags, want_sha = best_run
+    best = kept["runs"][0]
+    q_fa, flags, want_sha = best["reads"], best["flags"], best["sha256"]
     out = os.path.join(tmp, "mp_d.tsv")
     runs = run_ranks(["query", "-d", db, "-q", q_fa, *flags, "-o", out,
                       "-v"], tmp, n=1)
@@ -2187,9 +2213,221 @@ def multiprocess(sizes, cli, query_mod, cluster_mod, mods: dict, dev,
     nccl = any("device collectives nccl" in x for x in runs[0]["log"])
     if sha != want_sha or not nccl or runs[0]["launches"]["min2"] <= 0:
         raise AssertionError(f"multiprocess (d): {res}")
-    os.remove(q_fa)
-    os.remove(db)
     log("multiprocess", seconds=time.perf_counter() - t0, card=card)
+    return kept
+
+
+# Phase 12: the ring and column-sharded layouts through the CLI, and the
+# profiler hook.
+COL_ROWS = 32768
+COL_L = 29903   # SARS-CoV-2 genome width (Wuhan-Hu-1, MN908947.3)
+COL_SUBS = 300  # substitutions a read at most
+
+
+def rank_fields(runs: list[dict], nq: int) -> dict:
+    """The ranks' records side by side: walls, reads/s of the slowest,
+    stages, merges, launches, the ring's rotations and the col layout's
+    column slices."""
+    return {"wall_s": [r["wall_s"] for r in runs],
+            "reads_per_s": nq / max(r["wall_s"] for r in runs),
+            "stage_s": [r["stage_s"] for r in runs],
+            "merge_s": [r["merge_s"] for r in runs],
+            "launches": [r["launches"] for r in runs],
+            "runner": [r["layout"] for r in runs],
+            "rows": [r["rows"] for r in runs],
+            "rotations": [r["rotations"] for r in runs],
+            "rotate_bytes": [r["rotate_bytes"] for r in runs],
+            "rotate_s": [r["rotate_s"] for r in runs],
+            "columns": [r["columns"] for r in runs],
+            "log": [line for r in runs for line in r["log"]]}
+
+
+def layouts(sizes, cli, query_mod, mods: dict, dev, tmp: str, rng,
+            card: str, mp_kept: dict, e2e: dict, smoke_db: str) -> None:
+    """Phase 12: ``query`` through the CLI under SMAFA_TPU_LAYOUT=ring and
+    col, as 2 ranks sharing the card over gloo (``run_ranks``) and as 1
+    rank on NCCL. (a) ring on phase 11 (a)'s 10,000,000 x 60 bp db and
+    reads: each sha256 equal to phase 11's single-process run, 64 sampled
+    reads a run equal to the brute force, every rank launching min2
+    (best-hit), kstats and compact_mask (K-mode) and rotating; then 1
+    rank on NCCL, best-hit. (b) col on 32,768 random windows of 29,903 bp
+    (reads 0-300 substitutions off db rows): best-hit on 4,096 reads at
+    --max-divergence 300 and K = 99 on 1,024 reads (the latter under the
+    auto rule, which takes col over 2 processes at this width), each
+    sha256 equal to the single process's (sharded, on the long-route
+    kernels); the best-hit run also in 2 ranks under sharded, timed
+    beside col; then 1 rank on NCCL, best-hit. (c) the query smoke's
+    best-hit run through the CLI in a process of its own, untraced and
+    with SMAFA_TPU_TRACE_DIR set: one trace file, naming the min2
+    kernel, and the smoke's bytes both times."""
+    from smafa_tpu_torch.core.windowset import WindowSet
+    from smafa_tpu_torch.io import native_format
+
+    t0 = time.perf_counter()
+    ring = {"SMAFA_TPU_LAYOUT": "ring"}
+    codes = mp_kept["codes"]
+    codes_t = torch.from_numpy(codes).to(dev).T.contiguous()
+    for run in mp_kept["runs"]:
+        out = os.path.join(tmp, "ring.tsv")
+        runs = run_ranks(["query", "-d", mp_kept["db"], "-q", run["reads"],
+                          *run["flags"], "-o", out, "-v"], tmp, env=ring)
+        sha, lines = file_digest(out)
+        nq = run["q"].shape[0]
+        sample = sorted(rng.choice(nq, size=sizes.stream_sample,
+                                   replace=False).tolist())
+        got = sampled_lines(out, set(sample))
+        want = brute_force_stream(codes, codes_t, run["q"], sample, run["k"],
+                                  run["max_div"])
+        bad = [i for i in sample if got.get(i, []) != want[i]]
+        os.remove(out)
+        res = {"part": "a", "layout": "ring", "run": run["name"],
+               "reads": nq, "db_rows": MP_ROWS, "ranks": MP_RANKS,
+               "hit_lines": lines, "sha256": sha,
+               "sha256_single": run["sha256"],
+               "sha256_equal": sha == run["sha256"],
+               "sampled_exact": len(sample) - len(bad),
+               **rank_fields(runs, nq), "card": card}
+        log("layouts", **res)
+        need = ["min2"] if run["k"] is None else ["kstats", "compact_mask"]
+        if (sha != run["sha256"] or bad
+                or res["runner"] != ["RingRunner"] * MP_RANKS
+                or any(r["launches"][k] <= 0 for r in runs for k in need)
+                or any(r["rotations"] <= 0 for r in runs)):
+            raise AssertionError(f"layouts (a) {run['name']}: {res}")
+    del codes_t
+    torch.cuda.empty_cache()
+    best = mp_kept["runs"][0]
+    out = os.path.join(tmp, "ring1.tsv")
+    runs = run_ranks(["query", "-d", mp_kept["db"], "-q", best["reads"],
+                      *best["flags"], "-o", out, "-v"], tmp, n=1, env=ring)
+    sha, _ = file_digest(out)
+    os.remove(out)
+    res = {"part": "a", "layout": "ring", "run": "best", "ranks": 1,
+           "sha256": sha, "sha256_equal": sha == best["sha256"],
+           **rank_fields(runs, best["q"].shape[0]), "card": card}
+    log("layouts", **res)
+    nccl = any("device collectives nccl" in x for x in res["log"])
+    if (sha != best["sha256"] or not nccl or res["rotations"] != [0]
+            or runs[0]["launches"]["min2"] <= 0):
+        raise AssertionError(f"layouts (a) 1 rank: {res}")
+    for run in mp_kept["runs"]:
+        os.remove(run["reads"])
+    os.remove(mp_kept["db"])
+    mp_kept.clear()
+
+    # (b): long windows, the column-sharded layout against the row shards
+    t1 = time.perf_counter()
+    codes = random_db(rng, COL_ROWS, COL_L)
+    db = os.path.join(tmp, "col.native")
+    native_format.save(WindowSet.from_matrix(codes, 2), db)
+    reads = []
+    for name, nq, flags in (
+            ("best", 4096, ["--max-divergence", str(COL_SUBS)]),
+            ("kmode", 1024, ["--max-num-hits", str(sizes.kmode_k)])):
+        q_fa = os.path.join(tmp, f"col_{name}.fna")
+        write_fasta(q_fa, mutate(rng, codes[rng.integers(0, COL_ROWS, nq)],
+                                 COL_SUBS), "r")
+        reads.append((name, nq, q_fa, flags))
+    del codes
+    log("layouts", part="b", db_rows=COL_ROWS, L=COL_L,
+        build_db_s=time.perf_counter() - t1, card=card)
+    for name, nq, q_fa, flags in reads:
+        argv = ["query", "-d", db, "-q", q_fa, *flags]
+        single = os.path.join(tmp, "col_single.tsv")
+        for mod in mods.values():
+            mod.launches = 0
+        rc, wall1, timers = cli_query(cli, query_mod,
+                                      [*argv, "-o", single, "--quiet"])
+        launches1 = {k: mod.launches for k, mod in mods.items()}
+        want_sha, lines = file_digest(single)
+        os.remove(single)
+        res = {"part": "b", "run": name, "reads": nq, "db_rows": COL_ROWS,
+               "L": COL_L, "ranks": MP_RANKS, "rc": rc, "hit_lines": lines,
+               "sha256_single": want_sha, "single_wall_s": wall1,
+               "single_stage_s": timers.seconds,
+               "single_reads_per_s": nq / wall1,
+               "single_launches": launches1, "card": card}
+        # K-mode under the auto rule, which takes col here
+        for layout in ("col", "sharded") if name == "best" else ("auto",):
+            out = os.path.join(tmp, f"col_{layout}.tsv")
+            runs = run_ranks([*argv, "-o", out, "-v"], tmp,
+                             env={"SMAFA_TPU_LAYOUT": layout})
+            sha, _ = file_digest(out)
+            os.remove(out)
+            res[layout] = {"sha256": sha, "sha256_equal": sha == want_sha,
+                           **rank_fields(runs, nq)}
+        if name == "best":
+            res["col_over_sharded_wall"] = (max(res["col"]["wall_s"])
+                                            / max(res["sharded"]["wall_s"]))
+        log("layouts", **res)
+        runner = {"col": "ColumnShardedRunner", "auto": "ColumnShardedRunner",
+                  "sharded": "ShardedRunner"}
+        if rc != 0 or any(not res[x]["sha256_equal"]
+                          or res[x]["runner"] != [runner[x]] * MP_RANKS
+                          for x in runner if x in res):
+            raise AssertionError(f"layouts (b) {name}: {res}")
+        if name == "best":
+            best = (argv, want_sha, nq)
+    argv, want_sha, nq = best
+    out = os.path.join(tmp, "col1.tsv")
+    runs = run_ranks([*argv, "-o", out, "-v"], tmp, n=1,
+                     env={"SMAFA_TPU_LAYOUT": "col"})
+    sha, _ = file_digest(out)
+    os.remove(out)
+    res = {"part": "b", "layout": "col", "run": "best", "ranks": 1,
+           "sha256": sha, "sha256_equal": sha == want_sha,
+           **rank_fields(runs, nq), "card": card}
+    log("layouts", **res)
+    nccl = any("device collectives nccl" in x for x in res["log"])
+    if sha != want_sha or not nccl:
+        raise AssertionError(f"layouts (b) 1 rank: {res}")
+    for _name, _nq, q_fa, _flags in reads:
+        os.remove(q_fa)
+    os.remove(db)
+
+    # (c): the query smoke traced by torch.profiler, in a process of its
+    # own as a user runs it (in this process, after the profiler sessions
+    # of the earlier phases, one trace held 30 of the run's 62 kernel
+    # events and no min2), beside the same run untraced
+    trace_dir = os.path.join(tmp, "trace")
+    out = os.path.join(tmp, "traced.tsv")
+    want_sha, _ = file_digest(e2e["output"])
+    recs = {}
+    for name, env in (("untraced", {}),
+                      ("traced", {"SMAFA_TPU_TRACE_DIR": trace_dir})):
+        rec = os.path.join(tmp, "traced.json")
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--rank", rec,
+             "query", "-d", smoke_db, "-q", e2e["reads"], "--max-divergence",
+             "5", "-o", out, "--quiet"], capture_output=True, text=True,
+            timeout=MP_TIMEOUT, env={**os.environ, **env})
+        if proc.returncode != 0 or not os.path.exists(rec):
+            raise AssertionError(f"layouts (c) {name}: {proc.stderr[-3000:]}")
+        with open(rec) as f:
+            recs[name] = json.load(f)
+        recs[name]["sha256_equal"] = file_digest(out)[0] == want_sha
+        os.remove(rec)
+        os.remove(out)
+    files = sorted(os.listdir(trace_dir))
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    for rec in recs.values():
+        rec["reads_per_s"] = sizes.queries / rec["wall_s"]
+    res = {"part": "c", **{f"{k}_{x}": recs[k][x] for k in recs
+                           for x in ("rc", "wall_s", "reads_per_s", "stage_s",
+                                     "launches", "sha256_equal")},
+           "trace_files": files,
+           "trace_bytes": os.path.getsize(os.path.join(trace_dir, files[0])),
+           "events": len(events), "kernel_events": len(kernels),
+           "port_kernel_events": {k: sum(k in name for name in kernels)
+                                  for k in ("min2", "compact", "kstats")},
+           "card": card}
+    log("layouts", **res)
+    if (any(r["rc"] != 0 or not r["sha256_equal"] for r in recs.values())
+            or len(files) != 1 or not res["port_kernel_events"]["min2"]):
+        raise AssertionError(f"layouts (c): {res}")
+    log("layouts", seconds=time.perf_counter() - t0, card=card)
 
 
 def main() -> int:
@@ -2284,10 +2522,12 @@ def main() -> int:
         cluster_spans(sizes, cli, cluster_mod, mc_mod, D, K, min2_mod, clu,
                       cluster_inp, dev, tmp, np.random.default_rng([seed, 12]),
                       card)
-        multiprocess(sizes, cli, query_mod, cluster_mod,
-                     {**stream_mods, "min_count": mc_mod}, dev, tmp,
-                     np.random.default_rng([seed, 13]), card, stream_kept,
-                     cluster_inp)
+        mp_kept = multiprocess(sizes, cli, query_mod, cluster_mod,
+                               {**stream_mods, "min_count": mc_mod}, dev, tmp,
+                               np.random.default_rng([seed, 13]), card,
+                               stream_kept, cluster_inp)
+        layouts(sizes, cli, query_mod, stream_mods, dev, tmp,
+                np.random.default_rng([seed, 14]), card, mp_kept, e2e, db)
 
     launches = {"min2": e2e["launches"]["min2"],
                 "compact_mask": e2e["launches"]["compact_mask"],

@@ -27,7 +27,8 @@ from a decoded blob, else, under ``SMAFA_TPU_NO_NATIVE=1``, in Python;
 the ``--limit-per-sequence`` rows stay in Python, as in ``smafa_tpu``.
 
 ``resume_state`` checkpoints the query stream after each emitted batch
-(``_ResumeState``).
+(``_ResumeState``). With ``SMAFA_TPU_TRACE_DIR`` set the batch loop runs
+under ``torch.profiler`` (``utils.profiling.maybe_trace``).
 
 In a multi-process run (``parallel.multihost``) every process runs this
 loop in lockstep over its row shard of the db (``parallel.sharded``):
@@ -55,7 +56,7 @@ from smafa_tpu_torch.core import alphabet
 from smafa_tpu_torch.io.db import load_db
 from smafa_tpu_torch.io.fastx import read_encoded_batches
 from smafa_tpu_torch.parallel import multihost
-from smafa_tpu_torch.utils.profiling import StageTimers
+from smafa_tpu_torch.utils.profiling import StageTimers, maybe_trace
 
 logger = logging.getLogger("smafa")
 
@@ -167,6 +168,20 @@ def query(
     state.restore_output(out)
     if state.done:
         logger.info("Resuming after %d completed queries", state.done)
+    with maybe_trace(cuda=device.type == "cuda", rank=(
+            multihost.rank() if multihost.world_size() > 1 else None)):
+        _scan_stream(out, db, query_fasta, batch_size, state, k_mode,
+                     max_divergence, limit_per_sequence, timers)
+    timers.log_report(logging.DEBUG)
+    logger.info("Querying complete, took %d seconds", int(time.time() - t0))
+    return timers
+
+
+def _scan_stream(out, db, query_fasta, batch_size, state, k_mode,
+                 max_divergence, limit_per_sequence, timers):
+    """Parse, launch, resolve and emit every batch of the query
+    stream, one batch in flight."""
+    windows = db.windows
     pending: tuple | None = None  # (qnum0, nq, codes, handle)
     query_number = state.done
     batches = None
@@ -221,9 +236,6 @@ def query(
         pending = current
         if current is None:
             break
-    timers.log_report(logging.DEBUG)
-    logger.info("Querying complete, took %d seconds", int(time.time() - t0))
-    return timers
 
 
 def _drain_batch(out, db, pending, k_mode, max_divergence,

@@ -73,15 +73,25 @@ def embed_db(codes: torch.Tensor, seq_len: int,
              wp: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The db twin the kernels scan: [n, L] codes -> (int8 [wp, EP],
     int32 [wp]) with rows n..wp-1 poisoned to distance L + 1."""
-    n = codes.shape[0]
-    emb = torch.zeros((wp, embed_width(seq_len)), dtype=torch.int8,
+    emb = torch.empty((wp, embed_width(seq_len)), dtype=torch.int8,
                       device=codes.device)
-    zc = torch.full((wp,), -1, dtype=torch.int32, device=codes.device)
+    zc = torch.empty((wp,), dtype=torch.int32, device=codes.device)
+    embed_db_into(codes, seq_len, emb, zc)
+    return emb, zc
+
+
+def embed_db_into(codes: torch.Tensor, seq_len: int, emb: torch.Tensor,
+                  zc: torch.Tensor) -> None:
+    """``embed_db`` into a twin allocated before (int8 [wp, EP], int32
+    [wp], on the codes' device): [n, L] codes, n <= wp, fill rows 0..n-1
+    and poison rows n..wp-1 to distance L + 1."""
+    n = codes.shape[0]
     for off in range(0, n, CHUNK * 16):  # bound the one-hot temporaries
         e, z = expand_embed_db(codes[off:off + CHUNK * 16], seq_len)
         emb[off:off + e.shape[0]] = e
         zc[off:off + e.shape[0]] = z
-    return emb, zc
+    emb[n:].zero_()
+    zc[n:] = -1
 
 
 def distances(q_f: torch.Tensor, d_emb: torch.Tensor, zc: torch.Tensor,

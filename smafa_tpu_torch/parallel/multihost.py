@@ -72,11 +72,12 @@ def initialize(coordinator: str | None, num_processes: int | None,
     dist.init_process_group("gloo", init_method=f"tcp://{coordinator}",
                             world_size=size, rank=rank, timeout=TIMEOUT)
     world = dist.group.WORLD
-    nccl = False
+    nccl, card_ranks = False, 1
     if device.type == "cuda":
         seats = [None] * size
         dist.all_gather_object(seats, (socket.gethostname(), device.index))
         nccl = len(set(seats)) == size
+        card_ranks = seats.count(seats[rank])
     device_group = world
     if nccl:
         device_group = dist.new_group(backend="nccl", timeout=TIMEOUT)
@@ -86,7 +87,7 @@ def initialize(coordinator: str | None, num_processes: int | None,
         if int(probe.item()) != size:
             raise RuntimeError(f"NCCL all_reduce gave {int(probe.item())}, "
                                f"expected {size}")
-    _COMM = Comm(rank, size, device_group, world, nccl)
+    _COMM = Comm(rank, size, device_group, world, nccl, card_ranks)
     logger.info("distributed: rank %d of %d on %s, device collectives %s, "
                 "host exchanges gloo", rank, size, device,
                 "nccl" if nccl else "gloo")

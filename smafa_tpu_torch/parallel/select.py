@@ -4,11 +4,15 @@ Counterpart of ``smafa_tpu.parallel.select`` (``choose_layout`` /
 ``make_runner``). In a multi-process run (``parallel.multihost``) the
 layout is ``sharded``: ``parallel.sharded.ShardedRunner`` shards the
 db's rows over the ranks, and each rank serves its shard by the
-one-device rule below. ``smafa_tpu`` picks its column-sharded layout
-there at windows of ``COL_SEQ_THRESHOLD`` bp or more; the port has no
-``col`` yet and keeps ``sharded`` (same output; ROADMAP.md, queue 1
-item 3.4). On one device two layouts serve the same exact hit-mode
-contract (``parallel.hitops.HitModesMixin``):
+one-device rule below. At windows of ``SMAFA_TPU_COL_SEQ_THRESHOLD``
+(default ``COL_SEQ_THRESHOLD``) bp or more over more than one process
+it is ``col``, as in ``smafa_tpu``, while the col layout's ranks on a
+card fit it (``col_bytes``). The rule rests on one measurement, two
+ranks sharing one H100 over gloo, where ``col`` ran 29,903 bp windows
+in about half the time of ``sharded`` (ROADMAP.md, queue 3); one card a
+rank over NCCL is not measured yet. On one device two layouts
+serve the same exact hit-mode contract
+(``parallel.hitops.HitModesMixin``):
 
 - ``sharded``: ``parallel.runner.ScanRunner``, the db resident on the
   card as codes and embedded twin, global packed keys
@@ -27,12 +31,15 @@ that case as well, with the same output; a forced ``sharded`` past the
 global budget also streams. Only windows of 2^25 - 1 bp or more, where
 not even a 64-row tile packs, raise ``KeyPackingError``.
 
-``SMAFA_TPU_LAYOUT`` is ``auto`` (the default), ``sharded`` or
-``stream`` (in a multi-process run a forced ``stream`` scans the whole
-db on every rank); ``ring`` and ``col`` (``smafa_tpu``'s other
-multi-device layouts) are not ported and raise ``LayoutNotPortedError``,
-which the CLI reports with exit 101. ``SMAFA_TPU_HBM_BYTES`` overrides the card's memory, as
-it does in ``smafa_tpu``.
+``SMAFA_TPU_LAYOUT`` is ``auto`` (the default), ``sharded``, ``stream``
+(in a multi-process run a forced ``stream`` scans the whole db on every
+rank), ``ring`` (``parallel.ring.RingRunner``: db shards rotate around
+the ranks) or ``col`` (``parallel.seqpar.ColumnShardedRunner``: each
+rank holds a column slice of every row). A forced ``ring`` or ``col``
+runs over the run's processes, or in a single-process run over one rank
+(``comm.LocalComm``), as ``smafa_tpu`` builds them over a one-device
+mesh. ``SMAFA_TPU_HBM_BYTES`` overrides the card's memory, as it does in
+``smafa_tpu``.
 """
 
 from __future__ import annotations
@@ -59,13 +66,6 @@ HBM_FRACTION = 0.75
 COL_SEQ_THRESHOLD = 8192
 
 
-class LayoutNotPortedError(ValueError):
-    def __init__(self, layout: str):
-        super().__init__(f"SMAFA_TPU_LAYOUT={layout} is not ported to "
-                         "smafa_tpu_torch yet (see ROADMAP.md); use "
-                         "smafa_tpu for it")
-
-
 def hbm_capacity(device: torch.device) -> int | None:
     """The card's memory in bytes: ``SMAFA_TPU_HBM_BYTES`` if set, else
     ``torch.cuda.mem_get_info``'s total for a CUDA device, else None."""
@@ -84,26 +84,43 @@ def resident_row_bytes(seq_len: int) -> int:
     return D.embed_width(seq_len) + seq_len + 4
 
 
+def col_bytes(n_windows: int, seq_len: int, size: int) -> int:
+    """Device bytes a rank of the col layout over ``size`` ranks takes:
+    its column slice of every row's twin and every row's zc, and the
+    [B, chunk] int32 blocks of two sweeps in flight (a batch's first pass
+    beside the compaction of the batch before), four a sweep: the
+    partial product, its sum over the ranks (or, under gloo, its copy
+    back from the pinned staging), the distances and a fold's
+    temporary, ``seqpar.BLOCK_BYTES`` each."""
+    from smafa_tpu_torch.parallel.seqpar import BLOCK_BYTES, column_slice
+
+    c0, c1 = column_slice(seq_len, 0, size)
+    return n_windows * (c1 - c0 + 4) + 2 * 4 * BLOCK_BYTES
+
+
 def choose_layout(n_windows: int, seq_len: int, device: torch.device,
                   one_device: bool = False) -> str:
-    """``sharded`` or ``stream`` for a db of ``n_windows`` windows of
-    length ``seq_len`` on ``device``: ``smafa_tpu.parallel.select``'s
-    rule, ``sharded`` in a multi-process run, else (or with
-    ``one_device``, for a rank's own shard) the one-device rule."""
+    """The layout of a db of ``n_windows`` windows of length ``seq_len``
+    on ``device``: the forced one, else ``smafa_tpu.parallel.select``'s
+    rule: in a multi-process run ``col`` at long windows (see the module
+    docstring), else ``sharded``; else (or with ``one_device``, for a
+    rank's own shard) the one-device rule, ``sharded`` or ``stream``."""
     env = os.environ.get("SMAFA_TPU_LAYOUT", "auto").lower()
-    if env in ("ring", "col"):
-        raise LayoutNotPortedError(env)
-    if env in ("sharded", "stream"):
+    if env in ("sharded", "stream", "ring", "col"):
         return env
     if env not in ("", "auto"):
         raise ValueError(f"SMAFA_TPU_LAYOUT={env!r}: expected auto, "
                          "sharded, ring, col, or stream")
-    if multihost.comm() is not None and not one_device:
-        if seq_len >= COL_SEQ_THRESHOLD and multihost.world_size() > 1:
-            logger.info("windows of %d bp: smafa_tpu takes its column-"
-                        "sharded layout here, which waits for ROADMAP.md "
-                        "queue 1 item 3.4; the sharded layout serves them",
-                        seq_len)
+    comm = multihost.comm()
+    if comm is not None and not one_device:
+        threshold = int(os.environ.get("SMAFA_TPU_COL_SEQ_THRESHOLD",
+                                       COL_SEQ_THRESHOLD))
+        cap = hbm_capacity(device)
+        # every rank on this card holds its own slice and blocks
+        need = comm.card_ranks * col_bytes(n_windows, seq_len, comm.size)
+        if (comm.size > 1 and seq_len >= threshold
+                and (cap is None or need <= HBM_FRACTION * cap)):
+            return "col"
         return "sharded"
     if K.packing_shift(seq_len, max(2, 2 * n_windows)) is None:
         # Global keys overflow 31 bits; the stream layout packs per slab.
@@ -123,8 +140,22 @@ def choose_layout(n_windows: int, seq_len: int, device: torch.device,
 
 def make_runner(codes: np.ndarray, seq_len: int, device: torch.device):
     """The chosen layout's runner over the uint8 [W, L] code matrix."""
-    if multihost.comm() is not None and choose_layout(
-            int(codes.shape[0]), seq_len, device) == "sharded":
+    comm = multihost.comm()
+    layout = choose_layout(int(codes.shape[0]), seq_len, device)
+    if layout in ("ring", "col"):
+        from smafa_tpu_torch.parallel.comm import LocalComm
+
+        if layout == "ring":
+            from smafa_tpu_torch.parallel.ring import RingRunner as runner
+        else:
+            from smafa_tpu_torch.parallel.seqpar import (
+                ColumnShardedRunner as runner)
+        logger.debug("db layout: %s over %d processes (%d windows, length "
+                     "%d)", layout, multihost.world_size(), codes.shape[0],
+                     seq_len)
+        return runner(codes, seq_len, device,
+                      comm=comm if comm is not None else LocalComm())
+    if comm is not None and layout == "sharded":
         from smafa_tpu_torch.parallel.sharded import ShardedRunner
 
         logger.debug("db layout: sharded over %d processes (%d windows, "

@@ -24,9 +24,8 @@ collective in place of the loop over slabs:
 - the K-mode cutoff passes: counts summed and maxima taken over ranks
   (``all_reduce``), between the passes, on the device;
 - compactions: each rank's hits with its offset added, gathered with
-  their lengths, concatenated in rank order and sorted stably by row (by
-  ``row * (L + 1) + dist`` in K-mode), so each row's hits come in index
-  order (in (distance, index) order in K-mode).
+  their lengths and sorted by (row, index), in K-mode by (row, distance,
+  index).
 
 Collectives on CUDA tensors run inside a batch's first pass, on its side
 stream. Under NCCL they queue there and the host does not wait; under
@@ -50,13 +49,53 @@ from smafa_tpu_torch.parallel.runner import DeviceRunner
 logger = logging.getLogger("smafa")
 
 
+def shard_rows(n_windows: int, size: int) -> int:
+    """Rows of a full shard: whole 64-row tiles, as few as cover the db
+    in ``size`` shards."""
+    m = D.WP_MULTIPLE
+    return -(-(-(-n_windows // m)) // size) * m
+
+
 def shard_range(n_windows: int, rank: int, size: int) -> tuple[int, int]:
     """(off, n) of rank's rows: whole 64-row tiles, the same count on every
     rank but the last ones, which may hold fewer rows or none."""
-    m = D.WP_MULTIPLE
-    per = -(-(-(-n_windows // m)) // size) * m
+    per = shard_rows(n_windows, size)
     off = min(rank * per, n_windows)
     return off, min(per, n_windows - off)
+
+
+def merge_groups(comm, timed, groups, local, kmode: bool, seq_len: int,
+                 off: int = 0):
+    """Every rank's compaction results, per group: ``local`` holds this
+    rank's (rows, idx[, dist], counts) per group (None: nothing on this
+    rank), its indices ``off`` below the global ones. The hit columns are
+    gathered with their lengths (``timed(fn, *args)`` runs each
+    collective) and sorted by (group, row, index), in K-mode by (group,
+    row * (L + 1) + dist, index), whatever order each rank's list is in;
+    the counts are summed. Returns per group (rows, idx[, dist],
+    counts), the columns int32."""
+    if local is None:
+        e = np.empty(0, np.int32)
+        local = [(e,) * (2 + kmode) + (np.zeros(len(ids), np.int64),)
+                 for ids, _ in groups]
+    cols = [np.concatenate([np.full(len(p[0]), g)
+                            for g, p in enumerate(local)])]
+    cols += [np.concatenate([p[c] for p in local]).astype(np.int64)
+             for c in range(len(local[0]) - 1)]
+    cols[2] += off
+    mine = torch.from_numpy(np.stack(cols, axis=1))
+    hits = torch.cat(timed(comm.gather_var, mine)).numpy()
+    key = hits[:, 1]
+    if kmode:
+        key = key * (seq_len + 1) + hits[:, 3]
+    hits = hits[np.lexsort((hits[:, 2], key, hits[:, 0]))]
+    counts = torch.from_numpy(np.concatenate(
+        [np.asarray(p[-1], np.int64) for p in local]))
+    counts = timed(comm.all_reduce, counts, "sum").numpy()
+    counts = np.split(counts, np.cumsum([len(ids) for ids, _ in groups])[:-1])
+    edges = np.cumsum([c.sum() for c in counts])[:-1]
+    return [(*h[:, 1:].T.astype(np.int32), c)
+            for h, c in zip(np.split(hits, edges), counts)]
 
 
 class ShardedRunner(DeviceRunner):
@@ -147,38 +186,6 @@ class ShardedRunner(DeviceRunner):
         return (self._timed(self.comm.all_reduce, cnt, "sum"),
                 self._timed(self.comm.all_reduce, mx, "max"))
 
-    def _merge_groups(self, groups, local, kmode: bool):
-        """Every rank's compaction results, per group: ``local`` holds this
-        rank's (rows, idx[, dist], counts) per group (None: an empty
-        shard). The hit columns are gathered with their lengths,
-        concatenated in rank order (ascending offset, so global index
-        order) and sorted stably by (group, row), in K-mode by (group,
-        row * (L + 1) + dist); the counts are summed. Returns per group
-        (rows, idx[, dist], counts), the columns int32."""
-        if local is None:
-            e = np.empty(0, np.int32)
-            local = [(e,) * (2 + kmode) + (np.zeros(len(ids), np.int64),)
-                     for ids, _ in groups]
-        cols = [np.concatenate([np.full(len(p[0]), g)
-                                for g, p in enumerate(local)])]
-        cols += [np.concatenate([p[c] for p in local]).astype(np.int64)
-                 for c in range(len(local[0]) - 1)]
-        cols[2] += self.off
-        mine = torch.from_numpy(np.stack(cols, axis=1))
-        hits = torch.cat(self._timed(self.comm.gather_var, mine)).numpy()
-        key = hits[:, 1]
-        if kmode:
-            key = key * (self.seq_len + 1) + hits[:, 3]
-        hits = hits[np.lexsort((key, hits[:, 0]))]
-        counts = torch.from_numpy(np.concatenate(
-            [np.asarray(p[-1], np.int64) for p in local]))
-        counts = self._timed(self.comm.all_reduce, counts, "sum").numpy()
-        counts = np.split(counts, np.cumsum([len(ids) for ids, _ in
-                                             groups])[:-1])
-        edges = np.cumsum([c.sum() for c in counts])[:-1]
-        return [(*h[:, 1:].T.astype(np.int32), c)
-                for h, c in zip(np.split(hits, edges), counts)]
-
     def _compact_groups(self, q_emb: torch.Tensor, groups):
         """Every best-hit compaction dispatch of a batch on every rank's
         shard: per group, (rows, idx) in (row, index) order and the per-row
@@ -187,7 +194,8 @@ class ShardedRunner(DeviceRunner):
             return []
         local = (None if self.local is None
                  else self.local._compact_groups(q_emb, groups))
-        return self._merge_groups(groups, local, kmode=False)
+        return merge_groups(self.comm, self._timed, groups, local,
+                            False, self.seq_len, self.off)
 
     def _compactd_groups(self, q_padded: np.ndarray, q_emb: torch.Tensor,
                          groups):
@@ -198,4 +206,5 @@ class ShardedRunner(DeviceRunner):
             return []
         local = (None if self.local is None else
                  self.local._compactd_groups(q_padded, q_emb, groups))
-        return self._merge_groups(groups, local, kmode=True)
+        return merge_groups(self.comm, self._timed, groups, local, True,
+                            self.seq_len, self.off)

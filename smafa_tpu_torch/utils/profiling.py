@@ -1,14 +1,23 @@
-"""Per-stage wall-time timers and throughput counters — ``StageTimers``
-from ``smafa_tpu.utils.profiling``. The profiler-trace hook of the JAX
-package (``maybe_trace``) is not ported yet (ROADMAP.md queue 1).
+"""Per-stage wall-time timers, throughput counters and the profiler hook
+of ``smafa_tpu.utils.profiling``:
 
-The hot loop cost is two ``perf_counter`` calls per stage.
+- ``StageTimers``: per-stage cumulative timers and counters; the hot
+  loop cost is two ``perf_counter`` calls per stage;
+- ``maybe_trace``: with ``SMAFA_TPU_TRACE_DIR`` set, the block runs
+  under ``torch.profiler`` (CPU activity, and CUDA activity on a card)
+  and its Chrome trace is written into that directory, viewable in
+  Perfetto or ``chrome://tracing``; without it, the hook does nothing.
+  On a card it warns when the trace holds fewer kernel events of one of
+  the port's kernels than its wrapper launched in the block, or no
+  kernel at all: one trace taken late in a long-running process lost
+  half its kernel events, cause not found (ROADMAP.md, queue 3).
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import time
 
 logger = logging.getLogger("smafa")
@@ -51,3 +60,62 @@ class StageTimers:
                 "Scanned %.3g query x window comparisons (%.3g/s overall, %.3g/s in-scan)",
                 comps, comps / total, comps / scan_s,
             )
+
+
+@contextlib.contextmanager
+def maybe_trace(cuda: bool = False, rank: int | None = None):
+    """torch.profiler trace of the block into ``SMAFA_TPU_TRACE_DIR`` when
+    it is set, else no-op: CPU activity, with ``cuda`` also the card's.
+    The trace file, ``smafa-<pid>.pt.trace.json``, names ``rank`` when
+    given (a multi-process run: ``smafa-rank<r>-<pid>.pt.trace.json``)."""
+    trace_dir = os.environ.get("SMAFA_TPU_TRACE_DIR")
+    if not trace_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    tag = "" if rank is None else f"rank{rank}-"
+    path = os.path.join(trace_dir, f"smafa-{tag}{os.getpid()}.pt.trace.json")
+    os.makedirs(trace_dir, exist_ok=True)
+    logger.info("Writing torch.profiler trace to %s", path)
+    before = _launches() if cuda else {}
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(path)
+    if cuda:
+        lost = lost_kernel_events(prof, {
+            k: n - before[k] for k, n in _launches().items()})
+        if lost:
+            logger.warning("torch.profiler trace %s lost kernel events "
+                           "(kernel: events in the trace / launches): %s",
+                           path, lost)
+
+
+def _launches() -> dict[str, int]:
+    """Launches so far of each of the port's kernels, by the name its
+    CUDA kernels share."""
+    from smafa_tpu_torch.ops import compact, kstats, min2, min_count
+
+    return {"min2": min2.launches, "compact": compact.launches,
+            "kstats": kstats.launches, "min_count": min_count.launches}
+
+
+def lost_kernel_events(prof, launched: dict[str, int]) -> dict:
+    """{name: (events, launches)} for each kernel name whose device events
+    in the profile ``prof`` are fewer than ``launched[name]`` (a launch
+    runs one kernel named ``<name>_...`` or more, in the anonymous
+    namespace of its source), and {"any kernel": (0, 1)} when the
+    profile holds no device event at all."""
+    from torch.autograd import DeviceType
+
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    lost = {k: (sum(f"::{k}_" in x for x in names), n)
+            for k, n in launched.items()}
+    lost = {k: v for k, v in lost.items() if v[0] < v[1]}
+    if not names:
+        lost["any kernel"] = (0, 1)
+    return lost

@@ -174,11 +174,13 @@ def test_multihost_cluster_argv(capsys, argv):
 
 
 def test_new_modules_load_no_jax():
-    """In a fresh interpreter: the multi-process modules import neither
-    jax nor smafa_tpu."""
+    """In a fresh interpreter: the multi-process modules (the ring and
+    column layouts too) import neither jax nor smafa_tpu."""
     code = ("import sys, smafa_tpu_torch.parallel.multihost, "
             "smafa_tpu_torch.parallel.comm, smafa_tpu_torch.parallel.sharded, "
-            "smafa_tpu_torch.parallel.querysplit; "
+            "smafa_tpu_torch.parallel.querysplit, "
+            "smafa_tpu_torch.parallel.ring, smafa_tpu_torch.parallel.seqpar, "
+            "smafa_tpu_torch.utils.profiling; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'triton', 'smafa_tpu')); print(bad)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -1,8 +1,9 @@
 """The port's CLI on the CPU: usage errors exit 2; SMAFA_TPU_TORCH_DEVICE
 picks the device and never falls back from cuda to the CPU; a CPU query
-launches no kernel; the runner equals smafa_tpu's; key overflow names
-ROADMAP.md; importing the port (cluster included) loads neither jax nor
-triton."""
+launches no kernel; SMAFA_TPU_TRACE_DIR writes a torch.profiler trace,
+and unset starts no profiler; the runner equals smafa_tpu's; key
+overflow names ROADMAP.md; importing the port (cluster included) loads
+neither jax nor triton."""
 
 from __future__ import annotations
 
@@ -63,6 +64,70 @@ def test_cpu_query_launches_no_kernel(capsys):
                      f"{D}/random_3_2.fna")
     assert code == 0
     assert min2.launches == 0 and compact.launches == 0
+
+
+@pytest.mark.parametrize("traced", [True, False])
+def test_trace_dir(capsys, tmp_path, monkeypatch, traced):
+    """With SMAFA_TPU_TRACE_DIR, query runs under torch.profiler (CPU
+    activity here) and writes its Chrome trace there; without it the
+    profiler never starts. The output is the same."""
+    import json
+
+    from torch import profiler
+
+    started = []
+    real = profiler.profile
+    monkeypatch.setattr(profiler, "profile",
+                        lambda *a, **kw: started.append(kw) or real(*a, **kw))
+    trace = tmp_path / "trace"
+    if traced:
+        monkeypatch.setenv("SMAFA_TPU_TRACE_DIR", str(trace))
+    else:
+        monkeypatch.delenv("SMAFA_TPU_TRACE_DIR", raising=False)
+    code, out, _ = run(capsys, main1, "query", "-d",
+                       f"{D}/random_3_2.fna.smafadb", "-q",
+                       f"{D}/random_3_2.fna")
+    assert code == 0 and out == "0\t0\t0\tCTT\n1\t1\t0\tAGG\n"
+    if not traced:
+        assert started == [] and not trace.exists()
+        return
+    assert [kw["activities"] for kw in started] == [
+        [profiler.ProfilerActivity.CPU]]
+    (path,) = trace.iterdir()
+    assert path.name.endswith(".pt.trace.json") and "rank" not in path.name
+    events = json.loads(path.read_text())["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
+
+
+@pytest.mark.parametrize("names,lost", [
+    (["(anonymous namespace)::min2_split_kernel(signed char const*)",
+      "(anonymous namespace)::min2_merge_kernel(int const*)",
+      "(anonymous namespace)::compact_split_kernel(signed char const*)"],
+     {"min2": (2, 3)}),
+    ([], {"min2": (0, 3), "compact": (0, 1), "any kernel": (0, 1)}),
+    (["(anonymous namespace)::min2_long_kernel<true>(signed char const*)"] * 3
+     + ["(anonymous namespace)::compact_long_kernel(signed char const*)",
+        "void at::native::vectorized_elementwise_kernel<4>()"], {})])
+def test_lost_kernel_events(names, lost):
+    """maybe_trace's check on a card: the port's kernels whose device
+    events in the profile are fewer than their wrappers' launches, and a
+    profile without any device event; host events do not count."""
+    import types
+
+    from torch.autograd import DeviceType
+
+    from smafa_tpu_torch.utils.profiling import lost_kernel_events
+
+    def event(name, dev):
+        return types.SimpleNamespace(name=lambda: name,
+                                     device_type=lambda: dev)
+
+    events = ([event(x, DeviceType.CUDA) for x in names]
+              + [event("aten::min2_split_kernel", DeviceType.CPU)])
+    prof = types.SimpleNamespace(profiler=types.SimpleNamespace(
+        kineto_results=types.SimpleNamespace(events=lambda: events)))
+    assert lost_kernel_events(prof, {"min2": 3, "compact": 1, "kstats": 0,
+                                     "min_count": 0}) == lost
 
 
 def test_runner_from_codes_matches_scan_runner():

@@ -5,7 +5,8 @@ threads over ``ThreadComm`` (a barrier exchanger in place of
 ``parallel.comm.Comm``, as tests/test_querysplit.py's ``_FakeCluster``
 stands in for process_allgather), yields the single stream's batches
 byte for byte, with the deferred errors' order and texts and the
-resume skips. ``ThreadComm`` also serves tests/test_torch_sharded.py."""
+resume skips. ``ThreadComm`` also serves tests/test_torch_sharded.py,
+tests/test_torch_ring.py and tests/test_torch_col.py."""
 
 from __future__ import annotations
 
@@ -55,6 +56,9 @@ class ThreadComm:
 
     def gather_var(self, t):
         return self._exchange(t)
+
+    def rotate(self, t):
+        return self._exchange(t)[(self.rank - 1) % self.size]
 
 
 class ThreadCluster:

@@ -1,8 +1,7 @@
 """The port's layout choice on one device (smafa_tpu_torch.parallel.select),
 mirroring smafa_tpu.parallel.select's one-device rule: past the global
 31-bit key budget, or past HBM_FRACTION of the card's memory, the stream
-layout; SMAFA_TPU_LAYOUT forces sharded or stream; ring and col are not
-ported; long windows past the global budget (smafa_tpu's top-M case)
+layout; SMAFA_TPU_LAYOUT forces sharded, stream, ring or col; long windows past the global budget (smafa_tpu's top-M case)
 stream too, and only windows of 2^25 - 1 bp or more raise
 KeyPackingError. Also a 40M-row db whose rows are never read builds a
 SlabStreamRunner, and the query batch of a stream runner is 65,536.
@@ -72,11 +71,20 @@ def test_forced_layouts(select, monkeypatch, env, layout):
 
 
 @pytest.mark.parametrize("env", ["ring", "col"])
-def test_ring_and_col_not_ported(select, monkeypatch, env):
-    monkeypatch.setenv("SMAFA_TPU_LAYOUT", env)
-    with pytest.raises(select.mod.LayoutNotPortedError,
-                       match=f"SMAFA_TPU_LAYOUT={env} is not ported.*ROADMAP"):
-        select.mod.choose_layout(1000, 60, select.cpu)
+def test_forced_ring_and_col_build(select, monkeypatch, env):
+    """Once refused, ring and col are ported: forced, choose_layout
+    returns them, and make_runner builds their runner over one rank in
+    a single-process run."""
+    from smafa_tpu_torch.parallel.ring import RingRunner
+    from smafa_tpu_torch.parallel.seqpar import ColumnShardedRunner
+
+    monkeypatch.setenv("SMAFA_TPU_LAYOUT", env.upper())
+    assert select.mod.choose_layout(1000, 60, select.cpu) == env
+    assert select.mod.choose_layout(2**30, 150, select.cpu) == env
+    codes = np.random.default_rng(0).integers(0, 4, (300, 20)).astype(np.uint8)
+    r = select.mod.make_runner(codes, 20, select.cpu)
+    assert type(r) is {"ring": RingRunner, "col": ColumnShardedRunner}[env]
+    assert r.comm.size == 1
 
 
 def test_bad_layout_raises(select, monkeypatch):

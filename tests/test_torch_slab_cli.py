@@ -185,17 +185,18 @@ def test_cli_subprocess_stream(capsys, tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("layout", ["ring", "col", "diagonal"])
-def test_layout_errors_exit_101(capsys, monkeypatch, layout):
-    """ring and col are smafa_tpu's and not ported; a value neither
-    package knows fails in both with the same message."""
+def test_forced_layout_cli(capsys, monkeypatch, layout):
+    """ring and col, which exited 101 before they were ported, print
+    smafa_tpu's bytes under the same layout; a value neither package
+    knows fails in both with exit 101 and the same message."""
     monkeypatch.setenv("SMAFA_TPU_LAYOUT", layout)
     argv = ["query", "-d", f"{D}/random_3_2.fna.smafadb", "-q",
             f"{D}/random_3_2.fna"]
     code, out, err = run(capsys, main1, *argv)
-    assert code == 101 and out == ""
+    code0, out0, err0 = run(capsys, main0, *argv)
     if layout == "diagonal":
-        code0, _, err0 = run(capsys, main0, *argv)
-        assert code0 == 101
+        assert code == code0 == 101 and out == ""
         assert err.strip().splitlines()[-1] == err0.strip().splitlines()[-1]
     else:
-        assert f"SMAFA_TPU_LAYOUT={layout} is not ported" in err
+        assert code == code0 == 0, err
+        assert out == out0 == "0\t0\t0\tCTT\n1\t1\t0\tAGG\n"

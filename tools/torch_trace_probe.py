@@ -1,0 +1,148 @@
+"""Which kernel events a ``maybe_trace`` trace keeps, on one card, when
+the process has run profiler sessions before.
+
+In one process, on a seeded tie-heavy db (65,536 windows of 60 bp, every
+window one of 8,192 base rows) and three batches of 2,048 reads, each
+scenario runs under ``smafa_tpu_torch.utils.profiling.maybe_trace``
+(``SMAFA_TPU_TRACE_DIR`` set to a temporary directory) and reads its
+Chrome trace back:
+
+- ``pipelined`` (run first, then again): best-hit through ``ScanRunner``
+  with one batch in flight, as the query engine runs it: min2 on the
+  runner's side stream, compact_mask on the current stream;
+- ``min2_current`` / ``min2_side``: the min2 wrapper called directly,
+  three times, on the current stream / inside ``torch.cuda.stream`` of a
+  new stream;
+- ``pipelined_after_cuda_only``: ``pipelined`` after a
+  ``torch.profiler.profile`` session with CUDA activity only (as
+  chip_smoke.py's ``device_ms`` takes them).
+
+Prints one JSON line a scenario: the port's launches in the block, the
+trace's kernel events of each port kernel and in all, the kernel events
+per stream, and the warning ``maybe_trace`` logged (null if none); then
+the card's name and power limit. Run from the repository root:
+``python3 tools/torch_trace_probe.py``.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import subprocess
+import sys
+import tempfile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from smafa_tpu_torch.ops import keys as K  # noqa: E402
+from smafa_tpu_torch.ops import min2 as M  # noqa: E402
+from smafa_tpu_torch.parallel.runner import ScanRunner  # noqa: E402
+from smafa_tpu_torch.utils import profiling  # noqa: E402
+
+L, W, B, BATCHES = 60, 1 << 16, 2048, 3
+
+
+class Warnings(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.msgs = []
+
+    def emit(self, record):
+        self.msgs.append(record.getMessage())
+
+
+def data(dev):
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, 4, (W // 8, L), dtype=np.uint8)
+    codes = base[rng.integers(0, W // 8, W)]
+    q = codes[rng.integers(0, W, BATCHES * B)].copy()
+    mut = rng.random(q.shape) < 0.02
+    q[mut] = rng.integers(0, 4, int(mut.sum())).astype(np.uint8)
+    return ScanRunner(codes, L, dev), np.split(q, BATCHES)
+
+
+def pipelined(runner, qs):
+    pending = None
+    for b in [*qs, None]:
+        current = None if b is None else (b, runner.min_count_async(b))
+        if pending is not None:
+            runner.best_hit(pending[0], handle=pending[1])
+        pending = current
+    torch.cuda.synchronize()
+
+
+def min2_calls(runner, qs, stream):
+    q_padded = K.pad_batch(qs[0], multiple=1, minimum=16)[0]
+    q_emb = runner._embed_queries(q_padded)
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            M.min2(q_emb, runner.db_emb, runner.zc, L, runner.shift,
+                   with_count=True)
+    torch.cuda.synchronize()
+
+
+def scenario(name, fn, trace_root, warn):
+    trace_dir = os.path.join(trace_root, name)
+    os.environ["SMAFA_TPU_TRACE_DIR"] = trace_dir
+    before = profiling._launches()
+    warn.msgs.clear()
+    with profiling.maybe_trace(cuda=True):
+        fn()
+    del os.environ["SMAFA_TPU_TRACE_DIR"]
+    (path,) = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    streams = {}
+    for e in kernels:
+        s = str(e.get("args", {}).get("stream"))
+        streams[s] = streams.get(s, 0) + 1
+    return {"scenario": name,
+            "launches": {k: n - before[k]
+                         for k, n in profiling._launches().items()},
+            "kernel_events": {k: sum(f"::{k}_" in e.get("name", "")
+                                     for e in kernels)
+                              for k in before},
+            "all_kernel_events": len(kernels), "streams": streams,
+            "warning": warn.msgs[0] if warn.msgs else None}
+
+
+def main() -> int:
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    warn = Warnings()
+    logging.getLogger("smafa").addHandler(warn)
+    runner, qs = data(dev)
+    pipelined(runner, qs)  # builds the kernels, outside every trace
+    side = torch.cuda.Stream()
+    with tempfile.TemporaryDirectory() as root:
+        runs = [("pipelined", lambda: pipelined(runner, qs)),
+                ("pipelined_again", lambda: pipelined(runner, qs)),
+                ("min2_current",
+                 lambda: min2_calls(runner, qs,
+                                    torch.cuda.current_stream())),
+                ("min2_side", lambda: min2_calls(runner, qs, side))]
+        for name, fn in runs:
+            print(json.dumps(scenario(name, fn, root, warn)), flush=True)
+        with profile(activities=[ProfilerActivity.CUDA]):
+            min2_calls(runner, qs, torch.cuda.current_stream())
+        print(json.dumps(scenario("pipelined_after_cuda_only",
+                                  lambda: pipelined(runner, qs), root,
+                                  warn)), flush=True)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print(json.dumps({"card": card.strip().splitlines()[0],
+                      "torch": torch.__version__,
+                      "cuda": torch.version.cuda}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
