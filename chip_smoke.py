@@ -105,8 +105,12 @@ Phases, one line each:
    per slab per batch, compact_mask launched; 64 sampled reads a run
    against the brute force. Then min2, kstats and compact_mask on their
    long routes at this phase's shapes (one slab each), exact against
-   their plain versions, timed by CUDA events beside their bounds. The
-   db file is deleted at the end.
+   their plain versions, timed by CUDA events beside their bounds, each
+   line with its route and db splits (min2 and kstats: the K-chunked
+   split tile, "kchunk"; compact_mask: its one-split loop). Then min2 at
+   4,096 reads and kstats at 1,024 x 32,768 random rows at 300 bp and
+   at 29,903 bp (route "kchunk_stream"), exact, timed (``cell:
+   long_routes``). The db file is deleted at the end.
 10. cluster spans: (a) cluster 1M through the CLI again with the port's
    key budget cut in-process to 12 index bits (``keys.packing_shift``
    patched, as the CPU tests do; the package has no knob for it), so
@@ -548,10 +552,13 @@ def min_count_check(mc_mod, D, q_emb, emb, zc, n_valid: int, L: int,
     return want
 
 
-def live_plan(min2_mod, b: int, n_valid: int, ep: int, dev) -> dict:
+def live_plan(min2_mod, b: int, n_valid: int, ep: int, dev,
+              chunked: bool = False) -> dict:
     """The route and db splits the min_count and kstats wrappers launch
-    with (``ops/min2.py:live_plan``, over the first n_valid rows)."""
-    route, splits = min2_mod.live_plan(b, n_valid, ep, min2_mod.sm_count(dev))
+    with (``ops/min2.py:live_plan``, over the first n_valid rows; kstats
+    passes ``chunked``)."""
+    route, splits = min2_mod.live_plan(b, n_valid, ep, min2_mod.sm_count(dev),
+                                       chunked)
     return {"route": route, "splits": splits}
 
 
@@ -697,7 +704,7 @@ def kstats_parity(sizes, dev, D, K, ks_mod, min2_mod, rng, rng_s) -> dict:
     db_emb, zc = D.embed_db(torch.from_numpy(codes).to(dev), L_SMOKE, wp)
 
     def plan(b: int, n_valid: int) -> dict:
-        return live_plan(min2_mod, b, n_valid, ep, dev)
+        return live_plan(min2_mod, b, n_valid, ep, dev, chunked=True)
 
     def operands(r, b: int):
         q = mutate(r, codes[r.integers(0, n, b)], 6)
@@ -1704,7 +1711,8 @@ def long_window_kernels(sizes, D, K, mods: dict, min2_mod, hitops, codes,
     held("min2", lambda: m.min2(q_emb, emb, zc, L, shift, True),
          lambda: D.min2_reference(q_emb, emb, zc, L, shift, True), b,
          n0, bound(b, n0, L, ep, out_bytes=3 * 4 * b),
-         route=min2_mod.launch_plan(b, slab_rows, ep, sms)[0], shift=shift)
+         **dict(zip(("route", "splits"), min2_mod.launch_plan(
+             b, slab_rows, ep, sms, chunked=True))), shift=shift)
     del q_emb
     ks = mods["kstats"]
     q_emb = D.expand_embed_query(torch.from_numpy(q_kmode).to(dev), L)
@@ -1716,7 +1724,7 @@ def long_window_kernels(sizes, D, K, mods: dict, min2_mod, hitops, codes,
          lambda: D.stats_reference(q_emb, emb, zc, ts, n0, L), b, n0,
          bound(b, n0, L, ep, out_bytes=4 * (P + 1) * b,
                extra_in_bytes=4 * P * b),
-         route=min2_mod.live_plan(b, n0, ep, sms)[0])
+         **live_plan(min2_mod, b, n0, ep, dev, chunked=True))
 
     def stats(t):
         cnt = mx = None
@@ -1741,6 +1749,74 @@ def long_window_kernels(sizes, D, K, mods: dict, min2_mod, hitops, codes,
     return out
 
 
+# Phase 9's K-chunked lines past form (a)'s widths: (kernel, L, reads) x
+# LONG_ROUTE_ROWS db rows, 29,903 bp being phase 12 (b)'s width.
+LONG_ROUTE_SHAPES = (("min2", 300, 4096), ("kstats", 300, 1024),
+                     ("min2", 29903, 4096), ("kstats", 29903, 1024))
+LONG_ROUTE_ROWS = 32768
+
+
+def long_route_kernels(sizes, D, K, mods: dict, min2_mod, dev,
+                       seed: int) -> dict:
+    """min2 and kstats on their K-chunked route at 300 bp and at 29,903
+    bp (``LONG_ROUTE_SHAPES``): B reads x 32,768 random db rows (a tenth
+    copies of row 3; reads are db rows with ~5% substitutions, the first
+    4 copies of row 3; made on the card from ``seed``), each held exactly
+    to its plain version and timed (CUDA events; plain once, the kernel
+    over ``sizes.long_reps`` calls), with its route and db splits.
+    kstats counts at the first cutoff pass's probes. The db is 3.9 GB at
+    29,903 bp, so its offsets pass 2^31 bytes."""
+    sms = min2_mod.sm_count(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows, P = LONG_ROUTE_ROWS, K.KSTATS_PROBES
+    out = {}
+    for name, L, b in LONG_ROUTE_SHAPES:
+        ep = D.embed_width(L)
+        codes = torch.randint(0, 4, (rows, L), generator=gen, device=dev,
+                              dtype=torch.uint8)
+        codes[torch.randint(0, rows, (rows // 10,), generator=gen,
+                            device=dev)] = codes[3].clone()
+        q = codes[torch.randint(0, rows, (b,), generator=gen,
+                                device=dev)].clone()
+        mut = torch.rand(q.shape, generator=gen, device=dev) < 0.05
+        q[mut] = torch.randint(0, 4, (int(mut.sum()),), generator=gen,
+                               device=dev, dtype=torch.uint8)
+        q[:4] = codes[3]
+        emb, zc = D.embed_db(codes, L, rows)
+        q_emb = D.expand_embed_query(q, L)
+        del codes, q
+        if name == "min2":
+            shift = K.packing_shift(L, rows)
+            args = (q_emb, emb, zc, L, shift, True)
+            fn, ref = (lambda: mods["min2"].min2(*args),
+                       lambda: D.min2_reference(*args))
+            plan = dict(zip(("route", "splits"), min2_mod.launch_plan(
+                b, rows, ep, sms, chunked=True)))
+            bnd = bound(b, rows, L, ep, out_bytes=3 * 4 * b)
+        else:
+            ts = torch.tensor([[L * i // P] for i in range(1, P)] + [[L]],
+                              dtype=torch.int32,
+                              device=dev).expand(P, b).contiguous()
+            args = (q_emb, emb, zc, ts, rows, L)
+            fn, ref = (lambda: mods["kstats"].kstats(*args),
+                       lambda: D.stats_reference(*args))
+            plan = live_plan(min2_mod, b, rows, ep, dev, chunked=True)
+            bnd = bound(b, rows, L, ep, out_bytes=4 * (P + 1) * b,
+                        extra_in_bytes=4 * P * b)
+        plain_ms, want = events_ms(ref)
+        got = fn()
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{name} kernel differs from its plain "
+                                 f"version at L={L}, B={b}")
+        ms = time_ms(fn, sizes.long_reps)
+        out[f"{name}_{L}"] = log_time(name, L, b, rows, ms, plain_ms, bnd,
+                                      cell="long_routes", exact=True, **plan)
+        del emb, zc, q_emb, args, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
 def long_windows(sizes, cli, query_mod, select_mod, slab_mod, hitops, mods,
                  D, K, min2_mod, dev, tmp: str, rng, card: str) -> dict:
     """Phase 9: 5,242,880 windows of 150 bp through the CLI with no layout
@@ -1752,7 +1828,8 @@ def long_windows(sizes, cli, query_mod, select_mod, slab_mod, hitops, mods,
     the tiers' bytes equal, min2 once and kstats kstats_steps(150) = 4
     times per slab per batch, compact_mask launched, 64 sampled reads a
     run against the brute force; then each long-route kernel at these
-    shapes (``long_window_kernels``)."""
+    shapes (``long_window_kernels``), and min2 and kstats at 300 and
+    29,903 bp (``long_route_kernels``)."""
     from smafa_tpu_torch.core.windowset import WindowSet
     from smafa_tpu_torch.io import native_format
 
@@ -1823,6 +1900,9 @@ def long_windows(sizes, cli, query_mod, select_mod, slab_mod, hitops, mods,
     timing = long_window_kernels(sizes, D, K, mods, min2_mod, hitops, codes,
                                  reads["best"], reads["kmode"], slab_rows,
                                  dev)
+    del codes, reads
+    timing.update(long_route_kernels(sizes, D, K, mods, min2_mod, dev,
+                                     int(rng.integers(1 << 31))))
     log("long_windows", seconds=time.perf_counter() - t0, card=card)
     return timing
 

@@ -17,21 +17,32 @@
 //
 // What bounds it on the H100: the int8 contraction, 2 * B * n_valid * 4L
 // operations over 1,979 TOP/s (4.17 ms at 16384 x (2^20 + 37), L = 60).
-// The first version (kstats_kernel below) reached 5.85% of that: its
-// grid of ceil(B / 128) blocks each walked every row (32 blocks on 132
-// SMs at B = 4096, so its time was flat in B), it fed mma.sync from
+// The first version reached 5.85% of that at 60 bp and 1.8% at 150 bp:
+// its grid of ceil(B / 128) blocks each walked every row (32 blocks on
+// 132 SMs at B = 4096, so its time was flat in B), it fed mma.sync from
 // 32-bit shared loads behind load-then-sync copies, and its epilogue
 // re-derived each distance and branched on n_valid in every tile.
 //
-// What the design does about it (kstats_split_kernel):
-// 1. compact.cu's split-W tensor-core tile (split_tile.cuh; see min2.cu,
-//    lever 3) over the live tiles only: ceil(B / 256) query tiles x S db
-//    splits, S from ops/kstats.py's launch_plan over tiles =
-//    ceil(n_valid / 64), split y walking tiles tiles * y / S up to
-//    tiles * (y + 1) / S. With S > 1 the splits write int32 partials
-//    [5, S, B] (4 counts, then mx) to scratch the wrapper allocates, and
-//    kstats_merge_kernel, launched right after on the same stream, sums
-//    the counts and takes the max of mx; no atomics.
+// What the design does about it:
+// 1. The split-W tensor-core tile of split_tile.cuh (see min2.cu,
+//    lever 3) over the live tiles only: ceil(B / 256) query tiles x S
+//    db splits, S from ops/min2.py's live_plan over tiles =
+//    ceil(n_valid / 64) and the route's resident block slots, split y
+//    walking tiles tiles * y / S up to tiles * (y + 1) / S. With S > 1
+//    the splits write int32 partials [5, S, B] (4 counts, then mx) to
+//    scratch the wrapper allocates, and kstats_merge_kernel, launched
+//    right after on the same stream, sums the counts and takes the max
+//    of mx; no atomics. Up to 64 bp (EP <= 256) kstats_split_kernel
+//    keeps the whole query rows in shared memory, two blocks an SM;
+//    past it kstats_chunk_kernel runs the K-chunked tile, one block an
+//    SM: form (a), query rows resident, up to EP = 672 (168 bp), form
+//    (b), query and db chunks streamed, past it. Measured
+//    (chip_smoke.py, phase 9, against the first loop in one call;
+//    NVIDIA H100 80GB HBM3, 700 W): 4096 x 2,621,440 at 150 bp, form
+//    (a), S = 8, 29.4 ms against 352 ms (22.1% of the bound); 1024 x
+//    32,768 at 300 bp, form (b), S = 33, 0.356 ms (11.4%; the first
+//    loop 12.9 ms, tools/torch_long_route_probe.py), at 29,903 bp 29.6
+//    ms (13.7%; 1,628 ms).
 // 2. An epilogue in scores: the mma.sync accumulators start at the
 //    columns' zc, so each ends as the window's score (matches, in
 //    [0, L] for the port's operands), and dist <= ts iff score >=
@@ -44,20 +55,16 @@
 //    bounds of a row sit in the bytes of one register, one IMAD compares
 //    a score with all four, and masked sums count three scores a step,
 //    ~2.7 instructions an accumulator where a compare and a predicated
-//    add per probe (tally_pairs, which 64 bp windows take) take 8. The
-//    counts live as 16-bit pairs flushed every PAIR_TILES tiles. The
-//    epilogue's instruction count, not the pipe it runs on nor where its
-//    state lives, set the time: tools/torch_kstats_variant_probe.py
-//    builds patched copies of this file (int counts, one block per SM,
-//    bounds in shared memory) and times them beside it (PERF.md,
-//    section 6).
+//    add per probe (tally_pairs, which windows of 64 bp and more take:
+//    their scores reach past 63) take 8. The counts live as 16-bit
+//    pairs flushed every PAIR_TILES tiles. The epilogue's instruction
+//    count, not the pipe it runs on nor where its state lives, set the
+//    time: tools/torch_kstats_variant_probe.py builds patched copies of
+//    this file (int counts, one block per SM, bounds in shared memory)
+//    and times them beside it (PERF.md, section 6).
 //
-// Longer windows (EP > 256) take kstats_kernel, the first version's loop
-// on scan_tile.cuh, one split.
-
 #include <climits>
 
-#include "scan_tile.cuh"
 #include "split_tile.cuh"
 
 namespace {
@@ -155,6 +162,69 @@ __device__ __forceinline__ void tally_bytes(const int (&acc)[2][8][4],
   }
 }
 
+// Row `row`'s bound of probe p: dist <= ts iff score >= seq_len - ts,
+// clamped to INT_MAX (above every score; rows at or past B) or, in byte
+// lanes (BYTES), to [0, 64] and stored as 64 - b (tally_bytes packs it).
+template <bool BYTES>
+__device__ __forceinline__ int row_bound(const int* ts, long row, int B,
+                                         int p, int seq_len) {
+  const long long b = row < B ? (long long)seq_len - ts[(long)p * B + row]
+                              : (long long)INT_MAX;
+  return BYTES ? 64 - (int)max(0LL, min(64LL, b))
+               : (int)min((long long)INT_MAX, b);
+}
+
+// acc[m][n][2h + c] = the zc of tile column 8n + 2t + c, so that after
+// the products it holds the window's score.
+__device__ __forceinline__ void acc_from_zc(int (&acc)[2][8][4],
+                                            const int* sZ, int t) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int2 z = *reinterpret_cast<const int2*>(sZ + n * 8 + 2 * t);
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      acc[m][n][0] = acc[m][n][2] = z.x;
+      acc[m][n][1] = acc[m][n][3] = z.y;
+    }
+  }
+}
+
+// Merge the 4 lanes (t = 0..3) that share each of the lane's rows q0 + g
+// + 8i and write split y's partials: the first flush writes the counts,
+// later ones add to them; mx from the running minimum score. The
+// counts restart at 0.
+__device__ __forceinline__ void flush_counts(Pairs& cnt, const int (&mn)[4],
+                                             int* cnt_out, int* mx_out,
+                                             long q0, int g, int t, int B,
+                                             int S, int y, int seq_len,
+                                             bool first) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    int c[PROBES];
+#pragma unroll
+    for (int p = 0; p < PROBES; ++p) {
+      c[p] = (cnt[i][p >> 1] >> (16 * (p & 1))) & 0xffff;
+    }
+    int m = mn[i];
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+#pragma unroll
+      for (int p = 0; p < PROBES; ++p) c[p] += __shfl_xor_sync(0xffffffffu, c[p], off);
+      m = min(m, __shfl_xor_sync(0xffffffffu, m, off));
+    }
+    for (int& x : cnt[i]) x = 0;
+    const long row = q0 + g + 8 * i;
+    if (t == 0 && row < B) {
+#pragma unroll
+      for (int p = 0; p < PROBES; ++p) {
+        int* o = cnt_out + ((long)p * S + y) * B + row;
+        *o = first ? c[p] : *o + c[p];
+      }
+      mx_out[(long)y * B + row] = seq_len - m;
+    }
+  }
+}
+
 // cnt_out: [4, S, B] count partials (count p of split y at (p * S + y) *
 // B), mx_out: [S, B]; with S == 1 the final [4, B] and [B] outputs.
 // Split blockIdx.y of gridDim.y = S. BYTES: count in byte lanes
@@ -204,10 +274,7 @@ __global__ void __launch_bounds__(S_THREADS, S_BLOCKS_PER_SM)
   // as tally_bytes takes them. This lane's rows i = 2m + h are q0 + 16m +
   // g + 8h = q0 + g + 8i.
   auto bound_of = [&](long row, int p) {
-    const long long b = row < B ? (long long)seq_len - ts[(long)p * B + row]
-                                : (long long)INT_MAX;
-    return BYTES ? 64 - (int)max(0LL, min(64LL, b))
-                 : (int)min((long long)INT_MAX, b);
+    return row_bound<BYTES>(ts, row, B, p, seq_len);
   };
   int bound[4][PROBES];
 #pragma unroll
@@ -245,15 +312,7 @@ __global__ void __launch_bounds__(S_THREADS, S_BLOCKS_PER_SM)
       // acc[m][n][2h + c]: row i = 2m + h, tile column 8n + 2t + c; it
       // starts at the column's zc and ends as the window's score.
       int acc[2][8][4];
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const int2 z = *reinterpret_cast<const int2*>(sZ + n * 8 + 2 * t);
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          acc[m][n][0] = acc[m][n][2] = z.x;
-          acc[m][n][1] = acc[m][n][3] = z.y;
-        }
-      }
+      acc_from_zc(acc, sZ, t);
       tile_mma(acc, a_row, sD + b_off, stride, nks);
       if constexpr (BYTES) {
         if (it == masked_it) {
@@ -268,33 +327,9 @@ __global__ void __launch_bounds__(S_THREADS, S_BLOCKS_PER_SM)
       }
     }
     if (!live) continue;
-    // Merge the 4 lanes (t = 0..3) that share each row; the first chunk
-    // writes the split's partials, later ones add to them.
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int c[PROBES];
-#pragma unroll
-      for (int p = 0; p < PROBES; ++p) {
-        c[p] = (cnt[i][p >> 1] >> (16 * (p & 1))) & 0xffff;
-      }
-      int m = mn[i];
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-#pragma unroll
-        for (int p = 0; p < PROBES; ++p) c[p] += __shfl_xor_sync(0xffffffffu, c[p], off);
-        m = min(m, __shfl_xor_sync(0xffffffffu, m, off));
-      }
-      for (int& x : cnt[i]) x = 0;
-      const long row = q0 + g + 8 * i;
-      if (t == 0 && row < B) {
-#pragma unroll
-        for (int p = 0; p < PROBES; ++p) {
-          int* o = cnt_out + ((long)p * S + y) * B + row;
-          *o = c0 == 0 ? c[p] : *o + c[p];
-        }
-        mx_out[(long)y * B + row] = seq_len - m;
-      }
-    }
+    // The first chunk writes the split's partials, later ones add.
+    flush_counts(cnt, mn, cnt_out, mx_out, q0, g, t, B, S, y, seq_len,
+                 c0 == 0);
   }
   cp_async_wait<0>();
 }
@@ -316,152 +351,107 @@ __global__ void kstats_merge_kernel(const int* __restrict__ part,
   mx[r] = m;
 }
 
-// Long windows (EP > S_KS * 32): the first version, one split. A block
-// of scan_tile::BM rows walks every live db tile; outputs final.
-__global__ void __launch_bounds__(scan_tile::THREADS)
-    kstats_kernel(const int8_t* __restrict__ q,
-                  const int8_t* __restrict__ db, const int* __restrict__ zc,
-                  const int* __restrict__ ts, int* __restrict__ cnt_out,
-                  int* __restrict__ mx_out, int B, int n_valid, int EP,
-                  int seq_len, int kc_max) {
-  using namespace scan_tile;
+// Long windows (EP > S_KS * 32, so scores reach past 63: counts in
+// 16-bit pairs): the K-chunked split tile (split_tile.cuh kchunk_scan),
+// form (a) with the query rows resident (QRES) or (b) streamed, on the
+// split kernel's grid over the live tiles, outputs and masked last tile.
+template <bool QRES>
+__global__ void __launch_bounds__(S_THREADS, K_BLOCKS_PER_SM)
+    kstats_chunk_kernel(const int8_t* __restrict__ q,
+                        const int8_t* __restrict__ db,
+                        const int* __restrict__ zc, const int* __restrict__ ts,
+                        int* __restrict__ cnt_out, int* __restrict__ mx_out,
+                        int B, int n_valid, int EP, int seq_len) {
   extern __shared__ __align__(16) int8_t smem[];
-  const bool resident = kc_max == EP;
-  const int stride = kc_max + PAD;
-  int8_t* sQ = smem;
-  int8_t* sD = smem + BM * stride;
-  int* sZ = reinterpret_cast<int*>(sD + BN * stride);
-
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;  // mma groupID: fragment row / db column
   const int t = lane & 3;   // mma threadID_in_group
-  const long q0 = (long)blockIdx.x * BM;
-  const int q_valid = min((long)BM, (long)B - q0);
+  const long q0 = (long)blockIdx.x * S_BM + warp * 32;
+  const int tiles = (n_valid + S_BN - 1) / S_BN;
+  const int S = gridDim.y, y = blockIdx.y;
+  const int t_begin = (int)((long)tiles * y / S);
+  const int nt = (int)((long)tiles * (y + 1) / S) - t_begin;
+  const int rem = n_valid - (tiles - 1) * S_BN;
+  const int masked_it = (y == S - 1 && rem < S_BN) ? nt - 1 : -1;
 
-  // This lane's two rows (warp*16 + g and + 8): thresholds, counts over
-  // the db columns it owns (2t, 2t+1 of every n-tile), and max distance.
-  int th[2][PROBES];
-  int cnt[2][PROBES];
-  int mx[2] = {-1, -1};
+  // This lane's rows i = 2m + h are q0 + g + 8i.
+  int bound[4][PROBES];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = warp * 16 + g + 8 * i;
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
     for (int p = 0; p < PROBES; ++p) {
-      th[i][p] = row < q_valid ? ts[(long)p * B + q0 + row] : -1;
-      cnt[i][p] = 0;
+      bound[i][p] = row_bound<false>(ts, q0 + g + 8 * i, B, p, seq_len);
     }
   }
+  Pairs cnt = {};
+  int mn[4] = {INT_MAX, INT_MAX, INT_MAX, INT_MAX};
 
-  if (resident) load_tile(sQ, q, q0, BM, q_valid, EP, 0, EP, stride);
-
-  // The last tile may reach past n_valid but stays inside the buffer,
-  // whose row count is a multiple of BN.
-  for (int w0 = 0; w0 < n_valid; w0 += BN) {
-    int acc[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0;
-    }
-    for (int k0 = 0; k0 < EP; k0 += kc_max) {
-      const int kc = min(kc_max, EP - k0);
-      __syncthreads();  // the previous tile's readers are done
-      if (!resident) load_tile(sQ, q, q0, BM, q_valid, EP, k0, kc, stride);
-      load_tile(sD, db, w0, BN, BN, EP, k0, kc, stride);
-      if (k0 == 0 && threadIdx.x < BN) sZ[threadIdx.x] = zc[w0 + threadIdx.x];
-      __syncthreads();
-      const int8_t* qa = sQ + (warp * 16 + g) * stride + (resident ? k0 : 0);
-      const int8_t* qb = qa + 8 * stride;
-      for (int kk = 0; kk < kc; kk += 32) {
-        uint32_t a[4];
-        a[0] = *reinterpret_cast<const uint32_t*>(qa + kk + t * 4);
-        a[1] = *reinterpret_cast<const uint32_t*>(qb + kk + t * 4);
-        a[2] = *reinterpret_cast<const uint32_t*>(qa + kk + 16 + t * 4);
-        a[3] = *reinterpret_cast<const uint32_t*>(qb + kk + 16 + t * 4);
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          const int8_t* bp = sD + (n * 8 + g) * stride + kk + t * 4;
-          uint32_t b[2];
-          b[0] = *reinterpret_cast<const uint32_t*>(bp);
-          b[1] = *reinterpret_cast<const uint32_t*>(bp + 16);
-          mma_s8(acc[n], a, b);
+  kchunk_scan<QRES>(
+      smem, q, db, zc, (long)blockIdx.x * S_BM, B, EP, t_begin, nt, q0 < B,
+      [&](int (&acc)[2][8][4], const int* sZ) { acc_from_zc(acc, sZ, t); },
+      [&](const int (&acc)[2][8][4], const int*, int it) {
+        if (it == masked_it) {
+          tally_pairs<true>(acc, bound, cnt, mn, t, rem);
+        } else {
+          tally_pairs<false>(acc, bound, cnt, mn, t, rem);
         }
-      }
-    }
-    // Epilogue. Accumulator r of n-tile n holds row g + 8 * (r >> 1),
-    // db column n * 8 + 2t + (r & 1). Only the last tile can be partial.
-    const bool whole = w0 + BN <= n_valid;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int col = n * 8 + 2 * t + (r & 1);
-        if (whole || w0 + col < n_valid) {
-          const int i = r >> 1;
-          const int dist = seq_len - acc[n][r] - sZ[col];
-#pragma unroll
-          for (int p = 0; p < PROBES; ++p) cnt[i][p] += dist <= th[i][p];
-          mx[i] = max(mx[i], dist);
+        // Every PAIR_TILES tiles and after the last: the first flush
+        // writes the split's partials, later ones add.
+        if ((it + 1) % PAIR_TILES == 0 || it == nt - 1) {
+          flush_counts(cnt, mn, cnt_out, mx_out, q0, g, t, B, S, y, seq_len,
+                       it < PAIR_TILES);
         }
-      }
-    }
-  }
-
-  // Merge the 4 lanes (t = 0..3) that share each row.
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-#pragma unroll
-      for (int p = 0; p < PROBES; ++p) {
-        cnt[i][p] += __shfl_xor_sync(0xffffffffu, cnt[i][p], off);
-      }
-      mx[i] = max(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], off));
-    }
-    const int row = warp * 16 + g + 8 * i;
-    if (t == 0 && row < q_valid) {
-#pragma unroll
-      for (int p = 0; p < PROBES; ++p) cnt_out[(long)p * B + q0 + row] = cnt[i][p];
-      mx_out[q0 + row] = mx[i];
-    }
-  }
+      });
 }
 
-// The split kernel; with splits > 1 it writes part = [cnt x 4, mx] x
-// [splits, B] and the merge follows.
+template <bool QRES>
+cudaError_t launch_chunked(const int8_t* q, const int8_t* db, const int* zc,
+                           const int* ts, int* cnt, int* mx, int B,
+                           int n_valid, int EP, int seq_len, dim3 grid,
+                           cudaStream_t s) {
+  const int smem = kchunk_smem<QRES>(EP);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kstats_chunk_kernel<QRES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  kstats_chunk_kernel<QRES><<<grid, S_THREADS, smem, s>>>(
+      q, db, zc, ts, cnt, mx, B, n_valid, EP, seq_len);
+  return cudaGetLastError();
+}
+
+// The split kernel (EP <= S_KS * 32) or the K-chunked one, in form (a)
+// up to RESIDENT_EP_MAX; with splits > 1 it writes part = [cnt x 4, mx]
+// x [splits, B] and the merge follows.
 cudaError_t launch_split(const int8_t* q, const int8_t* db, const int* zc,
                          const int* ts, int* cnt, int* mx, int* part, int B,
                          int n_valid, int EP, int seq_len, int splits,
                          cudaStream_t s) {
   const bool direct = splits == 1;
-  const bool bytes = seq_len < 64;  // byte lanes need scores below 64
-  const auto kernel = bytes ? &kstats_split_kernel<true> : &kstats_split_kernel<false>;
-  const int smem = split_smem(EP);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3((B + S_BM - 1) / S_BM, splits), S_THREADS, smem, s>>>(
-      q, db, zc, ts, direct ? cnt : part,
-      direct ? mx : part + (long)PROBES * splits * B, B, n_valid, EP, seq_len);
-  err = cudaGetLastError();
+  int* cnt_o = direct ? cnt : part;
+  int* mx_o = direct ? mx : part + (long)PROBES * splits * B;
+  const dim3 grid((B + S_BM - 1) / S_BM, splits);
+  cudaError_t err;
+  if (EP > S_KS * 32) {
+    err = EP <= RESIDENT_EP_MAX
+              ? launch_chunked<true>(q, db, zc, ts, cnt_o, mx_o, B, n_valid,
+                                     EP, seq_len, grid, s)
+              : launch_chunked<false>(q, db, zc, ts, cnt_o, mx_o, B, n_valid,
+                                      EP, seq_len, grid, s);
+  } else {
+    const bool bytes = seq_len < 64;  // byte lanes need scores below 64
+    const auto kernel = bytes ? &kstats_split_kernel<true> : &kstats_split_kernel<false>;
+    const int smem = split_smem(EP);
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, S_THREADS, smem, s>>>(q, db, zc, ts, cnt_o, mx_o, B,
+                                         n_valid, EP, seq_len);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess || direct) return err;
   kstats_merge_kernel<<<(B + MERGE_THREADS - 1) / MERGE_THREADS, MERGE_THREADS,
                         0, s>>>(part, cnt, mx, B, splits);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_long(const int8_t* q, const int8_t* db, const int* zc,
-                        const int* ts, int* cnt, int* mx, int B, int n_valid,
-                        int EP, int seq_len, cudaStream_t s) {
-  const int kc_max = scan_tile::pick_kc(EP);
-  const size_t smem = scan_tile::smem_bytes(kc_max);
-  const cudaError_t err = cudaFuncSetAttribute(
-      kstats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kstats_kernel<<<(B + scan_tile::BM - 1) / scan_tile::BM, scan_tile::THREADS,
-                  smem, s>>>(q, db, zc, ts, cnt, mx, B, n_valid, EP, seq_len,
-                             kc_max);
   return cudaGetLastError();
 }
 
@@ -471,29 +461,20 @@ cudaError_t launch_long(const int8_t* q, const int8_t* db, const int* zc,
 // ts and cnt: int32 [4, B], mx: int32 [B]; part: int32 [5, splits, B]
 // scratch when splits > 1 (else unused). Requires EP % 32 == 0,
 // W % 64 == 0, 1 <= n_valid <= W, B >= 1, 16-byte aligned q and db,
-// 1 <= splits <= ceil(n_valid / 64) when EP <= 256, splits == 1 when
-// EP > 256, and the port's operands (ops/distance.py), whose score
-// q . db + zc of a db row below n_valid lies in [0, seq_len]. Returns
-// the cudaError_t of the launches.
+// 1 <= splits <= ceil(n_valid / 64), and the port's operands
+// (ops/distance.py), whose score q . db + zc of a db row below n_valid
+// lies in [0, seq_len]. Returns the cudaError_t of the launches.
 extern "C" int smafa_kstats(const void* q, const void* db, const void* zc,
                             const void* ts, void* cnt, void* mx, void* part,
                             int B, int n_valid, int EP, int seq_len,
                             int splits, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int8_t* qp = static_cast<const int8_t*>(q);
-  const int8_t* dp = static_cast<const int8_t*>(db);
-  const int* zp = static_cast<const int*>(zc);
-  const int* tp = static_cast<const int*>(ts);
-  int* cp = static_cast<int*>(cnt);
-  int* mp = static_cast<int*>(mx);
   if (B < 1 || n_valid < 1) return (int)cudaErrorInvalidValue;
-  if (EP > S_KS * 32) {
-    if (splits != 1) return (int)cudaErrorInvalidValue;
-    return (int)launch_long(qp, dp, zp, tp, cp, mp, B, n_valid, EP, seq_len, s);
-  }
   if (splits < 1 || splits > (n_valid + S_BN - 1) / S_BN) {
     return (int)cudaErrorInvalidValue;
   }
-  return (int)launch_split(qp, dp, zp, tp, cp, mp, static_cast<int*>(part), B,
-                           n_valid, EP, seq_len, splits, s);
+  return (int)launch_split(
+      static_cast<const int8_t*>(q), static_cast<const int8_t*>(db),
+      static_cast<const int*>(zc), static_cast<const int*>(ts),
+      static_cast<int*>(cnt), static_cast<int*>(mx), static_cast<int*>(part),
+      B, n_valid, EP, seq_len, splits, static_cast<cudaStream_t>(stream));
 }

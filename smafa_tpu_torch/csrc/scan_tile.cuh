@@ -1,9 +1,12 @@
-// Tile primitives shared by the scan kernels (min2.cu, min_count.cu,
-// kstats.cu; compact.cu takes mma_s8): the block shape, the int8
-// tensor-core product and the shared-memory tile load. A block owns BM
-// query rows, one 16-row slab
-// per warp, and walks the db in tiles of BN rows; products use
-// mma.sync.m16n8k32 s8.s8 -> s32.
+// Tile primitives of the scan kernels. mma_s8 (the int8 tensor-core
+// product, mma.sync.m16n8k32 s8.s8 -> s32) and BIG_KEY serve every
+// kernel, through split_tile.cuh. The rest (the block shape, load_tile,
+// pick_kc, smem_bytes) is the first versions' loop, which only the long
+// routes (L > 64) of compact.cu and min_count.cu still run: a block owns
+// BM query rows, one 16-row slab per warp, and walks the whole db in
+// tiles of BN rows, loaded then synced, K streamed in KC_STREAM-byte
+// chunks when the query tile does not fit. min2.cu and kstats.cu run
+// the K-chunked split tile there instead (split_tile.cuh).
 
 #pragma once
 

@@ -9,7 +9,8 @@ a longer buffer whose rows past n_valid are live, among them exact
 copies of the queries and rows at distance L from them; thresholds all
 -1, all L and equal across the probes; a db of one repeated row; and the
 cutoff search at K past the window count, where the cutoff is the row
-max. Windows past 64 bp keep the first version's loop, one split.
+max. Windows past 64 bp take the K-chunked route
+(tests/test_torch_gpu_kstats_long.py holds it at every form and split).
 
 Marked ``gpu``: each test skips where no CUDA device is visible. Run with
 ``python -m pytest --noconftest -m gpu tests/test_torch_gpu*.py``; the
@@ -29,7 +30,7 @@ BIG = (1 << 20) + 37
 
 
 def _plan(g, b, n_valid, ep):
-    return g.M.live_plan(b, n_valid, ep, g.M.sm_count(g.dev))
+    return g.M.live_plan(b, n_valid, ep, g.M.sm_count(g.dev), chunked=True)
 
 
 def _stats(g, q_emb, emb, zc, ts, n_valid, seq_len):
@@ -57,11 +58,10 @@ def _embed(g, buf, q, seq_len):
 def test_kstats_kernel_equals_plain(cuda, seq_len):
     """A 5056-row buffer whose every row is live, scanned up to n_valid
     = 3001 (not a multiple of the 64-row tile), wp and 0 (no launch);
-    B = 300 is not a multiple of either route's query block (256 rows up
-    to 64 bp, 128 past it). Then the cutoff
+    B = 300 is not a multiple of the query block (256 rows). Then the cutoff
     search at K beyond the window count, where the cutoff is the row max:
-    live rows past n_valid at larger distances must not raise it. L = 300
-    streams K."""
+    live rows past n_valid at larger distances must not raise it. L = 150
+    and 300 take the K-chunked route, forms (a) and (b)."""
     torch, D = cuda.torch, cuda.D
     rng = np.random.default_rng(seq_len)
     wp, b = 5056, 300
@@ -235,13 +235,17 @@ def test_kstats_split_route_at_63_and_64_bp(cuda):
 
 @pytest.mark.parametrize("seq_len", [150, 300])
 def test_kstats_long_route_equals_plain(cuda, seq_len):
-    """Windows past 64 bp take the first version's loop with one split."""
+    """Windows past 64 bp take the K-chunked route: form (a), the query
+    rows resident, at 150 bp, form (b), streamed, at 300 bp; 77 reads x
+    9000 rows plan more than one split."""
     nw, b = 9000, 77
     rng = np.random.default_rng(seq_len)
     buf = rng.integers(0, 5, (nw, seq_len), dtype=np.uint8)
     q = buf[rng.integers(0, nw, b)].copy()
     q[rng.random(q.shape) < 0.05] = 0
     emb, zc, q_emb = _embed(cuda, buf, q, seq_len)
-    assert _plan(cuda, b, nw, q_emb.shape[1]) == ("long", 1)
+    route, splits = _plan(cuda, b, nw, q_emb.shape[1])
+    assert route == ("kchunk" if seq_len <= 168 else "kchunk_stream")
+    assert splits > 1
     ts = rng.integers(-1, seq_len + 1, (cuda.K.KSTATS_PROBES, b))
     _stats(cuda, q_emb, emb, zc, ts, 8999, seq_len)

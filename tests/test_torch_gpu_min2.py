@@ -20,7 +20,7 @@ pytestmark = pytest.mark.gpu
                                           (300, 4000, 40)])
 @pytest.mark.parametrize("with_count", [True, False])
 def test_min2_kernel_equals_plain(cuda, seq_len, nw, b, with_count):
-    """L = 300 takes the kernel's K-streaming branch."""
+    """L = 150 and 300 take the K-chunked route, forms (a) and (b)."""
     emb, zc, q_emb, shift = operands(cuda, seq_len, nw, b, nw)
     before = cuda.M.launches
     got = cuda.M.min2(q_emb, emb, zc, seq_len, shift, with_count)

@@ -4,8 +4,8 @@ The launch plan (``ops/min2.py:live_plan``) cuts only the live
 64-row tiles, ceil(n_valid / 64) of them, into splits the way the kernel
 does (split y of S walks tiles tiles * y // S up to tiles * (y + 1) //
 S): every live tile once, none past n_valid's, one split when the query
-tiles fill the card's block slots, the long route past 64 bp, no launch
-at n_valid = 0. The merge the kernel does (counts summed over the
+tiles fill the card's block slots, the K-chunked route past 64 bp, no
+launch at n_valid = 0. The merge the kernel does (counts summed over the
 splits, maxima maxed) is held on plain tensors: ``stats_reference`` over
 each split's rows, merged, equals ``stats_reference`` over [0, n_valid)
 and smafa_tpu's ``_statsN_pass`` on JAX CPU, exactly (every value is an
@@ -87,18 +87,28 @@ def test_kstats_plan_one_split_when_query_tiles_fill_the_slots(port):
 
 
 def test_kstats_plan_routes_by_width(port):
-    """Past 64 bp (EP > 256) the long route with one split, at any batch
-    and n_valid; up to 64 bp the split route."""
-    for seq_len in (3, 60, 64, 65, 150, 300):
+    """Past 64 bp (EP > 256) kstats' plan is the K-chunked route, query
+    rows resident up to 168 bp ("kchunk") and streamed past it
+    ("kchunk_stream"), with splits over one block an SM, at most one a
+    live tile; up to 64 bp the split route."""
+    for seq_len in (3, 60, 64, 65, 150, 168, 169, 300):
         ep = port.D.embed_width(seq_len)
         for b in (1, 77, 16384):
             for n_valid in (37, 3001, BIG):
-                route, s = port.M.live_plan(b, n_valid, ep, H100_SMS)
-                if seq_len > 64:
-                    assert (route, s) == ("long", 1)
+                route, s = port.M.live_plan(b, n_valid, ep, H100_SMS,
+                                            chunked=True)
+                tiles = -(-n_valid // WP_MULTIPLE)
+                if seq_len > 168:
+                    assert route == "kchunk_stream" and 1 <= s <= tiles
+                elif seq_len > 64:
+                    assert route == "kchunk" and 1 <= s <= tiles
                 else:
                     assert route == "split" and s >= 1
-            assert port.M.live_plan(b, 0, ep, H100_SMS) == ("none", 0)
+                if seq_len > 64:
+                    assert s == port.M.split_count(b, tiles * WP_MULTIPLE,
+                                                   H100_SMS)
+            assert port.M.live_plan(b, 0, ep, H100_SMS,
+                                    chunked=True) == ("none", 0)
 
 
 def _case(seq_len, wp, b, n_valid, seed, far=False):

@@ -1,0 +1,168 @@
+"""The launch plan past 64 bp, on the CPU: which route and how many db
+splits each kernel gets, and the constants the plan mirrors from the
+CUDA sources.
+
+``ops/min2.py``'s ``launch_plan`` and ``live_plan`` are the one plan of
+every wrapper. Up to EP = 256 bytes (L <= 64) every kernel takes the
+split tile at two blocks an SM. Past it min2 and kstats (``chunked``)
+take the K-chunked tile at one block an SM: "kchunk", query rows
+resident, up to EP = 672 (the widest whose rows and a 3-stage ring of
+db chunks fit the 232,448 bytes a block can use), and "kchunk_stream"
+past it, with ``split_count`` splits over the live 64-row tiles;
+compact_mask and min_count keep their one-split loop ("long", 1), and
+their C entries refuse more splits there.
+
+torch is imported by the ``port`` fixture, not at collection (see
+test_torch_min2.py)."""
+
+from __future__ import annotations
+
+import inspect
+import pathlib
+import re
+import types
+
+import pytest
+
+WP_MULTIPLE = 64  # smafa_tpu_torch.ops.distance.WP_MULTIPLE
+H100_SMS = 132
+SMEM_MAX = 232448  # bytes of shared memory a block can use on an H100
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "smafa_tpu_torch" / "csrc"
+
+
+@pytest.fixture(scope="module")
+def port():
+    import torch
+
+    from smafa_tpu_torch.ops import compact, distance, kstats, min2, min_count
+
+    return types.SimpleNamespace(torch=torch, C=compact, D=distance,
+                                 KS=kstats, M=min2, MC=min_count)
+
+
+def _constants(name: str) -> dict[str, int]:
+    """The ``constexpr int NAME = <integer>;`` lines of a source."""
+    text = (CSRC / name).read_text()
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (\w+) = (\d+);", text)}
+
+
+def _plans(port, b, rows, ep):
+    """(route, splits) of each kernel at b reads x rows (rows live, a
+    multiple of 64 for min2 and compact_mask)."""
+    M = port.M
+    return {"min2": M.launch_plan(b, rows, ep, H100_SMS, chunked=True),
+            "kstats": M.live_plan(b, rows, ep, H100_SMS, chunked=True),
+            "compact_mask": M.launch_plan(b, rows, ep, H100_SMS),
+            "min_count": M.live_plan(b, rows, ep, H100_SMS)}
+
+
+@pytest.mark.parametrize("ep,want", [(256, "split"), (288, "kchunk"),
+                                     (672, "kchunk"), (704, "kchunk_stream"),
+                                     (119616, "kchunk_stream")])
+def test_routes_at_the_boundaries(port, ep, want):
+    """EP 256 (64 bp), 288 (the first K-chunked width, 65-72 bp), 672
+    (168 bp, form (a)'s last), 704 (the 32-byte step past it) and 119,616
+    (29,903 bp): min2 and kstats take the route named, with splits over
+    one block an SM; compact_mask and min_count one split past 64 bp."""
+    M = port.M
+    for b, rows in ((1, 64), (77, 32768), (1024, 32768), (4096, 2621440),
+                    (32768, 2621440), (65536, 64)):
+        plans = _plans(port, b, rows, ep)
+        tiles = rows // WP_MULTIPLE
+        for kernel, (route, s) in plans.items():
+            if ep <= M.SPLIT_EP_MAX:
+                assert route == "split", kernel
+                assert s == M.split_count(b, rows, H100_SMS * M.BLOCKS_PER_SM)
+            elif kernel in ("compact_mask", "min_count"):
+                assert (route, s) == ("long", 1), kernel
+            else:
+                assert route == want, kernel
+                assert s == M.split_count(b, rows,
+                                          H100_SMS * M.CHUNK_BLOCKS_PER_SM)
+            assert 1 <= s <= tiles
+
+
+def test_chunk_splits_fill_one_wave_and_never_exceed_the_live_tiles(port):
+    """Past 64 bp: S <= the live tiles, ceil(B / 256) x S blocks within
+    the 132 one-block slots, one split once the query tiles fill them;
+    the phase 9 and phase 12 (b) shapes get 1, 8 and 33 splits."""
+    M = port.M
+    for ep in (288, 608, 1216, 119616):
+        for b in (1, 77, 256, 1024, 4096, 32768, 33792, 1 << 20):
+            for n_valid in (1, 37, 64, 3001, 32768, 2621440):
+                route, s = M.live_plan(b, n_valid, ep, H100_SMS, chunked=True)
+                tiles = -(-n_valid // WP_MULTIPLE)
+                qtiles = -(-b // M.BM)
+                assert route.startswith("kchunk") and 1 <= s <= tiles
+                if qtiles >= H100_SMS:
+                    assert s == 1
+                else:
+                    assert qtiles * s <= H100_SMS
+                    assert s == tiles or qtiles * (s + 1) > H100_SMS
+    assert M.launch_plan(32768, 2621440, 608, H100_SMS, chunked=True) == ("kchunk", 1)
+    assert M.live_plan(4096, 2621440, 608, H100_SMS, chunked=True) == ("kchunk", 8)
+    assert M.live_plan(1024, 32768, 119616, H100_SMS, chunked=True) == (
+        "kchunk_stream", 33)
+    assert M.live_plan(0, 32768, 608, H100_SMS, chunked=True) == ("none", 0)
+    assert M.live_plan(77, 0, 608, H100_SMS, chunked=True) == ("none", 0)
+
+
+def test_mirrored_constants_equal_the_sources(port):
+    """ops/min2.py's BM, BLOCKS_PER_SM, SPLIT_EP_MAX, CHUNK_BLOCKS_PER_SM
+    and RESIDENT_EP_MAX are split_tile.cuh's S_WARPS * 32,
+    S_BLOCKS_PER_SM, S_KS * 32, K_BLOCKS_PER_SM and RESIDENT_EP_MAX; the
+    chunk kernels launch with K_BLOCKS_PER_SM and the split kernels with
+    S_BLOCKS_PER_SM."""
+    M = port.M
+    c = _constants("split_tile.cuh")
+    assert M.BM == c["S_WARPS"] * 32
+    assert M.BLOCKS_PER_SM == c["S_BLOCKS_PER_SM"]
+    assert M.SPLIT_EP_MAX == c["S_KS"] * 32
+    assert "constexpr int K_CHUNK = S_KS * 32;" in (CSRC / "split_tile.cuh").read_text()
+    assert M.CHUNK_BLOCKS_PER_SM == c["K_BLOCKS_PER_SM"]
+    assert M.RESIDENT_EP_MAX == c["RESIDENT_EP_MAX"]
+    for src in ("min2.cu", "kstats.cu"):
+        text = (CSRC / src).read_text()
+        assert "__launch_bounds__(S_THREADS, K_BLOCKS_PER_SM)" in text
+        assert "EP <= RESIDENT_EP_MAX" in text
+        assert "launch_long" not in text and "scan_tile::pick_kc" not in text
+    assert "min2_long_kernel" not in (CSRC / "min2.cu").read_text()
+    assert "kstats_kernel(" not in (CSRC / "kstats.cu").read_text()
+
+
+def test_form_a_limit_is_the_widest_that_fits(port):
+    """Form (a)'s shared memory, 256 x (EP + 16) bytes of query rows plus
+    KQ_STAGES x (64 x 272 bytes of db chunk + 64 zc), fits 232,448 bytes
+    at RESIDENT_EP_MAX (212,736 at 150 bp) and not 32 bytes past it; form
+    (b)'s KS_STAGES x (320 x 272 + 64 x 4) fits at every EP."""
+    c = _constants("split_tile.cuh")
+    stride = c["S_KS"] * 32 + c["S_PAD"]  # K_STRIDE
+
+    def form_a(ep):
+        return (c["S_WARPS"] * 32 * (ep + c["S_PAD"])
+                + c["KQ_STAGES"] * (c["S_BN"] * stride + c["S_BN"] * 4))
+
+    assert form_a(608) == 212736
+    assert form_a(port.M.RESIDENT_EP_MAX) <= SMEM_MAX < form_a(
+        port.M.RESIDENT_EP_MAX + 32)
+    form_b = c["KS_STAGES"] * ((c["S_WARPS"] * 32 + c["S_BN"]) * stride
+                               + c["S_BN"] * 4)
+    assert form_b == 174592 <= SMEM_MAX
+
+
+def test_wrappers_plan_by_kernel(port):
+    """min2 and kstats ask for the K-chunked plan, compact_mask and
+    min_count do not, and the C entries of the latter two still refuse
+    more than one split past 64 bp; min2's and kstats' accept them."""
+    src = {m: inspect.getsource(f) for m, f in (
+        ("min2", port.M.min2), ("kstats", port.KS.kstats),
+        ("compact_mask", port.C.compact_mask), ("min_count", port.MC.min_count))}
+    assert "chunked=True" in src["min2"] and "chunked=True" in src["kstats"]
+    assert "chunked" not in src["compact_mask"] + src["min_count"]
+    for name in ("compact.cu", "min_count.cu"):
+        text = (CSRC / name).read_text()
+        assert re.search(r"if \(EP > S_KS \* 32\) \{\s+if \(splits != 1\) "
+                         r"return \(int\)cudaErrorInvalidValue;", text), name
+    for name in ("min2.cu", "kstats.cu"):
+        assert "splits != 1" not in (CSRC / name).read_text()

@@ -57,8 +57,8 @@ SMEM_BOUNDS = INTS + [
      "const int smem = split_smem(EP) + S_BM * (int)sizeof(int4);"),
     # thread x computes block row x's bounds; the loop's first sync
     # publishes them
-    ("  int bound[4][PROBES];\n",
-     "  int bound[4][PROBES];\n"
+    ("    return row_bound<BYTES>(ts, row, B, p, seq_len);\n  };\n",
+     "    return row_bound<BYTES>(ts, row, B, p, seq_len);\n  };\n"
      "  int4* sBound = reinterpret_cast<int4*>(ring + S_STAGES * sbytes);\n"
      "  sBound[threadIdx.x] = make_int4(\n"
      "      bound_of(b0 + threadIdx.x, 0), bound_of(b0 + threadIdx.x, 1),\n"
