@@ -12,8 +12,9 @@ Phases, one line each:
    the kernel's bound (the larger of its int8 operations over 1,979
    TOP/s and its bytes over 3.35 TB/s, the H100 SXM's dense peaks).
    min_count, with and without the count, at L = 3, 60, 150, 300 over a
-   live buffer, then at its split shapes, each line with its route and
-   db splits (the cluster's batches B = 1, 77, 2048, 32768 against
+   live buffer (each line with the route and db splits of both n_valid:
+   the K-chunked tile past 64 bp), then at its split shapes, each line
+   with its route and db splits (the cluster's batches B = 1, 77, 2048, 32768 against
    29,321 live rows of a 32,768-row buffer; n_valid = 37 and 3001 with
    query copies past n_valid; a db of one repeated row; a db whose only
    exact match is its last live row; 63, 64 and 150 bp); timed at the
@@ -27,7 +28,7 @@ Phases, one line each:
    and at B = 512 and 4096. compact_mask, each line with its route and
    db splits, timed at B = 512 and 4096 x 2^20; also at its split shapes
    (B = 1, 77 x 2^20 + 37), at thresh = L (every real window set) and on
-   its long-window route at L = 150 (timed at 4096 x 2^20).
+   its K-chunked route at L = 150 (timed at 4096 x 2^20).
 3. end to end through the CLI: makedb --format native over a seeded
    2^20-window 60 bp db, then best-hit query of 65,536 reads at
    --max-divergence 5; checks the exit codes, that both kernels launched
@@ -106,11 +107,13 @@ Phases, one line each:
    against the brute force. Then min2, kstats and compact_mask on their
    long routes at this phase's shapes (one slab each), exact against
    their plain versions, timed by CUDA events beside their bounds, each
-   line with its route and db splits (min2 and kstats: the K-chunked
-   split tile, "kchunk"; compact_mask: its one-split loop). Then min2 at
-   4,096 reads and kstats at 1,024 x 32,768 random rows at 300 bp and
-   at 29,903 bp (route "kchunk_stream"), exact, timed (``cell:
-   long_routes``). The db file is deleted at the end.
+   line with its route and db splits (the K-chunked split tile, form
+   (a), "kchunk"). Then, exact and timed (``cell: long_routes``), on 32,768
+   random rows: min2 at 4,096 reads, kstats at 1,024 and compact_mask at
+   4,096 (300 bp) and 1,024 (29,903 bp) reads at their K = 99 cutoffs,
+   at 300 bp and at 29,903 bp (form (b), route "kchunk_stream"); and
+   min_count at 32,768 reads at 150 bp (form (a)). The db file is
+   deleted at the end.
 10. cluster spans: (a) cluster 1M through the CLI again with the port's
    key budget cut in-process to 12 index bits (``keys.packing_shift``
    patched, as the CPU tests do; the package has no knob for it), so
@@ -122,7 +125,7 @@ Phases, one line each:
    / ``scan_fetch``, timed, 256 sampled rows (64 of them exact copies of
    rows duplicated across the spans) against a brute force on the card,
    and min_count on its first span exact against its plain version and
-   timed. A whole cluster run past the real budget is O(n^2), so (b)
+   timed (the K-chunked tile, form (b)). A whole cluster run past the real budget is O(n^2), so (b)
    drives the engine's store, not the CLI.
 11. multiprocess: ``query`` and ``cluster`` through the CLI as 2 ranks
    (subprocesses of this script, ``--rank``, each with its kernels'
@@ -552,13 +555,10 @@ def min_count_check(mc_mod, D, q_emb, emb, zc, n_valid: int, L: int,
     return want
 
 
-def live_plan(min2_mod, b: int, n_valid: int, ep: int, dev,
-              chunked: bool = False) -> dict:
+def live_plan(min2_mod, b: int, n_valid: int, ep: int, dev) -> dict:
     """The route and db splits the min_count and kstats wrappers launch
-    with (``ops/min2.py:live_plan``, over the first n_valid rows; kstats
-    passes ``chunked``)."""
-    route, splits = min2_mod.live_plan(b, n_valid, ep, min2_mod.sm_count(dev),
-                                       chunked)
+    with (``ops/min2.py:live_plan``, over the first n_valid rows)."""
+    route, splits = min2_mod.live_plan(b, n_valid, ep, min2_mod.sm_count(dev))
     return {"route": route, "splits": splits}
 
 
@@ -610,11 +610,16 @@ def min_count_parity(sizes, dev, D, K, mc_mod, min2_mod, rng,
         emb, zc = D.embed_db(torch.from_numpy(buf).to(dev), L, wp)
         q_emb = D.expand_embed_query(torch.from_numpy(q).to(dev), L)
         shift = K.packing_shift(L, wp)
+        plans = []
         for n_valid in (sizes.min_count_below, wp):
             min_count_check(mc_mod, D, q_emb, emb, zc, n_valid, L, shift,
                             f"L={L} n_valid={n_valid}")
+            plans.append(live_plan(min2_mod, 1000, n_valid, q_emb.shape[1],
+                                   dev))
         log("kernel_parity", kernel="min_count", L=L, B=1000, W=wp,
-            n_valid=[sizes.min_count_below, wp], exact=True)
+            n_valid=[sizes.min_count_below, wp],
+            route=[p["route"] for p in plans],
+            splits=[p["splits"] for p in plans], exact=True)
     for what, L, buf, q, n_valid in min_count_split_cases(sizes, rng_n):
         w = -(-buf.shape[0] // D.WP_MULTIPLE) * D.WP_MULTIPLE
         emb, zc = D.embed_db(torch.from_numpy(buf).to(dev), L, w)
@@ -704,7 +709,7 @@ def kstats_parity(sizes, dev, D, K, ks_mod, min2_mod, rng, rng_s) -> dict:
     db_emb, zc = D.embed_db(torch.from_numpy(codes).to(dev), L_SMOKE, wp)
 
     def plan(b: int, n_valid: int) -> dict:
-        return live_plan(min2_mod, b, n_valid, ep, dev, chunked=True)
+        return live_plan(min2_mod, b, n_valid, ep, dev)
 
     def operands(r, b: int):
         q = mutate(r, codes[r.integers(0, n, b)], 6)
@@ -1712,7 +1717,7 @@ def long_window_kernels(sizes, D, K, mods: dict, min2_mod, hitops, codes,
          lambda: D.min2_reference(q_emb, emb, zc, L, shift, True), b,
          n0, bound(b, n0, L, ep, out_bytes=3 * 4 * b),
          **dict(zip(("route", "splits"), min2_mod.launch_plan(
-             b, slab_rows, ep, sms, chunked=True))), shift=shift)
+             b, slab_rows, ep, sms))), shift=shift)
     del q_emb
     ks = mods["kstats"]
     q_emb = D.expand_embed_query(torch.from_numpy(q_kmode).to(dev), L)
@@ -1724,7 +1729,7 @@ def long_window_kernels(sizes, D, K, mods: dict, min2_mod, hitops, codes,
          lambda: D.stats_reference(q_emb, emb, zc, ts, n0, L), b, n0,
          bound(b, n0, L, ep, out_bytes=4 * (P + 1) * b,
                extra_in_bytes=4 * P * b),
-         **live_plan(min2_mod, b, n0, ep, dev, chunked=True))
+         **live_plan(min2_mod, b, n0, ep, dev))
 
     def stats(t):
         cnt = mx = None
@@ -1742,30 +1747,37 @@ def long_window_kernels(sizes, D, K, mods: dict, min2_mod, hitops, codes,
          lambda: (D.compact_mask_reference(qc, emb, zc, th, L),), rows, n0,
          bound(rows, n0, L, ep, out_bytes=rows * slab_rows // 8,
                extra_in_bytes=4 * rows),
-         route=min2_mod.launch_plan(rows, slab_rows, ep, sms)[0],
+         **dict(zip(("route", "splits"), min2_mod.launch_plan(
+             rows, slab_rows, ep, sms))),
          k=sizes.kmode_k, thresh_median=float(th.float().median()))
     del slabs, emb, zc, q_emb, qc, ts
     torch.cuda.empty_cache()
     return out
 
 
-# Phase 9's K-chunked lines past form (a)'s widths: (kernel, L, reads) x
-# LONG_ROUTE_ROWS db rows, 29,903 bp being phase 12 (b)'s width.
+# Phase 9's K-chunked lines: (kernel, L, reads) x LONG_ROUTE_ROWS db
+# rows. min2, kstats and compact_mask past form (a)'s widths, 29,903 bp
+# being phase 12 (b)'s width; min_count in form (a) at the cluster's
+# batch x buffer.
 LONG_ROUTE_SHAPES = (("min2", 300, 4096), ("kstats", 300, 1024),
-                     ("min2", 29903, 4096), ("kstats", 29903, 1024))
+                     ("min2", 29903, 4096), ("kstats", 29903, 1024),
+                     ("compact_mask", 300, 4096),
+                     ("compact_mask", 29903, 1024), ("min_count", 150, 32768))
 LONG_ROUTE_ROWS = 32768
 
 
 def long_route_kernels(sizes, D, K, mods: dict, min2_mod, dev,
                        seed: int) -> dict:
-    """min2 and kstats on their K-chunked route at 300 bp and at 29,903
-    bp (``LONG_ROUTE_SHAPES``): B reads x 32,768 random db rows (a tenth
-    copies of row 3; reads are db rows with ~5% substitutions, the first
-    4 copies of row 3; made on the card from ``seed``), each held exactly
-    to its plain version and timed (CUDA events; plain once, the kernel
-    over ``sizes.long_reps`` calls), with its route and db splits.
-    kstats counts at the first cutoff pass's probes. The db is 3.9 GB at
-    29,903 bp, so its offsets pass 2^31 bytes."""
+    """Each kernel on its K-chunked route at ``LONG_ROUTE_SHAPES``: B
+    reads x 32,768 random db rows (a tenth copies of row 3; reads are db
+    rows with ~5% substitutions, the first 4 copies of row 3; made on the
+    card from ``seed``), each held exactly to its plain version and timed
+    (CUDA events; plain once, the kernel over ``sizes.long_reps`` calls),
+    with its route and db splits. kstats counts at the first cutoff
+    pass's probes; compact_mask sets the reads' K = 99 cutoffs (the
+    cutoff search over the kstats kernel), as K-mode compacts; min_count
+    scans every row without the count, as the cluster calls it. The db
+    is 3.9 GB at 29,903 bp, so its offsets pass 2^31 bytes."""
     sms = min2_mod.sm_count(dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     rows, P = LONG_ROUTE_ROWS, K.KSTATS_PROBES
@@ -1785,24 +1797,41 @@ def long_route_kernels(sizes, D, K, mods: dict, min2_mod, dev,
         emb, zc = D.embed_db(codes, L, rows)
         q_emb = D.expand_embed_query(q, L)
         del codes, q
+        plan = dict(zip(("route", "splits"), min2_mod.launch_plan(
+            b, rows, ep, sms)))
+        extra = {}
         if name == "min2":
             shift = K.packing_shift(L, rows)
             args = (q_emb, emb, zc, L, shift, True)
             fn, ref = (lambda: mods["min2"].min2(*args),
                        lambda: D.min2_reference(*args))
-            plan = dict(zip(("route", "splits"), min2_mod.launch_plan(
-                b, rows, ep, sms, chunked=True)))
             bnd = bound(b, rows, L, ep, out_bytes=3 * 4 * b)
-        else:
+        elif name == "kstats":
             ts = torch.tensor([[L * i // P] for i in range(1, P)] + [[L]],
                               dtype=torch.int32,
                               device=dev).expand(P, b).contiguous()
             args = (q_emb, emb, zc, ts, rows, L)
             fn, ref = (lambda: mods["kstats"].kstats(*args),
                        lambda: D.stats_reference(*args))
-            plan = live_plan(min2_mod, b, rows, ep, dev, chunked=True)
             bnd = bound(b, rows, L, ep, out_bytes=4 * (P + 1) * b,
                         extra_in_bytes=4 * P * b)
+        elif name == "compact_mask":
+            th, _ = D.kmode_phase1(
+                lambda t: mods["kstats"].kstats(q_emb, emb, zc, t, rows, L),
+                sizes.kmode_k, L + 1, rows, L, b, dev)
+            args = (q_emb, emb, zc, th.contiguous(), L)
+            fn, ref = (lambda: (mods["compact_mask"].compact_mask(*args),),
+                       lambda: (D.compact_mask_reference(*args),))
+            bnd = bound(b, rows, L, ep, out_bytes=b * rows // 8,
+                        extra_in_bytes=4 * b)
+            extra = {"k": sizes.kmode_k,
+                     "thresh_median": float(th.float().median())}
+        else:
+            shift = K.packing_shift(L, rows)
+            args = (q_emb, emb, zc, rows, L, shift, False)
+            fn, ref = (lambda: mods["min_count"].min_count(*args),
+                       lambda: D.min_count_reference(*args))
+            bnd = bound(b, rows, L, ep, out_bytes=4 * b)
         plain_ms, want = events_ms(ref)
         got = fn()
         torch.cuda.synchronize()
@@ -1811,14 +1840,16 @@ def long_route_kernels(sizes, D, K, mods: dict, min2_mod, dev,
                                  f"version at L={L}, B={b}")
         ms = time_ms(fn, sizes.long_reps)
         out[f"{name}_{L}"] = log_time(name, L, b, rows, ms, plain_ms, bnd,
-                                      cell="long_routes", exact=True, **plan)
+                                      cell="long_routes", exact=True, **plan,
+                                      **extra)
         del emb, zc, q_emb, args, got, want
         torch.cuda.empty_cache()
     return out
 
 
 def long_windows(sizes, cli, query_mod, select_mod, slab_mod, hitops, mods,
-                 D, K, min2_mod, dev, tmp: str, rng, card: str) -> dict:
+                 D, K, min2_mod, mc_mod, dev, tmp: str, rng,
+                 card: str) -> dict:
     """Phase 9: 5,242,880 windows of 150 bp through the CLI with no layout
     variable set. Global keys (8 distance bits + 24 index bits) do not
     pack, nor does smafa_tpu's 2^24-row span, so smafa_tpu would take its
@@ -1828,8 +1859,8 @@ def long_windows(sizes, cli, query_mod, select_mod, slab_mod, hitops, mods,
     the tiers' bytes equal, min2 once and kstats kstats_steps(150) = 4
     times per slab per batch, compact_mask launched, 64 sampled reads a
     run against the brute force; then each long-route kernel at these
-    shapes (``long_window_kernels``), and min2 and kstats at 300 and
-    29,903 bp (``long_route_kernels``)."""
+    shapes (``long_window_kernels``), and the kernels at
+    ``LONG_ROUTE_SHAPES`` (``long_route_kernels``)."""
     from smafa_tpu_torch.core.windowset import WindowSet
     from smafa_tpu_torch.io import native_format
 
@@ -1901,8 +1932,9 @@ def long_windows(sizes, cli, query_mod, select_mod, slab_mod, hitops, mods,
                                  reads["best"], reads["kmode"], slab_rows,
                                  dev)
     del codes, reads
-    timing.update(long_route_kernels(sizes, D, K, mods, min2_mod, dev,
-                                     int(rng.integers(1 << 31))))
+    timing.update(long_route_kernels(sizes, D, K,
+                                     {**mods, "min_count": mc_mod}, min2_mod,
+                                     dev, int(rng.integers(1 << 31))))
     log("long_windows", seconds=time.perf_counter() - t0, card=card)
     return timing
 
@@ -2510,17 +2542,12 @@ def layouts(sizes, cli, query_mod, mods: dict, dev, tmp: str, rng,
     log("layouts", seconds=time.perf_counter() - t0, card=card)
 
 
-def main() -> int:
-    if sys.argv[1:2] == ["--rank"]:
-        return rank_worker(sys.argv[2], sys.argv[3:])
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seed", type=int, default=0,
-                    help="seed of every generated db, query and threshold")
-    seed = ap.parse_args().seed
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
-        return 2
+def run_phases(seed: int, after=None) -> tuple[list, str]:
+    """Phases 0-12 in this process; ``after(phase)``, when given, is
+    called after each (tools/torch_trace_probe.py --after-phases traces
+    there). Returns the kernels' summary and the card's nvidia-smi
+    line."""
+    after = after or (lambda phase: None)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from smafa_tpu_torch import cli
     from smafa_tpu_torch.engine import cluster as cluster_mod, query as query_mod
@@ -2556,6 +2583,7 @@ def main() -> int:
                          text=True, check=True, timeout=60).stdout
     log("native_build", gxx=gxx.splitlines()[0],
         seconds=time.perf_counter() - t0, library=native.library_path().name)
+    after("build")
 
     # the query batch the CLI picks for this db (engine.query._auto_batch)
     sizes = smoke_sizes(query_mod)
@@ -2575,20 +2603,26 @@ def main() -> int:
                                            rng, rng_n)
     timing["kstats"] = kstats_parity(sizes, dev, D, K, ks_mod, min2_mod, rng_k,
                                      rng_s)
+    after("kernel_parity")
     with tempfile.TemporaryDirectory(prefix="smafa_smoke_") as tmp:
         e2e, codes, db = end_to_end(sizes, cli, query_mod, min2_mod,
                                     compact_mod, rng, tmp)
+        after("end_to_end")
         kmode_compact_parity(sizes, dev, D, K, ks_mod, compact_mod, hitops,
                              codes, rng_k)
         kmode = kmode_end_to_end(sizes, cli, query_mod, K, ks_mod,
                                  compact_mod, codes, db, tmp, rng_k)
+        after("kmode_end_to_end")
         clu, cluster_inp = cluster_end_to_end(
             sizes, cli, cluster_mod, mc_mod, D, K, dev, rng,
             np.random.default_rng([seed, 9]), tmp)
+        after("cluster_end_to_end")
         host_parity(sizes, query_mod, cluster_mod, e2e, cluster_inp, codes)
         del codes
+        after("host_parity")
         resume_phase(sizes, cli, query_mod, cluster_mod, dev, e2e, db,
                      cluster_inp, tmp)
+        after("resume")
         stream_mods = {"min2": min2_mod, "compact_mask": compact_mod,
                        "kstats": ks_mod}
         stream_parity(sizes, cli, query_mod, select_mod, stream_mods, e2e,
@@ -2596,18 +2630,23 @@ def main() -> int:
         stream_kept = stream_full(sizes, cli, query_mod, select_mod,
                                   slab_mod, stream_mods, dev, tmp,
                                   np.random.default_rng([seed, 10]), card)
+        after("stream")
         long_windows(sizes, cli, query_mod, select_mod, slab_mod, hitops,
-                     stream_mods, D, K, min2_mod, dev, tmp,
+                     stream_mods, D, K, min2_mod, mc_mod, dev, tmp,
                      np.random.default_rng([seed, 11]), card)
+        after("long_windows")
         cluster_spans(sizes, cli, cluster_mod, mc_mod, D, K, min2_mod, clu,
                       cluster_inp, dev, tmp, np.random.default_rng([seed, 12]),
                       card)
+        after("cluster_spans")
         mp_kept = multiprocess(sizes, cli, query_mod, cluster_mod,
                                {**stream_mods, "min_count": mc_mod}, dev, tmp,
                                np.random.default_rng([seed, 13]), card,
                                stream_kept, cluster_inp)
+        after("multiprocess")
         layouts(sizes, cli, query_mod, stream_mods, dev, tmp,
                 np.random.default_rng([seed, 14]), card, mp_kept, e2e, db)
+        after("layouts")
 
     launches = {"min2": e2e["launches"]["min2"],
                 "compact_mask": e2e["launches"]["compact_mask"],
@@ -2628,6 +2667,21 @@ def main() -> int:
          "bound_ms": timing[name]["bound_ms"],
          "bound_by": timing[name]["bound_by"], "library_ms": None}
         for name, (src, rep) in routes.items()]
+    return kernels, card
+
+
+def main() -> int:
+    if sys.argv[1:2] == ["--rank"]:
+        return rank_worker(sys.argv[2], sys.argv[3:])
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of every generated db, query and threshold")
+    seed = ap.parse_args().seed
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    kernels, card = run_phases(seed)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,8 @@
 // operations over 1,979 TOP/s, which is 1.04 ms at 4096 x 2^20 and
 // 2.08 ms at 8192 x 2^20 (L = 60). Its bytes (the db and its zc once,
 // the mask B * W / 8 once) take 0.24 and 0.40 ms at 3.35 TB/s. The first
-// version (compact_long_kernel below) took the dot products with __dp4a
-// on the CUDA cores and reached 2.35% of that bound.
+// version took the dot products with __dp4a on the CUDA cores and
+// reached 2.35% of that bound.
 //
 // What the design does about it (compact_split_kernel): it runs min2's
 // tensor-core tile and main loop (split_tile.cuh; see min2.cu, lever 3):
@@ -36,24 +36,20 @@
 // in the quad and storing each row's 32 bytes at once saved 1-2% for 88
 // bytes of spills, so the simple store stays (PERF.md, section 6).
 //
-// Longer windows (EP > 256) take compact_long_kernel, the first
-// version's loop, one split: each thread owns one window and
-// accumulates 32 query rows' dot products while K streams through shared
-// memory in 128-byte chunks; __ballot_sync packs 32 windows' compares
-// into a word.
+// Longer windows (EP > 256, L > 64) take compact_chunk_kernel: the same
+// grid, init and epilogue (MaskRows) on the K-chunked split tile
+// (split_tile.cuh kchunk_scan), one block an SM, form (a) with the query
+// rows resident up to EP = 672 (168 bp) and form (b) past it. It
+// replaces the first version's loop there (__dp4a on the CUDA cores,
+// one split; 2.5% of the bound at 150 bp).
 
 #include <climits>
 
-#include "scan_tile.cuh"
 #include "split_tile.cuh"
 
 namespace {
 
 using namespace split_tile;
-
-constexpr int THREADS = 256;  // long route: windows per block, one per thread
-constexpr int QT = 32;        // long route: query rows per block
-constexpr int KW = 32;        // long route: K chunk in 32-bit words
 
 // w |= bit where s >= bound: a compare and a predicated OR.
 __device__ __forceinline__ void set_if_ge(unsigned& w, int s, int bound,
@@ -62,6 +58,65 @@ __device__ __forceinline__ void set_if_ge(unsigned& w, int s, int bound,
       : "+r"(w)
       : "r"(s), "r"(bound), "r"(bit));
 }
+
+// A lane's rows i = 2m + h (row q0 + 16m + g + 8h = q0 + g + 8i) of the
+// mask: their bounds and where their words start.
+struct MaskRows {
+  int bound[4];
+  unsigned* out;  // row i's words at out + 8 * i * words
+  long words;
+
+  // dist <= thresh iff score >= seq_len - thresh (no int overflow: the
+  // bound is clamped to INT_MAX, above every score; rows at or past B
+  // get INT_MAX).
+  __device__ __forceinline__ void init(const int* thresh, unsigned* mask,
+                                       long q0, int g, int B, int W,
+                                       int seq_len) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const long row = q0 + g + 8 * i;
+      bound[i] = row < B ? (int)min((long long)INT_MAX,
+                                    (long long)seq_len - thresh[row])
+                         : INT_MAX;
+    }
+    words = W >> 5;
+    out = mask + (q0 + g) * words;
+  }
+
+  // The epilogue of db tile `tile` (acc[m][n][2h + c]: row i = 2m + h,
+  // tile column 8n + 2t + c, started at the column's zc, so it holds the
+  // window's score). Column 8n + 2t + c is bit 8(n % 4) + 2t + c of the
+  // row's word lo (n < 4) or hi (n >= 4): set at 8(n % 4) + c here,
+  // shifted by 2t below, then ORed over the four lanes t of the row, and
+  // one 8-byte store a row.
+  __device__ __forceinline__ void tile(const int (&acc)[2][8][4], int t,
+                                       long tile, long q0g, int B) {
+    unsigned lo[4] = {0u, 0u, 0u, 0u}, hi[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          set_if_ge(n < 4 ? lo[i] : hi[i], acc[i >> 1][n][2 * (i & 1) + c],
+                    bound[i], 1u << (8 * (n & 3) + c));
+        }
+      }
+    }
+    const long w32 = tile * (S_BN / 32);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      unsigned a = lo[i] << (2 * t), b = hi[i] << (2 * t);
+      a |= __shfl_xor_sync(0xffffffffu, a, 1);
+      b |= __shfl_xor_sync(0xffffffffu, b, 1);
+      a |= __shfl_xor_sync(0xffffffffu, a, 2);
+      b |= __shfl_xor_sync(0xffffffffu, b, 2);
+      if (t == 0 && q0g + 8 * i < B) {
+        *reinterpret_cast<uint2*>(out + 8 * i * words + w32) = make_uint2(a, b);
+      }
+    }
+  }
+};
 
 // mask: [B, W / 32] words; split blockIdx.y of gridDim.y.
 __global__ void __launch_bounds__(S_THREADS, S_BLOCKS_PER_SM)
@@ -98,20 +153,8 @@ __global__ void __launch_bounds__(S_THREADS, S_BLOCKS_PER_SM)
     cp_async_commit();
   }
 
-  // This lane's rows i = 2m + h are q0 + 16m + g + 8h = q0 + g + 8i.
-  // dist <= thresh iff score >= seq_len - thresh (no int overflow: the
-  // bound is clamped to INT_MAX, above every score).
-  int bound[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long row = q0 + g + 8 * i;
-    bound[i] = row < B ? (int)min((long long)INT_MAX,
-                                  (long long)seq_len - thresh[row])
-                       : INT_MAX;
-  }
-  const long words = W >> 5;
-  unsigned* out = mask + (q0 + g) * words;  // row i at + 8 * i * words
-
+  MaskRows rows;
+  rows.init(thresh, mask, q0, g, B, W, seq_len);
   // ldmatrix.x4 row addresses (split_tile.cuh).
   const int b_off = b_frag_offset(lane, stride);
   const int8_t* a_row = a_frag_row(sA, warp, lane, stride);
@@ -129,144 +172,86 @@ __global__ void __launch_bounds__(S_THREADS, S_BLOCKS_PER_SM)
     }
     if (!live) continue;  // the last query tile's rows past B
     const int8_t* sD = ring + (it % S_STAGES) * sbytes;
-    const int* sZ = reinterpret_cast<const int*>(sD + S_BN * stride);
-    // acc[m][n][2h + c]: row i = 2m + h, tile column 8n + 2t + c; it
-    // starts at the column's zc and ends as the window's score.
     int acc[2][8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int2 z = *reinterpret_cast<const int2*>(sZ + n * 8 + 2 * t);
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        acc[m][n][0] = acc[m][n][2] = z.x;
-        acc[m][n][1] = acc[m][n][3] = z.y;
-      }
-    }
+    acc_from_zc(acc, reinterpret_cast<const int*>(sD + S_BN * stride), t);
     tile_mma(acc, a_row, sD + b_off, stride, nks);
-    // Column 8n + 2t + c is bit 8(n % 4) + 2t + c of the row's word lo
-    // (n < 4) or hi (n >= 4): set at 8(n % 4) + c here, shifted by 2t
-    // below, then ORed over the four lanes t of the row.
-    unsigned lo[4] = {0u, 0u, 0u, 0u}, hi[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          set_if_ge(n < 4 ? lo[i] : hi[i], acc[i >> 1][n][2 * (i & 1) + c],
-                    bound[i], 1u << (8 * (n & 3) + c));
-        }
-      }
-    }
-    const long w32 = (long)(t_begin + it) * (S_BN / 32);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      unsigned a = lo[i] << (2 * t), b = hi[i] << (2 * t);
-      a |= __shfl_xor_sync(0xffffffffu, a, 1);
-      b |= __shfl_xor_sync(0xffffffffu, b, 1);
-      a |= __shfl_xor_sync(0xffffffffu, a, 2);
-      b |= __shfl_xor_sync(0xffffffffu, b, 2);
-      if (t == 0 && q0 + g + 8 * i < B) {
-        *reinterpret_cast<uint2*>(out + 8 * i * words + w32) = make_uint2(a, b);
-      }
-    }
+    rows.tile(acc, t, t_begin + it, q0 + g, B);
   }
   cp_async_wait<0>();
 }
 
-// Long windows (EP > S_KS * 32): the first version, one split. A grid
-// over (db tile of 256 windows, query tile of 32 rows); db rows padded
-// to 33 words in shared memory, so each thread reads its own row without
-// bank conflicts, and query words are broadcast.
-__global__ void __launch_bounds__(THREADS)
-    compact_long_kernel(const int* __restrict__ q, const int* __restrict__ db,
-                        const int* __restrict__ zc,
-                        const int* __restrict__ thresh, int* __restrict__ mask,
-                        int B, int W, int EP, int seq_len) {
-  __shared__ int sD[THREADS][KW + 1];
-  __shared__ int sQ[QT][KW];
-  const int tid = threadIdx.x;
-  const long w0 = (long)blockIdx.x * THREADS;
-  const long r0 = (long)blockIdx.y * QT;
-  const int q_valid = (int)min((long)QT, (long)B - r0);
-  const int words = EP / 4;
+// Long windows (EP > S_KS * 32): the K-chunked split tile, form (a) with
+// the query rows resident (QRES) or (b) streamed, on the split kernel's
+// grid, init and epilogue. Every warp copies and syncs inside
+// kchunk_scan; only warps with a row below B run the products.
+template <bool QRES>
+__global__ void __launch_bounds__(S_THREADS, K_BLOCKS_PER_SM)
+    compact_chunk_kernel(const int8_t* __restrict__ q,
+                         const int8_t* __restrict__ db,
+                         const int* __restrict__ zc,
+                         const int* __restrict__ thresh,
+                         unsigned* __restrict__ mask, int B, int W, int EP,
+                         int seq_len) {
+  extern __shared__ __align__(16) int8_t smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // mma groupID: fragment row / db column
+  const int t = lane & 3;   // mma threadID_in_group
+  const long q0 = (long)blockIdx.x * S_BM + warp * 32;
+  const int tiles = W / S_BN;
+  const int t_begin = (int)((long)tiles * blockIdx.y / gridDim.y);
+  const int nt = (int)((long)tiles * (blockIdx.y + 1) / gridDim.y) - t_begin;
 
-  int acc[QT];
-#pragma unroll
-  for (int r = 0; r < QT; ++r) acc[r] = 0;
+  MaskRows rows;
+  rows.init(thresh, mask, q0, g, B, W, seq_len);
+  kchunk_scan<QRES>(
+      smem, q, db, zc, (long)blockIdx.x * S_BM, B, EP, t_begin, nt, q0 < B,
+      [&](int (&acc)[2][8][4], const int* sZ) { acc_from_zc(acc, sZ, t); },
+      [&](const int (&acc)[2][8][4], const int*, int it) {
+        rows.tile(acc, t, t_begin + it, q0 + g, B);
+      });
+}
 
-  for (int k0 = 0; k0 < words; k0 += KW) {
-    const int kw = min(KW, words - k0);
-    __syncthreads();
-    for (int i = tid; i < THREADS * kw; i += THREADS) {
-      const int r = i / kw;
-      const int c = i - r * kw;
-      const long w = w0 + r;
-      sD[r][c] = w < W ? db[w * words + k0 + c] : 0;
-    }
-    for (int i = tid; i < QT * kw; i += THREADS) {
-      const int r = i / kw;
-      const int c = i - r * kw;
-      sQ[r][c] = r < q_valid ? q[(r0 + r) * words + k0 + c] : 0;
-    }
-    __syncthreads();
-    for (int c = 0; c < kw; ++c) {
-      const int d = sD[tid][c];
-#pragma unroll
-      for (int r = 0; r < QT; ++r) acc[r] = __dp4a(sQ[r][c], d, acc[r]);
-    }
-  }
-
-  const long w = w0 + tid;
-  const bool in_db = w < W;
-  const int z = in_db ? zc[w] : 0;
-  const long n_words = W >> 5;
-  const long word = w >> 5;  // the same for the whole warp
-#pragma unroll
-  for (int r = 0; r < QT; ++r) {
-    if (r < q_valid) {  // uniform across the block
-      const int dist = seq_len - acc[r] - z;
-      const unsigned bits =
-          __ballot_sync(0xffffffffu, in_db && dist <= thresh[r0 + r]);
-      if ((tid & 31) == 0 && word < n_words) {
-        mask[(r0 + r) * n_words + word] = (int)bits;
-      }
-    }
-  }
+template <class Kernel>
+cudaError_t launch(Kernel kernel, int smem, dim3 grid, const void* q,
+                   const void* db, const void* zc, const void* thresh,
+                   void* mask, int B, int W, int EP, int seq_len,
+                   cudaStream_t s) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, S_THREADS, smem, s>>>(
+      static_cast<const int8_t*>(q), static_cast<const int8_t*>(db),
+      static_cast<const int*>(zc), static_cast<const int*>(thresh),
+      static_cast<unsigned*>(mask), B, W, EP, seq_len);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Launch on `stream`. q: int8 [B, EP], db: int8 [W, EP], zc: int32 [W],
 // thresh: int32 [B], mask: int32 [B, W / 32]. Requires EP % 32 == 0,
-// W % 64 == 0, 16-byte aligned q and db, 1 <= splits <= W / 64 when
-// EP <= 256, and splits == 1 and B <= 65535 * 32 when EP > 256. Returns
-// the cudaError_t of the launch.
+// W % 64 == 0, 16-byte aligned q and db and 1 <= splits <= W / 64: the
+// split kernel up to EP = S_KS * 32, the K-chunked one past it, in form
+// (a) up to RESIDENT_EP_MAX. Returns the cudaError_t of the launch.
 extern "C" int smafa_compact_mask(const void* q, const void* db,
                                   const void* zc, const void* thresh,
                                   void* mask, int B, int W, int EP,
                                   int seq_len, int splits, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (EP > S_KS * 32) {
-    if (splits != 1) return (int)cudaErrorInvalidValue;
-    const dim3 grid((W + THREADS - 1) / THREADS, (B + QT - 1) / QT);
-    compact_long_kernel<<<grid, THREADS, 0, s>>>(
-        static_cast<const int*>(q), static_cast<const int*>(db),
-        static_cast<const int*>(zc), static_cast<const int*>(thresh),
-        static_cast<int*>(mask), B, W, EP, seq_len);
-    return (int)cudaGetLastError();
-  }
   if (W % S_BN || splits < 1 || splits > W / S_BN) {
     return (int)cudaErrorInvalidValue;
   }
-  const int smem = split_smem(EP);
-  const cudaError_t err = cudaFuncSetAttribute(
-      compact_split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  compact_split_kernel<<<dim3((B + S_BM - 1) / S_BM, splits), S_THREADS, smem,
-                         s>>>(
-      static_cast<const int8_t*>(q), static_cast<const int8_t*>(db),
-      static_cast<const int*>(zc), static_cast<const int*>(thresh),
-      static_cast<unsigned*>(mask), B, W, EP, seq_len);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((B + S_BM - 1) / S_BM, splits);
+  if (EP <= S_KS * 32) {
+    return (int)launch(compact_split_kernel, split_smem(EP), grid, q, db, zc,
+                       thresh, mask, B, W, EP, seq_len, s);
+  }
+  return (int)(EP <= RESIDENT_EP_MAX
+                   ? launch(compact_chunk_kernel<true>, kchunk_smem<true>(EP),
+                            grid, q, db, zc, thresh, mask, B, W, EP, seq_len,
+                            s)
+                   : launch(compact_chunk_kernel<false>,
+                            kchunk_smem<false>(EP), grid, q, db, zc, thresh,
+                            mask, B, W, EP, seq_len, s));
 }

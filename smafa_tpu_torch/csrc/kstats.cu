@@ -174,21 +174,6 @@ __device__ __forceinline__ int row_bound(const int* ts, long row, int B,
                : (int)min((long long)INT_MAX, b);
 }
 
-// acc[m][n][2h + c] = the zc of tile column 8n + 2t + c, so that after
-// the products it holds the window's score.
-__device__ __forceinline__ void acc_from_zc(int (&acc)[2][8][4],
-                                            const int* sZ, int t) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int2 z = *reinterpret_cast<const int2*>(sZ + n * 8 + 2 * t);
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      acc[m][n][0] = acc[m][n][2] = z.x;
-      acc[m][n][1] = acc[m][n][3] = z.y;
-    }
-  }
-}
-
 // Merge the 4 lanes (t = 0..3) that share each of the lane's rows q0 + g
 // + 8i and write split y's partials: the first flush writes the counts,
 // later ones add to them; mx from the running minimum score. The

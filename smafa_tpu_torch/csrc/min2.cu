@@ -69,25 +69,13 @@
 //
 #include <climits>
 
-#include "scan_tile.cuh"
 #include "split_tile.cuh"
 
 namespace {
 
-using scan_tile::BIG_KEY;
 using namespace split_tile;  // the tile's constants and copy helpers
 
 constexpr int MERGE_THREADS = 256;
-
-__device__ __forceinline__ void zero_acc(int (&acc)[2][8][4]) {
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0;
-    }
-  }
-}
 
 // A lane's running state of its rows i = 2m + h (row q0 + 16m + g + 8h)
 // over the db columns it owns (2t, 2t + 1 of every n-tile): the best

@@ -21,12 +21,12 @@
 //
 // What bounds it on the H100: the int8 contraction, 2 * B * n_valid * 4L
 // operations over 1,979 TOP/s (0.260 ms at 32768 x 32768 and 2 us at
-// 2048 x 4096, L = 60). The first version (min_count_kernel below)
-// reached 12.9% and 0.9% of that: its grid of ceil(B / 128) blocks each
-// walked every live row (16 blocks on 132 SMs at the cluster's first
-// batches of 2048 rows), it fed mma.sync from 32-bit shared loads behind
-// load-then-sync copies, and its epilogue built and compared a key per
-// column, behind a branch on n_valid, in every tile.
+// 2048 x 4096, L = 60). The first version reached 12.9% and 0.9% of
+// that: its grid of ceil(B / 128) blocks each walked every live row (16
+// blocks on 132 SMs at the cluster's first batches of 2048 rows), it fed
+// mma.sync from 32-bit shared loads behind load-then-sync copies, and
+// its epilogue built and compared a key per column, behind a branch on
+// n_valid, in every tile.
 //
 // What the design does about it (min_count_split_kernel):
 // 1. The split tile (split_tile.cuh; see min2.cu, lever 3) over the live
@@ -51,72 +51,143 @@
 //    scored INT_MIN (below every real score); every other tile runs
 //    without the branch.
 //
-// Longer windows (EP > 256) take min_count_kernel, the first version's
-// loop on scan_tile.cuh, one split.
+// Longer windows (EP > 256, L > 64) take min_count_chunk_kernel: the
+// same grid, epilogue (MinCountState), masked last tile and merge on the
+// K-chunked split tile (split_tile.cuh kchunk_scan), one block an SM,
+// form (a) with the query rows resident up to EP = 672 (168 bp) and form
+// (b) past it. It replaces the first version's loop there (one split;
+// 8.3% of the bound at 300 bp).
 
 #include <climits>
 
-#include "scan_tile.cuh"
 #include "split_tile.cuh"
 
 namespace {
 
-using scan_tile::BIG_KEY;
 using namespace split_tile;  // the tile's constants and helpers
 
 constexpr int MERGE_THREADS = 256;
 
-// Fold one tile into a lane's state of its rows i = 2m + h: the best
-// score, the key and (WITH_COUNT) the count at the best score.
-// acc[m][n][2h + c] is row i's dot with tile column 8n + 2t + c, w0 the
-// tile's first db row. MASKED: only columns below rem are live.
-template <bool WITH_COUNT, bool MASKED>
-__device__ __forceinline__ void fold_tile(const int (&acc)[2][8][4],
-                                          const int* sZ, int (&best)[4],
-                                          int (&key)[4], int (&cnt)[4], int w0,
-                                          int t, int rem, int seq_len,
-                                          int shift) {
-  int tb[4] = {INT_MIN, INT_MIN, INT_MIN, INT_MIN};
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int2 z = *reinterpret_cast<const int2*>(sZ + n * 8 + 2 * t);
-    const bool live0 = !MASKED || n * 8 + 2 * t < rem;
-    const bool live1 = !MASKED || n * 8 + 2 * t + 1 < rem;
+// A lane's running state of its rows i = 2m + h (row q0 + g + 8i) over
+// the db columns it owns (2t, 2t + 1 of every n-tile): the best score,
+// the key and (WITH_COUNT) the count at the best score.
+template <bool WITH_COUNT>
+struct MinCountState {
+  int best[4], key[4], cnt[4];
+
+  __device__ __forceinline__ void init() {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      if (live0) tb[i] = __viaddmax_s32(acc[i >> 1][n][2 * (i & 1)], z.x, tb[i]);
-      if (live1) tb[i] = __viaddmax_s32(acc[i >> 1][n][2 * (i & 1) + 1], z.y, tb[i]);
+      best[i] = INT_MIN;
+      key[i] = BIG_KEY;
+      cnt[i] = 0;
     }
   }
-  auto reaches = [&](int i) {
-    return WITH_COUNT ? tb[i] >= best[i] : tb[i] > best[i];
-  };
-  if (reaches(0) | reaches(1) | reaches(2) | reaches(3)) {  // rare after the first tiles
+
+  // Fold one tile: acc[m][n][2h + c] is row i's dot with tile column 8n
+  // + 2t + c, sZ the tile's zc, w0 its first db row. MASKED: only
+  // columns below rem are live.
+  template <bool MASKED>
+  __device__ __forceinline__ void fold(const int (&acc)[2][8][4],
+                                       const int* sZ, int w0, int t, int rem,
+                                       int seq_len, int shift) {
+    int tb[4] = {INT_MIN, INT_MIN, INT_MIN, INT_MIN};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      // a masked tile may hold no live column of this lane
-      if (!reaches(i) || (MASKED && tb[i] == INT_MIN)) continue;
-      if (tb[i] > best[i]) {
-        best[i] = tb[i];
-        key[i] = BIG_KEY;
-        cnt[i] = 0;
+    for (int n = 0; n < 8; ++n) {
+      const int2 z = *reinterpret_cast<const int2*>(sZ + n * 8 + 2 * t);
+      const bool live0 = !MASKED || n * 8 + 2 * t < rem;
+      const bool live1 = !MASKED || n * 8 + 2 * t + 1 < rem;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (live0) tb[i] = __viaddmax_s32(acc[i >> 1][n][2 * (i & 1)], z.x, tb[i]);
+        if (live1) tb[i] = __viaddmax_s32(acc[i >> 1][n][2 * (i & 1) + 1], z.y, tb[i]);
       }
-      const int kd = (seq_len - tb[i]) << shift;
+    }
+    auto reaches = [&](int i) {
+      return WITH_COUNT ? tb[i] >= best[i] : tb[i] > best[i];
+    };
+    if (reaches(0) | reaches(1) | reaches(2) | reaches(3)) {  // rare after the first tiles
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int i = 0; i < 4; ++i) {
+        // a masked tile may hold no live column of this lane
+        if (!reaches(i) || (MASKED && tb[i] == INT_MIN)) continue;
+        if (tb[i] > best[i]) {
+          best[i] = tb[i];
+          key[i] = BIG_KEY;
+          cnt[i] = 0;
+        }
+        const int kd = (seq_len - tb[i]) << shift;
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int col = n * 8 + 2 * t + c;
-          if ((!MASKED || col < rem) &&
-              acc[i >> 1][n][2 * (i & 1) + c] + sZ[col] == tb[i]) {
-            key[i] = min(key[i], kd | (w0 + col));
-            if (WITH_COUNT) ++cnt[i];
+        for (int n = 0; n < 8; ++n) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int col = n * 8 + 2 * t + c;
+            if ((!MASKED || col < rem) &&
+                acc[i >> 1][n][2 * (i & 1) + c] + sZ[col] == tb[i]) {
+              key[i] = min(key[i], kd | (w0 + col));
+              if (WITH_COUNT) ++cnt[i];
+            }
           }
         }
       }
     }
   }
-}
+
+  // The tile from db row w0; `masked`: the last live tile, partial.
+  __device__ __forceinline__ void tile(const int (&acc)[2][8][4],
+                                       const int* sZ, int w0, int t,
+                                       bool masked, int rem, int seq_len,
+                                       int shift) {
+    if (masked) {
+      fold<true>(acc, sZ, w0, t, rem, seq_len, shift);
+    } else {
+      fold<false>(acc, sZ, w0, t, rem, seq_len, shift);
+    }
+  }
+
+  // Merge the 4 lanes (t = 0..3) that share each row (a better best
+  // takes its count, an equal one adds it) and write the rows below B of
+  // the warp from q0 at out0 (split y's partials, or the outputs).
+  __device__ __forceinline__ void store(int* key_out, int* cnt_out,
+                                        long out0, long q0, int g, int t,
+                                        int B) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const int okey = __shfl_xor_sync(0xffffffffu, key[i], off);
+        if (WITH_COUNT) {
+          const int ob = __shfl_xor_sync(0xffffffffu, best[i], off);
+          const int ocnt = __shfl_xor_sync(0xffffffffu, cnt[i], off);
+          cnt[i] = ob > best[i] ? ocnt : (ob == best[i] ? cnt[i] + ocnt : cnt[i]);
+          best[i] = max(best[i], ob);
+        }
+        key[i] = min(key[i], okey);
+      }
+      const long row = q0 + g + 8 * i;
+      if (t == 0 && row < B) {
+        key_out[out0 + row] = key[i];
+        if (WITH_COUNT) cnt_out[out0 + row] = cnt[i];
+      }
+    }
+  }
+};
+
+// Split y's run of the live tiles (tiles = ceil(n_valid / 64)): tiles
+// [t_begin, t_begin + nt), and the index in it of the last live tile,
+// partial unless n_valid fills it (the last split owns it as its last
+// tile), or -1.
+struct LiveRun {
+  int t_begin, nt, rem, masked_it;
+  __device__ __forceinline__ LiveRun(int n_valid) {
+    const int tiles = (n_valid + S_BN - 1) / S_BN;
+    const int S = gridDim.y, y = blockIdx.y;
+    t_begin = (int)((long)tiles * y / S);
+    nt = (int)((long)tiles * (y + 1) / S) - t_begin;
+    rem = n_valid - (tiles - 1) * S_BN;
+    masked_it = (y == S - 1 && rem < S_BN) ? nt - 1 : -1;
+  }
+};
 
 // key_out (and with the count cnt_out): [S, B] partials, split y at
 // y * B, or the final [B] outputs when S == 1. Split blockIdx.y of
@@ -141,14 +212,8 @@ __global__ void __launch_bounds__(S_THREADS, S_BLOCKS_PER_SM)
   const int t = lane & 3;   // mma threadID_in_group
   const long q0 = (long)blockIdx.x * S_BM + warp * 32;
   const bool live = q0 < B;  // the warp has a row below B
-  const int tiles = (n_valid + S_BN - 1) / S_BN;
-  const int S = gridDim.y, y = blockIdx.y;
-  const int t_begin = (int)((long)tiles * y / S);
-  const int nt = (int)((long)tiles * (y + 1) / S) - t_begin;
-  // The last live tile is partial unless n_valid fills it; the last
-  // split owns it as its last tile.
-  const int rem = n_valid - (tiles - 1) * S_BN;
-  const int masked_it = (y == S - 1 && rem < S_BN) ? nt - 1 : -1;
+  const LiveRun run(n_valid);
+  const int t_begin = run.t_begin, nt = run.nt;
 
   // The query tile, zero past B, joins the first tile's copy group.
   issue_queries(sA, q, (long)blockIdx.x * S_BM, B, EP, stride);
@@ -161,15 +226,8 @@ __global__ void __launch_bounds__(S_THREADS, S_BLOCKS_PER_SM)
     cp_async_commit();
   }
 
-  // Running state of this lane's rows i = 2m + h (row q0 + g + 8i) over
-  // the db columns it owns (2t, 2t + 1 of every n-tile).
-  int best[4], key[4], cnt[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    best[i] = INT_MIN;
-    key[i] = BIG_KEY;
-    cnt[i] = 0;
-  }
+  MinCountState<WITH_COUNT> st;
+  st.init();
   // ldmatrix.x4 row addresses (split_tile.cuh).
   const int b_off = b_frag_offset(lane, stride);
   const int8_t* a_row = a_frag_row(sA, warp, lane, stride);
@@ -187,43 +245,50 @@ __global__ void __launch_bounds__(S_THREADS, S_BLOCKS_PER_SM)
     }
     if (!live) continue;  // the last query tile's rows past B
     const int8_t* sD = ring + (it % S_STAGES) * sbytes;
-    const int* sZ = reinterpret_cast<const int*>(sD + S_BN * stride);
-    const int w0 = (t_begin + it) * S_BN;
     int acc[2][8][4] = {};
     tile_mma(acc, a_row, sD + b_off, stride, nks);
-    if (it == masked_it) {
-      fold_tile<WITH_COUNT, true>(acc, sZ, best, key, cnt, w0, t, rem,
-                                  seq_len, shift);
-    } else {
-      fold_tile<WITH_COUNT, false>(acc, sZ, best, key, cnt, w0, t, rem,
-                                   seq_len, shift);
-    }
+    st.tile(acc, reinterpret_cast<const int*>(sD + S_BN * stride),
+            (t_begin + it) * S_BN, t, it == run.masked_it, run.rem, seq_len,
+            shift);
   }
   cp_async_wait<0>();
   if (!live) return;
+  st.store(key_out, cnt_out, (long)blockIdx.y * B, q0, g, t, B);
+}
 
-  // Merge the 4 lanes (t = 0..3) that share each row: a better best
-  // takes its count, an equal one adds it.
-  const long out0 = (long)y * B;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      const int okey = __shfl_xor_sync(0xffffffffu, key[i], off);
-      if (WITH_COUNT) {
-        const int ob = __shfl_xor_sync(0xffffffffu, best[i], off);
-        const int ocnt = __shfl_xor_sync(0xffffffffu, cnt[i], off);
-        cnt[i] = ob > best[i] ? ocnt : (ob == best[i] ? cnt[i] + ocnt : cnt[i]);
-        best[i] = max(best[i], ob);
-      }
-      key[i] = min(key[i], okey);
-    }
-    const long row = q0 + g + 8 * i;
-    if (t == 0 && row < B) {
-      key_out[out0 + row] = key[i];
-      if (WITH_COUNT) cnt_out[out0 + row] = cnt[i];
-    }
-  }
+// Long windows (EP > S_KS * 32): the K-chunked split tile, form (a) with
+// the query rows resident (QRES) or (b) streamed, on the split kernel's
+// grid over the live tiles, epilogue, masked last tile and outputs.
+// Every warp copies and syncs inside kchunk_scan; only warps with a row
+// below B run the products.
+template <bool QRES, bool WITH_COUNT>
+__global__ void __launch_bounds__(S_THREADS, K_BLOCKS_PER_SM)
+    min_count_chunk_kernel(const int8_t* __restrict__ q,
+                           const int8_t* __restrict__ db,
+                           const int* __restrict__ zc,
+                           int* __restrict__ key_out,
+                           int* __restrict__ cnt_out, int B, int n_valid,
+                           int EP, int seq_len, int shift) {
+  extern __shared__ __align__(16) int8_t smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // mma groupID: fragment row / db column
+  const int t = lane & 3;   // mma threadID_in_group
+  const long q0 = (long)blockIdx.x * S_BM + warp * 32;
+  const bool live = q0 < B;  // the warp has a row below B
+  const LiveRun run(n_valid);
+
+  MinCountState<WITH_COUNT> st;
+  st.init();
+  kchunk_scan<QRES>(
+      smem, q, db, zc, (long)blockIdx.x * S_BM, B, EP, run.t_begin, run.nt,
+      live, [](int (&acc)[2][8][4], const int*) { zero_acc(acc); },
+      [&](const int (&acc)[2][8][4], const int* sZ, int it) {
+        st.tile(acc, sZ, (run.t_begin + it) * S_BN, t, it == run.masked_it,
+                run.rem, seq_len, shift);
+      });
+  if (!live) return;
+  st.store(key_out, cnt_out, (long)blockIdx.y * B, q0, g, t, B);
 }
 
 // part: int32 [S, B] key partials of the S splits, then, with the
@@ -248,151 +313,42 @@ __global__ void min_count_merge_kernel(const int* __restrict__ part,
   }
 }
 
-// Long windows (EP > S_KS * 32): the first version, one split. A block
-// of scan_tile::BM rows walks every live db tile; outputs final.
-template <bool WITH_COUNT>
-__global__ void __launch_bounds__(scan_tile::THREADS)
-    min_count_kernel(const int8_t* __restrict__ q,
-                     const int8_t* __restrict__ db,
-                     const int* __restrict__ zc, int* __restrict__ key_out,
-                     int* __restrict__ cnt_out, int B, int n_valid, int EP,
-                     int seq_len, int shift, int kc_max) {
-  using namespace scan_tile;
-  extern __shared__ __align__(16) int8_t smem[];
-  const bool resident = kc_max == EP;
-  const int stride = kc_max + PAD;
-  int8_t* sQ = smem;
-  int8_t* sD = smem + BM * stride;
-  int* sZ = reinterpret_cast<int*>(sD + BN * stride);
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // mma groupID: fragment row / db column
-  const int t = lane & 3;   // mma threadID_in_group
-  const long q0 = (long)blockIdx.x * BM;
-  const int q_valid = min((long)BM, (long)B - q0);
-
-  // Running state for this lane's two rows (warp*16 + g and + 8) over
-  // the db columns it owns (2t, 2t+1 of every n-tile).
-  int key[2] = {BIG_KEY, BIG_KEY};
-  int cnt[2] = {0, 0};
-  int curd[2] = {0x7fffffff, 0x7fffffff};
-
-  if (resident) load_tile(sQ, q, q0, BM, q_valid, EP, 0, EP, stride);
-
-  // The last tile may reach past n_valid but stays inside the buffer,
-  // whose row count is a multiple of BN.
-  for (int w0 = 0; w0 < n_valid; w0 += BN) {
-    int acc[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0;
-    }
-    for (int k0 = 0; k0 < EP; k0 += kc_max) {
-      const int kc = min(kc_max, EP - k0);
-      __syncthreads();  // the previous tile's readers are done
-      if (!resident) load_tile(sQ, q, q0, BM, q_valid, EP, k0, kc, stride);
-      load_tile(sD, db, w0, BN, BN, EP, k0, kc, stride);
-      if (k0 == 0 && threadIdx.x < BN) sZ[threadIdx.x] = zc[w0 + threadIdx.x];
-      __syncthreads();
-      const int8_t* qa = sQ + (warp * 16 + g) * stride + (resident ? k0 : 0);
-      const int8_t* qb = qa + 8 * stride;
-      for (int kk = 0; kk < kc; kk += 32) {
-        uint32_t a[4];
-        a[0] = *reinterpret_cast<const uint32_t*>(qa + kk + t * 4);
-        a[1] = *reinterpret_cast<const uint32_t*>(qb + kk + t * 4);
-        a[2] = *reinterpret_cast<const uint32_t*>(qa + kk + 16 + t * 4);
-        a[3] = *reinterpret_cast<const uint32_t*>(qb + kk + 16 + t * 4);
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          const int8_t* bp = sD + (n * 8 + g) * stride + kk + t * 4;
-          uint32_t b[2];
-          b[0] = *reinterpret_cast<const uint32_t*>(bp);
-          b[1] = *reinterpret_cast<const uint32_t*>(bp + 16);
-          mma_s8(acc[n], a, b);
-        }
-      }
-    }
-    // Epilogue. Accumulator r of n-tile n holds row g + 8 * (r >> 1),
-    // db column n * 8 + 2t + (r & 1).
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int col = n * 8 + 2 * t + (r & 1);
-        const int w = w0 + col;
-        if (w < n_valid) {
-          const int i = r >> 1;
-          const int dist = seq_len - acc[n][r] - sZ[col];
-          key[i] = min(key[i], (dist << shift) | w);
-          if (WITH_COUNT) {
-            cnt[i] = dist < curd[i] ? 1 : cnt[i] + (dist == curd[i] ? 1 : 0);
-            curd[i] = min(curd[i], dist);
-          }
-        }
-      }
-    }
-  }
-
-  // Merge the 4 lanes (t = 0..3) that share each row: the smaller
-  // distance keeps its count, equal distances add theirs.
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      const int okey = __shfl_xor_sync(0xffffffffu, key[i], off);
-      if (WITH_COUNT) {
-        const int ocnt = __shfl_xor_sync(0xffffffffu, cnt[i], off);
-        const int ocurd = __shfl_xor_sync(0xffffffffu, curd[i], off);
-        cnt[i] = ocurd < curd[i] ? ocnt
-                                 : (ocurd == curd[i] ? cnt[i] + ocnt : cnt[i]);
-        curd[i] = min(curd[i], ocurd);
-      }
-      key[i] = min(key[i], okey);
-    }
-    const int row = warp * 16 + g + 8 * i;
-    if (t == 0 && row < q_valid) {
-      key_out[q0 + row] = key[i];
-      if (WITH_COUNT) cnt_out[q0 + row] = cnt[i];
-    }
-  }
-}
-
-template <bool WITH_COUNT>
-cudaError_t launch_long(const int8_t* q, const int8_t* db, const int* zc,
-                        int* key, int* cnt, int B, int n_valid, int EP,
-                        int seq_len, int shift, cudaStream_t s) {
-  const int kc_max = scan_tile::pick_kc(EP);
-  const size_t smem = scan_tile::smem_bytes(kc_max);
+template <class Kernel>
+cudaError_t launch(Kernel kernel, int smem, dim3 grid, const int8_t* q,
+                   const int8_t* db, const int* zc, int* key, int* cnt,
+                   int B, int n_valid, int EP, int seq_len, int shift,
+                   cudaStream_t s) {
   const cudaError_t err = cudaFuncSetAttribute(
-      min_count_kernel<WITH_COUNT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  min_count_kernel<WITH_COUNT>
-      <<<(B + scan_tile::BM - 1) / scan_tile::BM, scan_tile::THREADS, smem, s>>>(
-          q, db, zc, key, cnt, B, n_valid, EP, seq_len, shift, kc_max);
+  kernel<<<grid, S_THREADS, smem, s>>>(q, db, zc, key, cnt, B, n_valid, EP,
+                                       seq_len, shift);
   return cudaGetLastError();
 }
 
-// The split kernel; with splits > 1 it writes part = key [, cnt] x
-// [splits, B] and the merge follows.
+// The split kernel up to EP = S_KS * 32, the K-chunked one past it, in
+// form (a) up to RESIDENT_EP_MAX; with splits > 1 it writes part = key
+// [, cnt] x [splits, B] and the merge follows.
 template <bool WITH_COUNT>
 cudaError_t launch_split(const int8_t* q, const int8_t* db, const int* zc,
                          int* key, int* cnt, int* part, int B, int n_valid,
                          int EP, int seq_len, int shift, int splits,
                          cudaStream_t s) {
-  const int smem = split_smem(EP);
-  cudaError_t err = cudaFuncSetAttribute(
-      min_count_split_kernel<WITH_COUNT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
   const bool direct = splits == 1;
-  min_count_split_kernel<WITH_COUNT>
-      <<<dim3((B + S_BM - 1) / S_BM, splits), S_THREADS, smem, s>>>(
-          q, db, zc, direct ? key : part,
-          direct ? cnt : part + (long)splits * B, B, n_valid, EP, seq_len,
-          shift);
-  err = cudaGetLastError();
+  int* key_o = direct ? key : part;
+  int* cnt_o = direct ? cnt : part + (long)splits * B;
+  const dim3 grid((B + S_BM - 1) / S_BM, splits);
+  const cudaError_t err =
+      EP <= S_KS * 32
+          ? launch(min_count_split_kernel<WITH_COUNT>, split_smem(EP), grid, q,
+                   db, zc, key_o, cnt_o, B, n_valid, EP, seq_len, shift, s)
+      : EP <= RESIDENT_EP_MAX
+          ? launch(min_count_chunk_kernel<true, WITH_COUNT>,
+                   kchunk_smem<true>(EP), grid, q, db, zc, key_o, cnt_o, B,
+                   n_valid, EP, seq_len, shift, s)
+          : launch(min_count_chunk_kernel<false, WITH_COUNT>,
+                   kchunk_smem<false>(EP), grid, q, db, zc, key_o, cnt_o, B,
+                   n_valid, EP, seq_len, shift, s);
   if (err != cudaSuccess || direct) return err;
   min_count_merge_kernel<<<(B + MERGE_THREADS - 1) / MERGE_THREADS,
                            MERGE_THREADS, 0, s>>>(part, key, cnt, B, splits,
@@ -406,9 +362,9 @@ cudaError_t launch_split(const int8_t* q, const int8_t* db, const int* zc,
 // key and cnt: int32 [B], cnt written (and read as a pointer) only when
 // with_count; part: int32 [with_count ? 2 : 1, splits, B] scratch when
 // splits > 1 (else unused). Requires EP % 32 == 0, W % 64 == 0,
-// B >= 1, 1 <= n_valid <= W, 16-byte aligned q and db,
-// 1 <= splits <= ceil(n_valid / 64) when EP <= 256 and splits == 1 when
-// EP > 256. Returns the cudaError_t of the launches.
+// B >= 1, 1 <= n_valid <= W, 16-byte aligned q and db and
+// 1 <= splits <= ceil(n_valid / 64). Returns the cudaError_t of the
+// launches.
 extern "C" int smafa_min_count(const void* q, const void* db, const void* zc,
                                void* key, void* cnt, void* part, int B,
                                int n_valid, int EP, int seq_len, int shift,
@@ -421,13 +377,6 @@ extern "C" int smafa_min_count(const void* q, const void* db, const void* zc,
   int* cp = static_cast<int*>(cnt);
   int* pp = static_cast<int*>(part);
   if (B < 1 || n_valid < 1) return (int)cudaErrorInvalidValue;
-  if (EP > S_KS * 32) {
-    if (splits != 1) return (int)cudaErrorInvalidValue;
-    return (int)(with_count ? launch_long<true>(qp, dp, zp, kp, cp, B, n_valid,
-                                                EP, seq_len, shift, s)
-                            : launch_long<false>(qp, dp, zp, kp, cp, B, n_valid,
-                                                 EP, seq_len, shift, s));
-  }
   if (splits < 1 || splits > (n_valid + S_BN - 1) / S_BN) {
     return (int)cudaErrorInvalidValue;
   }

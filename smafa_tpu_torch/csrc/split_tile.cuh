@@ -3,23 +3,23 @@
 // warp) and walks a contiguous run of whole S_BN-row db tiles (one db
 // split of a ceil(B / S_BM) x S grid); mma.sync fragments come from
 // ldmatrix.x4 on shared rows padded by S_PAD bytes, so each B fragment
-// feeds two products and each A fragment eight. Two forms:
+// feeds two products and each A fragment eight. Two forms, and every
+// kernel runs both:
 //
-// - The short route (EP <= S_KS * 32 bytes, L <= 64; all four
-//   kernels): the block's query rows, whole, stay in shared memory and
-//   whole db tiles arrive with their zc by cp.async in an S_STAGES ring
-//   (issue_tile, issue_queries, tile_mma, split_smem).
-// - The K-chunked route (EP > 256, L > 64; min2 and kstats): a row is
-//   walked in chunks of K_CHUNK = 256 bytes (the last one may be
-//   partial: EP = 608 at 150 bp gives 8, 8 and 3 k-steps), the
-//   accumulators live across the chunks of one db tile and the caller's
-//   epilogue runs after its last chunk (kchunk_scan). What bounded the
-//   first versions' loops there (scan_tile.cuh): ceil(B / 128) blocks
-//   with one db split (32 blocks on 132 SMs at B = 4096), 32-bit
-//   shared fragment loads, and load-then-sync copies that never
-//   overlapped the products. A whole row no longer fits beside a ring
-//   of whole tiles (256 x 624 B of queries plus 2 x 40 KB at 150 bp is
-//   past the 227 KB a block can use), hence the chunks, in two forms,
+// - The short route (EP <= S_KS * 32 bytes, L <= 64): the block's query
+//   rows, whole, stay in shared memory and whole db tiles arrive with
+//   their zc by cp.async in an S_STAGES ring (issue_tile, issue_queries,
+//   tile_mma, split_smem).
+// - The K-chunked route (EP > 256, L > 64): a row is walked in chunks of
+//   K_CHUNK = 256 bytes (the last one may be partial: EP = 608 at 150 bp
+//   gives 8, 8 and 3 k-steps), the accumulators live across the chunks
+//   of one db tile and the caller's epilogue runs after its last chunk
+//   (kchunk_scan). What bounded the first versions' loops there:
+//   ceil(B / 128) blocks with one db split (32 blocks on 132 SMs at B =
+//   4096), 32-bit shared fragment loads, and load-then-sync copies that
+//   never overlapped the products. A whole row no longer fits beside a
+//   ring of whole tiles (256 x 624 B of queries plus 2 x 40 KB at 150 bp
+//   is past the 227 KB a block can use), hence the chunks, in two forms,
 //   both one block an SM (K_BLOCKS_PER_SM):
 //   (a) the query rows stay resident (S_BM x (EP + 16) B) and db
 //       chunks stream through a KQ_STAGES ring; each db byte copied
@@ -45,8 +45,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "scan_tile.cuh"
-
 namespace split_tile {
 
 constexpr int S_WARPS = 8;
@@ -65,6 +63,17 @@ constexpr int K_BLOCKS_PER_SM = 1;          // resident blocks, either form
 constexpr int KQ_STAGES = 3;                // (a): db chunk ring depth
 constexpr int KS_STAGES = 2;                // (b): query + db chunk ring
 constexpr int RESIDENT_EP_MAX = 672;        // (a) fits 232,448 B up to here
+constexpr int BIG_KEY = 0x7fffffff;         // the empty packed key
+
+// c += a . b: the int8 tensor-core product mma.sync.m16n8k32 s8.s8 -> s32.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -186,8 +195,33 @@ __device__ __forceinline__ void chunk_mma(int (&acc)[2][8][4],
       for (int n = 0; n < 8; ++n) {
         const uint32_t b[2] = {p[n >> 1][2 * (n & 1)], p[n >> 1][2 * (n & 1) + 1]};
 #pragma unroll
-        for (int m = 0; m < 2; ++m) scan_tile::mma_s8(acc[m][n], af[m], b);
+        for (int m = 0; m < 2; ++m) mma_s8(acc[m][n], af[m], b);
       }
+    }
+  }
+}
+
+// acc[m][n][2h + c] = 0, or the zc of tile column 8n + 2t + c (sZ the
+// tile's 64 zc), so that after the products it holds the window's score.
+__device__ __forceinline__ void zero_acc(int (&acc)[2][8][4]) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0;
+    }
+  }
+}
+
+__device__ __forceinline__ void acc_from_zc(int (&acc)[2][8][4],
+                                            const int* sZ, int t) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int2 z = *reinterpret_cast<const int2*>(sZ + n * 8 + 2 * t);
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      acc[m][n][0] = acc[m][n][2] = z.x;
+      acc[m][n][1] = acc[m][n][3] = z.y;
     }
   }
 }

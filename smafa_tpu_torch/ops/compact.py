@@ -15,9 +15,6 @@ from smafa_tpu_torch.ops import distance as D
 from smafa_tpu_torch.ops.min2 import check_operands, launch_plan, sm_count
 
 launches = 0
-# The long-window route's grid.y limit times its query tile; the split
-# route takes more.
-MAX_ROWS = 65535 * 32
 
 
 def compact_mask(q_emb: torch.Tensor, db_emb: torch.Tensor,
@@ -31,8 +28,6 @@ def compact_mask(q_emb: torch.Tensor, db_emb: torch.Tensor,
             or thresh.device != q_emb.device or not thresh.is_contiguous()):
         raise ValueError("thresh must be a contiguous int32 [B] tensor "
                          "on the operands' device")
-    if b > MAX_ROWS:
-        raise ValueError(f"at most {MAX_ROWS} query rows per call")
     if q_emb.device.type == "cpu":
         return D.compact_mask_reference(q_emb, db_emb, zc, thresh, seq_len)
     if not q_emb.is_cuda:

@@ -48,8 +48,7 @@ def kstats(q_emb: torch.Tensor, db_emb: torch.Tensor, zc: torch.Tensor,
     if not q_emb.is_cuda:
         raise ValueError(f"no kstats kernel for device {q_emb.device}")
     ep = q_emb.shape[1]
-    _, s = M.live_plan(b, n_valid, ep, M.sm_count(q_emb.device),
-                       chunked=True)
+    _, s = M.live_plan(b, n_valid, ep, M.sm_count(q_emb.device))
     if s == 0:
         return (torch.zeros((KSTATS_PROBES, b), dtype=torch.int32,
                             device=q_emb.device),

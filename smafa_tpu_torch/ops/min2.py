@@ -19,11 +19,10 @@ launches = 0
 
 # The split tile (csrc/split_tile.cuh), which the plan mirrors: query
 # rows per block, blocks resident on one SM and the widest embedding of
-# the short route (L <= 64). Past it min2 and kstats run the K-chunked
+# the short route (L <= 64). Past it all four kernels run the K-chunked
 # tile, one block an SM, with the query rows resident up to
 # RESIDENT_EP_MAX (L <= 168, route "kchunk") and streamed past it
-# ("kchunk_stream"); compact_mask and min_count keep their one-split
-# long-window loop ("long").
+# ("kchunk_stream").
 BM = 256
 BLOCKS_PER_SM = 2
 SPLIT_EP_MAX = 256
@@ -53,36 +52,31 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def launch_plan(b: int, wp: int, ep: int, sms: int,
-                chunked: bool = False) -> tuple[str, int]:
-    """(route, db splits) of a launch on a card with ``sms`` SMs: windows
-    up to 64 bp (EP <= SPLIT_EP_MAX) take the split tile ("split") with
-    ``split_count`` splits over the card's resident block slots. Longer
-    ones take, in the kernels with a K-chunked route (``chunked``: min2
-    and kstats), "kchunk" up to RESIDENT_EP_MAX and "kchunk_stream" past
-    it, with ``split_count`` splits over one block an SM; in the others
-    (compact_mask, min_count) the one-split long-window loop ("long",
-    1)."""
+def launch_plan(b: int, wp: int, ep: int, sms: int) -> tuple[str, int]:
+    """(route, db splits) of a launch of any of the four kernels on a
+    card with ``sms`` SMs: windows up to 64 bp (EP <= SPLIT_EP_MAX) take
+    the split tile ("split") with ``split_count`` splits over the card's
+    resident block slots; longer ones the K-chunked tile, "kchunk" up to
+    RESIDENT_EP_MAX and "kchunk_stream" past it, with ``split_count``
+    splits over one block an SM."""
     if ep <= SPLIT_EP_MAX:
         return "split", split_count(b, wp, sms * BLOCKS_PER_SM)
-    if not chunked:
-        return "long", 1
     route = "kchunk" if ep <= RESIDENT_EP_MAX else "kchunk_stream"
     return route, split_count(b, wp, sms * CHUNK_BLOCKS_PER_SM)
 
 
-def live_plan(b: int, n_valid: int, ep: int, sms: int,
-              chunked: bool = False) -> tuple[str, int]:
+def live_plan(b: int, n_valid: int, ep: int,
+              sms: int) -> tuple[str, int]:
     """(route, db splits) of a kstats or min_count call, which scan only
     the first ``n_valid`` db rows, on a card with ``sms`` SMs: ("none",
     0) when there is nothing to scan (b == 0 or n_valid == 0), which
     launches nothing; else ``launch_plan`` over the live 64-row tiles
     only, ceil(n_valid / 64) of them, so no split walks the buffer past
-    n_valid. kstats passes ``chunked``, min_count does not."""
+    n_valid."""
     if b == 0 or n_valid == 0:
         return "none", 0
     live = -(-n_valid // D.WP_MULTIPLE) * D.WP_MULTIPLE
-    return launch_plan(b, live, ep, sms, chunked)
+    return launch_plan(b, live, ep, sms)
 
 
 def check_operands(q_emb: torch.Tensor, db_emb: torch.Tensor,
@@ -133,7 +127,7 @@ def min2(q_emb: torch.Tensor, db_emb: torch.Tensor, zc: torch.Tensor,
     if b == 0:
         return (lo, hi, cnt) if with_count else (lo, hi)
     ep = q_emb.shape[1]
-    _, s = launch_plan(b, wp, ep, sm_count(q_emb.device), chunked=True)
+    _, s = launch_plan(b, wp, ep, sm_count(q_emb.device))
     # the splits' partials; the caching allocator ties it to this stream
     part = torch.empty((3, s, b), dtype=torch.int32,
                        device=q_emb.device) if s > 1 else None

@@ -51,16 +51,28 @@ def _port_mask(port, db, q, th, seq_len, nw, wp):
 
 
 @pytest.mark.parametrize("seq_len,nw", [(60, 2048), (60, 2011), (13, 1000),
-                                        (3, 512), (100, 1024)])
+                                        (3, 512), (100, 1024), (300, 1024)])
 def test_mask_equals_pallas(port, seq_len, nw):
+    """compact_mask_pallas takes windows up to 127 bp
+    (pallas_scan.py:embed_db_with_zc); smafa_tpu builds the mask of
+    longer ones (300 bp here) with its XLA fold, mask_fold_chunk, which
+    is then the reference."""
     b = 48
     db, q, th, wp = _case(seq_len, nw, b, nw)
     got = _port_mask(port, db, q, th, seq_len, nw, wp).numpy()
-    want = np.asarray(PS.compact_mask_pallas(
-        PS.embed_query_with_one(jnp.asarray(q), seq_len),
-        PS.embed_db_with_zc(jnp.asarray(db), seq_len, nw),
-        jnp.asarray(th), seq_len, tile_b=16, tile_w=512 if wp % 512 == 0 else wp,
-        interpret=True))
+    if seq_len <= 127:
+        want = np.asarray(PS.compact_mask_pallas(
+            PS.embed_query_with_one(jnp.asarray(q), seq_len),
+            PS.embed_db_with_zc(jnp.asarray(db), seq_len, nw),
+            jnp.asarray(th), seq_len, tile_b=16,
+            tile_w=512 if wp % 512 == 0 else wp, interpret=True))
+    else:
+        dist = D0.pairwise_distances(D0.expand_onehot(q, seq_len),
+                                     D0.expand_onehot(db, seq_len), seq_len)
+        want = np.asarray(D0.mask_fold_chunk(
+            jnp.zeros((b, wp // 32), jnp.uint32), dist,
+            jnp.arange(wp, dtype=jnp.int32), nw, jnp.asarray(th), 0,
+            "reduce"))
     np.testing.assert_array_equal(got.view(np.uint32), want)
 
 
@@ -119,36 +131,3 @@ def test_compact_rejects_bad_operands(port, bad):
         q_emb, emb, zc, thresh = (t.to("meta") for t in (q_emb, emb, zc, thresh))
     with pytest.raises((TypeError, ValueError)):
         port.C.compact_mask(q_emb, emb, zc, thresh, 13)
-
-
-@pytest.mark.parametrize("b,wp,want", [(4096, 1 << 20, 16), (8192, 1 << 20, 8),
-                                       (1, 70016, 264), (77, 70016, 264)])
-def test_compact_plan_covers_the_db(port, b, wp, want):
-    """The split route's db splits at the compaction's shapes (the query
-    smoke's 4096 tie rows and K-mode's 8192 rows x 2^20 windows: 16 x 16
-    and 32 x 8 blocks; B = 1 and 77 x 70,001 rows) on an H100's 132 SMs:
-    1 <= S <= tiles, and the kernel's cut (split i of S walks tiles
-    tiles * i // S up to tiles * (i + 1) // S) gives every split a tile
-    and every 64-row tile one split."""
-    route, s = port.C.launch_plan(b, wp, 256, 132)
-    tiles = wp // WP_MULTIPLE
-    assert route == "split" and s == want and 1 <= s <= tiles
-    cover = np.zeros(tiles, np.int64)
-    for i in range(s):
-        t0, t1 = tiles * i // s, tiles * (i + 1) // s
-        assert t1 > t0
-        cover[t0:t1] += 1
-    assert (cover == 1).all()
-
-
-def test_compact_plan_routes_by_width(port):
-    """Windows past 64 bp (EP > 256) take the long route with one split;
-    up to 64 bp the split route, at any batch."""
-    for seq_len in (3, 60, 64, 65, 150, 300):
-        ep = port.D.embed_width(seq_len)
-        for b in (1, 77, 4096, 65535 * 32):
-            route, s = port.C.launch_plan(b, 70016, ep, 132)
-            if seq_len > 64:
-                assert (route, s) == ("long", 1)
-            else:
-                assert route == "split" and 1 <= s <= 70016 // WP_MULTIPLE

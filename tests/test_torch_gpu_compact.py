@@ -6,7 +6,8 @@ against 70,001 rows (S > 1 splits, which do not divide the 1,094 tiles;
 B = 300 leaves the last query tile mostly past B) and B = 1 against 5
 tiles (one tile per split), with thresholds that set many bits; then
 every row off, every real window on, and a db of one repeated row. The
-long route (dp4a) at L = 150 and 300.
+K-chunked route (past 64 bp) at L = 150 and 300, at the plan's splits;
+tests/test_torch_gpu_compact_long.py holds it in depth.
 
 Marked ``gpu``: each test skips where no CUDA device is visible. Run with
 ``python -m pytest --noconftest -m gpu tests/test_torch_gpu*.py``; the
@@ -100,12 +101,16 @@ def test_compact_kernel_extreme_thresholds(cuda, kind):
 
 @pytest.mark.parametrize("seq_len", [150, 300])
 def test_compact_long_route_equals_plain(cuda, seq_len):
-    """Windows past 64 bp take the dp4a loop, one split; thresholds mix
-    -1 and 0..L."""
+    """Windows past 64 bp take the K-chunked route (form (a) at 150 bp,
+    (b) at 300), with the plan's splits over one block an SM;
+    thresholds mix -1 and 0..L."""
     nw, b = 4000, 77
     rng = np.random.default_rng(seq_len)
     emb, zc, q_emb, _ = operands(cuda, seq_len, nw, b, seq_len)
-    assert _plan(cuda, b, emb.shape[0], q_emb.shape[1]) == ("long", 1)
+    route, s = _plan(cuda, b, emb.shape[0], q_emb.shape[1])
+    assert route == ("kchunk" if seq_len <= 168 else "kchunk_stream")
+    assert s == cuda.M.split_count(b, emb.shape[0],
+                                   cuda.M.sm_count(cuda.dev)) > 1
     got = _mask(cuda, q_emb, emb, zc, rng.integers(-1, seq_len + 1, b),
                 seq_len)
     assert _row_bits(got).max() > nw // 2

@@ -30,7 +30,7 @@ BIG = (1 << 20) + 37
 
 
 def _plan(g, b, n_valid, ep):
-    return g.M.live_plan(b, n_valid, ep, g.M.sm_count(g.dev), chunked=True)
+    return g.M.live_plan(b, n_valid, ep, g.M.sm_count(g.dev))
 
 
 def _stats(g, q_emb, emb, zc, ts, n_valid, seq_len):

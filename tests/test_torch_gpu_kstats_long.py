@@ -54,7 +54,7 @@ def _held(g, q_emb, emb, zc, ts, n_valid, seq_len, splits=(1, 7)):
     ts = torch.from_numpy(np.ascontiguousarray(ts, np.int32)).to(g.dev)
     want = g.D.stats_reference(q_emb, emb, zc, ts, n_valid, seq_len)
     b, ep = q_emb.shape
-    route, s = g.M.live_plan(b, n_valid, ep, g.M.sm_count(g.dev), chunked=True)
+    route, s = g.M.live_plan(b, n_valid, ep, g.M.sm_count(g.dev))
     tiles = -(-n_valid // WP_MULTIPLE)
     assert route == ("kchunk" if ep <= 672 else "kchunk_stream")
     assert 1 <= s <= tiles

@@ -55,7 +55,7 @@ def _held(g, q_emb, emb, zc, seq_len, shift, with_count):
     torch = g.torch
     want = g.D.min2_reference(q_emb, emb, zc, seq_len, shift, with_count)
     b, wp, ep = q_emb.shape[0], emb.shape[0], q_emb.shape[1]
-    route, s = g.M.launch_plan(b, wp, ep, g.M.sm_count(g.dev), chunked=True)
+    route, s = g.M.launch_plan(b, wp, ep, g.M.sm_count(g.dev))
     assert route == _route(ep) and 1 <= s <= wp // WP_MULTIPLE
     for splits in sorted({1, s, min(7, wp // WP_MULTIPLE)}):
         got = _launch(g, q_emb, emb, zc, seq_len, shift, with_count, splits)

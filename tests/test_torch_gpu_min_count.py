@@ -9,7 +9,8 @@ last tile partial); n_valid = 37 (one partial tile), 64 x 47 exactly and
 3001 in a longer buffer whose rows past n_valid are exact copies of the
 queries; a db of one repeated row (the counts of every split add up to
 n_valid); a db whose only exact match is its last live row; 63 and
-64 bp. Windows past 64 bp keep the first version's loop, one split.
+64 bp. Windows past 64 bp take the K-chunked route at the plan's
+splits (tests/test_torch_gpu_min_count_long.py holds it in depth).
 
 Marked ``gpu``: each test skips where no CUDA device is visible. Run with
 ``python -m pytest --noconftest -m gpu tests/test_torch_gpu*.py``; the
@@ -63,8 +64,7 @@ def test_min_count_kernel_equals_plain(cuda, seq_len):
     """A 5056-row buffer whose every row is live: the scan sees only the
     first n_valid (3001 is not a multiple of the 64-row tile; 0 gives the
     empty-row sentinels and no launch). B = 300 is not a multiple of
-    either route's query block (256 rows up to 64 bp, 128 past it);
-    L = 300 streams K."""
+    the query block (256 rows); L = 300 streams query and db chunks."""
     torch = cuda.torch
     rng = np.random.default_rng(seq_len)
     wp, b = 5056, 300
@@ -188,12 +188,15 @@ def test_min_count_split_route_at_63_and_64_bp(cuda):
 
 @pytest.mark.parametrize("seq_len", [150, 300])
 def test_min_count_long_route_equals_plain(cuda, seq_len):
-    """Windows past 64 bp take the first version's loop with one split."""
+    """Windows past 64 bp take the K-chunked route (form (a) at 150 bp,
+    (b) at 300) with the plan's splits over one block an SM."""
     nw, b = 9000, 77
     rng = np.random.default_rng(seq_len)
     buf = rng.integers(0, 5, (nw, seq_len), dtype=np.uint8)
     q = buf[rng.integers(0, nw, b)].copy()
     q[rng.random(q.shape) < 0.05] = 0
     emb, zc, q_emb, shift = _embed(cuda, buf, q, seq_len)
-    assert _plan(cuda, b, 8999, q_emb.shape[1]) == ("long", 1)
+    route, s = _plan(cuda, b, 8999, q_emb.shape[1])
+    assert route == ("kchunk" if seq_len <= 168 else "kchunk_stream")
+    assert s == cuda.M.split_count(b, 9024, cuda.M.sm_count(cuda.dev)) > 1
     _scan(cuda, q_emb, emb, zc, 8999, seq_len, shift)

@@ -95,8 +95,7 @@ def test_kstats_plan_routes_by_width(port):
         ep = port.D.embed_width(seq_len)
         for b in (1, 77, 16384):
             for n_valid in (37, 3001, BIG):
-                route, s = port.M.live_plan(b, n_valid, ep, H100_SMS,
-                                            chunked=True)
+                route, s = port.M.live_plan(b, n_valid, ep, H100_SMS)
                 tiles = -(-n_valid // WP_MULTIPLE)
                 if seq_len > 168:
                     assert route == "kchunk_stream" and 1 <= s <= tiles
@@ -107,8 +106,7 @@ def test_kstats_plan_routes_by_width(port):
                 if seq_len > 64:
                     assert s == port.M.split_count(b, tiles * WP_MULTIPLE,
                                                    H100_SMS)
-            assert port.M.live_plan(b, 0, ep, H100_SMS,
-                                    chunked=True) == ("none", 0)
+            assert port.M.live_plan(b, 0, ep, H100_SMS) == ("none", 0)
 
 
 def _case(seq_len, wp, b, n_valid, seed, far=False):

@@ -4,13 +4,11 @@ CUDA sources.
 
 ``ops/min2.py``'s ``launch_plan`` and ``live_plan`` are the one plan of
 every wrapper. Up to EP = 256 bytes (L <= 64) every kernel takes the
-split tile at two blocks an SM. Past it min2 and kstats (``chunked``)
-take the K-chunked tile at one block an SM: "kchunk", query rows
-resident, up to EP = 672 (the widest whose rows and a 3-stage ring of
-db chunks fit the 232,448 bytes a block can use), and "kchunk_stream"
-past it, with ``split_count`` splits over the live 64-row tiles;
-compact_mask and min_count keep their one-split loop ("long", 1), and
-their C entries refuse more splits there.
+split tile at two blocks an SM. Past it every kernel takes the
+K-chunked tile at one block an SM: "kchunk", query rows resident, up to
+EP = 672 (the widest whose rows and a 3-stage ring of db chunks fit the
+232,448 bytes a block can use), and "kchunk_stream" past it, with
+``split_count`` splits over the live 64-row tiles.
 
 torch is imported by the ``port`` fixture, not at collection (see
 test_torch_min2.py)."""
@@ -51,8 +49,8 @@ def _plans(port, b, rows, ep):
     """(route, splits) of each kernel at b reads x rows (rows live, a
     multiple of 64 for min2 and compact_mask)."""
     M = port.M
-    return {"min2": M.launch_plan(b, rows, ep, H100_SMS, chunked=True),
-            "kstats": M.live_plan(b, rows, ep, H100_SMS, chunked=True),
+    return {"min2": M.launch_plan(b, rows, ep, H100_SMS),
+            "kstats": M.live_plan(b, rows, ep, H100_SMS),
             "compact_mask": M.launch_plan(b, rows, ep, H100_SMS),
             "min_count": M.live_plan(b, rows, ep, H100_SMS)}
 
@@ -63,8 +61,8 @@ def _plans(port, b, rows, ep):
 def test_routes_at_the_boundaries(port, ep, want):
     """EP 256 (64 bp), 288 (the first K-chunked width, 65-72 bp), 672
     (168 bp, form (a)'s last), 704 (the 32-byte step past it) and 119,616
-    (29,903 bp): min2 and kstats take the route named, with splits over
-    one block an SM; compact_mask and min_count one split past 64 bp."""
+    (29,903 bp): all four kernels take the route named, past 64 bp with
+    splits over one block an SM."""
     M = port.M
     for b, rows in ((1, 64), (77, 32768), (1024, 32768), (4096, 2621440),
                     (32768, 2621440), (65536, 64)):
@@ -74,8 +72,6 @@ def test_routes_at_the_boundaries(port, ep, want):
             if ep <= M.SPLIT_EP_MAX:
                 assert route == "split", kernel
                 assert s == M.split_count(b, rows, H100_SMS * M.BLOCKS_PER_SM)
-            elif kernel in ("compact_mask", "min_count"):
-                assert (route, s) == ("long", 1), kernel
             else:
                 assert route == want, kernel
                 assert s == M.split_count(b, rows,
@@ -91,7 +87,7 @@ def test_chunk_splits_fill_one_wave_and_never_exceed_the_live_tiles(port):
     for ep in (288, 608, 1216, 119616):
         for b in (1, 77, 256, 1024, 4096, 32768, 33792, 1 << 20):
             for n_valid in (1, 37, 64, 3001, 32768, 2621440):
-                route, s = M.live_plan(b, n_valid, ep, H100_SMS, chunked=True)
+                route, s = M.live_plan(b, n_valid, ep, H100_SMS)
                 tiles = -(-n_valid // WP_MULTIPLE)
                 qtiles = -(-b // M.BM)
                 assert route.startswith("kchunk") and 1 <= s <= tiles
@@ -100,20 +96,21 @@ def test_chunk_splits_fill_one_wave_and_never_exceed_the_live_tiles(port):
                 else:
                     assert qtiles * s <= H100_SMS
                     assert s == tiles or qtiles * (s + 1) > H100_SMS
-    assert M.launch_plan(32768, 2621440, 608, H100_SMS, chunked=True) == ("kchunk", 1)
-    assert M.live_plan(4096, 2621440, 608, H100_SMS, chunked=True) == ("kchunk", 8)
-    assert M.live_plan(1024, 32768, 119616, H100_SMS, chunked=True) == (
+    assert M.launch_plan(32768, 2621440, 608, H100_SMS) == ("kchunk", 1)
+    assert M.live_plan(4096, 2621440, 608, H100_SMS) == ("kchunk", 8)
+    assert M.live_plan(1024, 32768, 119616, H100_SMS) == (
         "kchunk_stream", 33)
-    assert M.live_plan(0, 32768, 608, H100_SMS, chunked=True) == ("none", 0)
-    assert M.live_plan(77, 0, 608, H100_SMS, chunked=True) == ("none", 0)
+    assert M.live_plan(0, 32768, 608, H100_SMS) == ("none", 0)
+    assert M.live_plan(77, 0, 608, H100_SMS) == ("none", 0)
 
 
 def test_mirrored_constants_equal_the_sources(port):
     """ops/min2.py's BM, BLOCKS_PER_SM, SPLIT_EP_MAX, CHUNK_BLOCKS_PER_SM
     and RESIDENT_EP_MAX are split_tile.cuh's S_WARPS * 32,
     S_BLOCKS_PER_SM, S_KS * 32, K_BLOCKS_PER_SM and RESIDENT_EP_MAX; the
-    chunk kernels launch with K_BLOCKS_PER_SM and the split kernels with
-    S_BLOCKS_PER_SM."""
+    chunk kernels of all four sources launch with K_BLOCKS_PER_SM and
+    switch forms at RESIDENT_EP_MAX, and no first-version loop is left
+    (scan_tile.cuh is gone)."""
     M = port.M
     c = _constants("split_tile.cuh")
     assert M.BM == c["S_WARPS"] * 32
@@ -122,13 +119,16 @@ def test_mirrored_constants_equal_the_sources(port):
     assert "constexpr int K_CHUNK = S_KS * 32;" in (CSRC / "split_tile.cuh").read_text()
     assert M.CHUNK_BLOCKS_PER_SM == c["K_BLOCKS_PER_SM"]
     assert M.RESIDENT_EP_MAX == c["RESIDENT_EP_MAX"]
-    for src in ("min2.cu", "kstats.cu"):
+    for src in ("min2.cu", "kstats.cu", "compact.cu", "min_count.cu"):
         text = (CSRC / src).read_text()
         assert "__launch_bounds__(S_THREADS, K_BLOCKS_PER_SM)" in text
         assert "EP <= RESIDENT_EP_MAX" in text
-        assert "launch_long" not in text and "scan_tile::pick_kc" not in text
+        assert "launch_long" not in text and "scan_tile" not in text
     assert "min2_long_kernel" not in (CSRC / "min2.cu").read_text()
     assert "kstats_kernel(" not in (CSRC / "kstats.cu").read_text()
+    assert "compact_long_kernel" not in (CSRC / "compact.cu").read_text()
+    assert "min_count_kernel" not in (CSRC / "min_count.cu").read_text()
+    assert not (CSRC / "scan_tile.cuh").exists()
 
 
 def test_form_a_limit_is_the_widest_that_fits(port):
@@ -152,17 +152,16 @@ def test_form_a_limit_is_the_widest_that_fits(port):
 
 
 def test_wrappers_plan_by_kernel(port):
-    """min2 and kstats ask for the K-chunked plan, compact_mask and
-    min_count do not, and the C entries of the latter two still refuse
-    more than one split past 64 bp; min2's and kstats' accept them."""
+    """Every wrapper asks for the one plan (no per-kernel argument), and
+    no C entry refuses more than one split past 64 bp: each checks only
+    1 <= splits <= the (live) 64-row tiles."""
     src = {m: inspect.getsource(f) for m, f in (
         ("min2", port.M.min2), ("kstats", port.KS.kstats),
         ("compact_mask", port.C.compact_mask), ("min_count", port.MC.min_count))}
-    assert "chunked=True" in src["min2"] and "chunked=True" in src["kstats"]
-    assert "chunked" not in src["compact_mask"] + src["min_count"]
-    for name in ("compact.cu", "min_count.cu"):
+    assert "chunked" not in "".join(src.values())
+    assert "chunked" not in inspect.signature(port.M.launch_plan).parameters
+    assert "chunked" not in inspect.signature(port.M.live_plan).parameters
+    for name in ("min2.cu", "kstats.cu", "compact.cu", "min_count.cu"):
         text = (CSRC / name).read_text()
-        assert re.search(r"if \(EP > S_KS \* 32\) \{\s+if \(splits != 1\) "
-                         r"return \(int\)cudaErrorInvalidValue;", text), name
-    for name in ("min2.cu", "kstats.cu"):
-        assert "splits != 1" not in (CSRC / name).read_text()
+        assert "splits != 1" not in text, name
+        assert re.search(r"splits < 1 \|\| splits > ", text), name

@@ -5,7 +5,8 @@ calls too) cuts only the live 64-row tiles, ceil(n_valid / 64) of
 them, into splits the way the kernel does (split y of S walks tiles
 tiles * y // S up to tiles * (y + 1) // S): every live tile once, none
 past n_valid's, one split when the query tiles fill the card's block
-slots, the long route past 64 bp, no launch at n_valid = 0. The merge the kernel does (the min of the splits' keys;
+slots, the K-chunked route past 64 bp, no launch at n_valid = 0. The
+merge the kernel does (the min of the splits' keys;
 with the count, the sum of the counts of the splits whose partial
 distance is the row's minimum) is held on plain tensors:
 ``min_count_reference`` over each split's rows, merged, equals
@@ -108,17 +109,23 @@ def test_min_count_plan_one_split_when_query_tiles_fill_the_slots(port):
 
 
 def test_min_count_plan_routes_by_width(port):
-    """Past 64 bp (EP > 256) the long route with one split, at any batch
-    and n_valid; up to 64 bp the split route."""
+    """Past 64 bp (EP > 256) the K-chunked route, "kchunk" up to 168 bp
+    and "kchunk_stream" past it, with splits over one block an SM and at
+    most one a live tile, at any batch and n_valid; up to 64 bp the split
+    route."""
     for seq_len in (3, 60, 63, 64, 65, 150, 300):
         ep = port.D.embed_width(seq_len)
         for b in (1, 77, 2048, 32768):
             for n_valid in (1, 37, 4096, 29321):
                 route, s = port.M.live_plan(b, n_valid, ep, H100_SMS)
+                tiles = -(-n_valid // 64)
+                assert 1 <= s <= tiles
                 if seq_len > 64:
-                    assert (route, s) == ("long", 1)
+                    assert route == ("kchunk" if seq_len <= 168
+                                     else "kchunk_stream")
+                    assert s == port.M.split_count(b, tiles * 64, H100_SMS)
                 else:
-                    assert route == "split" and 1 <= s <= -(-n_valid // 64)
+                    assert route == "split"
 
 
 def _merged_splits(port, q_emb, emb, zc, n_valid, seq_len, shift, s,
@@ -181,13 +188,14 @@ def _case(seq_len, wp, b, n_valid, seed):
 
 
 @pytest.mark.parametrize("with_count", [True, False])
-@pytest.mark.parametrize("seq_len", [3, 60, 150])
+@pytest.mark.parametrize("seq_len", [3, 60, 150, 300])
 def test_split_merge_equals_whole_and_min_count_scan(port, seq_len,
                                                      with_count):
     """n_valid = 517 of a 640-row live buffer (9 tiles, the last holding
-    5 live rows): on 132 SMs one tile per split, on 2 SMs 4 splits that do
-    not divide the tiles. The long route (L = 150) runs one split, so the
-    merge is held at the split route's plans for L = 60."""
+    5 live rows), at the plan of this width: on 132 SMs one tile per
+    split; on 2 SMs (split route, two blocks an SM) or 4 SMs (K-chunked
+    route past 64 bp, one block an SM) 4 splits that do not divide the
+    tiles."""
     wp, b, n_valid = 640, 40, 517
     buf, q = _case(seq_len, wp, b, n_valid, seq_len + with_count)
     from_numpy = port.torch.from_numpy
@@ -197,9 +205,11 @@ def test_split_merge_equals_whole_and_min_count_scan(port, seq_len,
     want = _pallas(buf, q, n_valid, seq_len)
     whole = port.D.min_count_reference(q_emb, emb, zc, n_valid, seq_len,
                                        shift, with_count)
-    for sms, s in ((2, 4), (H100_SMS, 9)):
-        assert port.M.live_plan(b, n_valid, port.D.embed_width(60),
-                                   sms) == ("split", s)
+    route = ("split" if seq_len <= 64 else
+             "kchunk" if seq_len <= 168 else "kchunk_stream")
+    for sms, s in ((2 if seq_len <= 64 else 4, 4), (H100_SMS, 9)):
+        assert port.M.live_plan(b, n_valid, port.D.embed_width(seq_len),
+                                sms) == (route, s)
         got = _merged_splits(port, q_emb, emb, zc, n_valid, seq_len, shift,
                              s, with_count)
         assert len(got) == len(whole) == 1 + with_count

@@ -1,10 +1,13 @@
-"""min2 and kstats past 64 bp (their long routes) on a card: each call held
-exactly to its plain version, then timed by CUDA events.
+"""The four kernels past 64 bp (their long routes) on a card: each call
+held exactly to its plain version, then timed by CUDA events.
 
 Shapes (B reads x rows, L): phase 9 of chip_smoke.py at 150 bp (min2
 32768 x 2,621,440, kstats 4096 x 2,621,440 at the first cutoff pass's
-probes), and 300 bp and 29,903 bp (phase 12 (b)'s width) at 4096 reads
-for min2 and 1024 for kstats x 32,768 rows. The db is random codes
+probes, compact_mask 2048 x 2,621,440 at the reads' K = 99 cutoffs),
+and 300 bp and 29,903 bp (phase 12 (b)'s width) at 4096 reads for min2
+and compact_mask (1024 at 29,903 bp) and 1024 for kstats x 32,768 rows;
+min_count without the count at the cluster's 32768 x 32768 (150 bp) and
+at phase 10 (b)'s span, 32768 x 2^22 (300 bp). The db is random codes
 0-3 with a tenth of its rows copies of row 3; reads are db rows with
 about 5% substitutions, the first 4 copies of row 3; all from --seed on
 the card.
@@ -13,7 +16,8 @@ Default: the package of the checkout at ``--root`` (this one unless
 given: the parent's tree, for a change against its parent in one call)
 through its wrappers, which build its kernels; one JSON line a shape.
 
-``--forms``: builds this checkout's csrc/min2.cu and csrc/kstats.cu as
+``--forms`` (min2 and kstats): builds this checkout's csrc/min2.cu and
+csrc/kstats.cu as
 they are and copies patched to run form (b) of the K-chunked tile (query
 and db chunks streamed) at every EP (one nvcc each, all started
 together), then times form (a) (query rows resident) against form (b)
@@ -44,7 +48,12 @@ _HERE = pathlib.Path(__file__).resolve().parent.parent
 # (kernel, L, B, rows, reps)
 SHAPES = [("min2", 150, 32768, 2_621_440, 3), ("kstats", 150, 4096, 2_621_440, 3),
           ("min2", 300, 4096, 32768, 5), ("kstats", 300, 1024, 32768, 5),
-          ("min2", 29903, 4096, 32768, 2), ("kstats", 29903, 1024, 32768, 2)]
+          ("min2", 29903, 4096, 32768, 2), ("kstats", 29903, 1024, 32768, 2),
+          ("compact_mask", 150, 2048, 2_621_440, 3),
+          ("compact_mask", 300, 4096, 32768, 5),
+          ("compact_mask", 29903, 1024, 32768, 2),
+          ("min_count", 150, 32768, 32768, 5),
+          ("min_count", 300, 32768, 1 << 22, 2)]
 # the text of each source that picks form (a), and form (b) forced
 FORM_B = ("EP <= RESIDENT_EP_MAX", "false")
 PEAK_INT8_OPS = 1.979e15  # H100 SXM dense int8 tensor-core peak, op/s
@@ -95,17 +104,18 @@ def bound_ms(b: int, rows: int, L: int) -> float:
 
 
 def plan(M, b, rows, ep, dev, kernel):
-    """(route, splits) of the wrapper's launch; the parent's plan takes no
-    ``chunked``."""
-    fn = M.live_plan if kernel == "kstats" else M.launch_plan
-    kw = ({"chunked": True} if "chunked" in inspect.signature(fn).parameters
-          else {})
+    """(route, splits) of the wrapper's launch. In a tree whose plan takes
+    ``chunked`` (one before compact_mask and min_count had a K-chunked
+    route), min2 and kstats pass it."""
+    fn = M.live_plan if kernel in ("kstats", "min_count") else M.launch_plan
+    kw = ({"chunked": True} if kernel in ("min2", "kstats")
+          and "chunked" in inspect.signature(fn).parameters else {})
     return fn(b, rows, ep, M.sm_count(dev), **kw)
 
 
 def run_wrappers(args, torch, dev) -> list[dict]:
-    from smafa_tpu_torch.ops import distance as D, keys as K, kstats as KS
-    from smafa_tpu_torch.ops import min2 as M
+    from smafa_tpu_torch.ops import compact as C, distance as D, keys as K
+    from smafa_tpu_torch.ops import kstats as KS, min2 as M, min_count as MC
 
     out = []
     for kernel, L, b, rows, reps in SHAPES:
@@ -116,9 +126,18 @@ def run_wrappers(args, torch, dev) -> list[dict]:
         if kernel == "min2":
             fn = lambda: M.min2(q_emb, emb, zc, L, shift, True)  # noqa: E731
             ref = lambda: D.min2_reference(q_emb, emb, zc, L, shift, True)  # noqa: E731
-        else:
+        elif kernel == "kstats":
             fn = lambda: KS.kstats(q_emb, emb, zc, ts, rows, L)  # noqa: E731
             ref = lambda: D.stats_reference(q_emb, emb, zc, ts, rows, L)  # noqa: E731
+        elif kernel == "compact_mask":
+            th, _ = D.kmode_phase1(
+                lambda t: KS.kstats(q_emb, emb, zc, t, rows, L), 99, L + 1,
+                rows, L, b, dev)
+            fn = lambda: (C.compact_mask(q_emb, emb, zc, th, L),)  # noqa: E731
+            ref = lambda: (D.compact_mask_reference(q_emb, emb, zc, th, L),)  # noqa: E731
+        else:
+            fn = lambda: MC.min_count(q_emb, emb, zc, rows, L, shift, False)  # noqa: E731
+            ref = lambda: D.min_count_reference(q_emb, emb, zc, rows, L, shift, False)  # noqa: E731
         want = ref()
         got = fn()
         torch.cuda.synchronize()
@@ -185,7 +204,8 @@ def run_forms(args, torch, dev) -> list[dict]:
               flush=True)
         for kernel, L, b, rows, reps in SHAPES:
             ep = D.embed_width(L)
-            if L not in args.only or ep > M.RESIDENT_EP_MAX:
+            if (L not in args.only or ep > M.RESIDENT_EP_MAX
+                    or kernel not in ("min2", "kstats")):
                 continue
             emb, zc, q_emb, shift, ts = operands(torch, D, K, L, b, rows,
                                                  args.seed, dev)

@@ -15,23 +15,39 @@ Chrome trace back:
   new stream;
 - ``pipelined_after_cuda_only``: ``pipelined`` after a
   ``torch.profiler.profile`` session with CUDA activity only (as
-  chip_smoke.py's ``device_ms`` takes them).
+  chip_smoke.py's ``device_ms`` takes them);
+- ``after_<n>_kernels``: ``pipelined`` after n (10^4, 10^5, 10^6)
+  one-element CUDA kernels launched with no session open, as a long
+  process runs between traces; then ``..._again`` right after it; then
+  ``after_10^6_kernels_cuda_only``: the 10^6 kernels, an empty
+  CUDA-only session, then ``pipelined``.
 
 Prints one JSON line a scenario: the port's launches in the block, the
 trace's kernel events of each port kernel and in all, the kernel events
-per stream, and the warning ``maybe_trace`` logged (null if none); then
-the card's name and power limit. Run from the repository root:
+per stream, the spread of each kernel's start minus its launch's
+(``launch_to_start_us``: negative means the card's timestamps run ahead
+of the host's), and the warning ``maybe_trace`` logged (null if none);
+then the card's name and power limit. Run from the repository root:
 ``python3 tools/torch_trace_probe.py``.
+
+``--after-phases OUT``: instead, runs chip_smoke.py's phases in this
+process (``chip_smoke.run_phases``) and ``pipelined`` traced after each,
+to find the phase after which a trace loses kernel events; each line
+adds the phase and the process's seconds so far, and the lines also go
+to the file OUT (chip_smoke.py's own lines fill the standard output).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import logging
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
+import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -102,6 +118,11 @@ def scenario(name, fn, trace_root, warn):
     for e in kernels:
         s = str(e.get("args", {}).get("stream"))
         streams[s] = streams.get(s, 0) + 1
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") == "cuda_runtime"
+                and "correlation" in e.get("args", {})}
+    lag = [e["ts"] - launched[c] for e in kernels
+           if (c := e.get("args", {}).get("correlation")) in launched]
     return {"scenario": name,
             "launches": {k: n - before[k]
                          for k, n in profiling._launches().items()},
@@ -109,12 +130,48 @@ def scenario(name, fn, trace_root, warn):
                                      for e in kernels)
                               for k in before},
             "all_kernel_events": len(kernels), "streams": streams,
+            "launch_to_start_us": [min(lag), statistics.median(lag),
+                                   max(lag)] if lag else None,
             "warning": warn.msgs[0] if warn.msgs else None}
+
+
+def after_phases(seed: int, out: str) -> None:
+    """chip_smoke.py's phases in this process, ``pipelined`` traced
+    before the first and after each; the lines also go to ``out``."""
+    import chip_smoke
+
+    dev = torch.device("cuda")
+    warn = Warnings()
+    logging.getLogger("smafa").addHandler(warn)
+    runner, qs = data(dev)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root, open(out, "w") as f:
+        def probe(phase):
+            res = scenario(f"after_{phase}", lambda: pipelined(runner, qs),
+                           root, warn)
+            res.update(phase=phase, process_s=time.perf_counter() - t0)
+            print(json.dumps(res), flush=True)
+            f.write(json.dumps(res) + "\n")
+            f.flush()
+
+        pipelined(runner, qs)  # builds the kernels, outside every trace
+        probe("start")
+        chip_smoke.run_phases(seed, after=probe)
 
 
 def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--after-phases", metavar="OUT",
+                    help="trace after each of chip_smoke.py's phases; "
+                    "the lines also go to the file OUT")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="chip_smoke.py's seed (with --after-phases)")
+    args = ap.parse_args()
+    if args.after_phases:
+        after_phases(args.seed, args.after_phases)
+        return 0
     dev = torch.device("cuda")
     warn = Warnings()
     logging.getLogger("smafa").addHandler(warn)
@@ -135,6 +192,23 @@ def main() -> int:
         print(json.dumps(scenario("pipelined_after_cuda_only",
                                   lambda: pipelined(runner, qs), root,
                                   warn)), flush=True)
+        x = torch.zeros(1, device=dev)
+        for n, flush in ((10**4, False), (10**5, False), (10**6, False),
+                         (10**6, True)):
+            for _ in range(n):
+                x.add_(1)
+            torch.cuda.synchronize()
+            name = f"after_{n}_kernels"
+            if flush:
+                with profile(activities=[ProfilerActivity.CUDA]):
+                    pass
+                name += "_cuda_only"
+            print(json.dumps(scenario(name, lambda: pipelined(runner, qs),
+                                      root, warn)), flush=True)
+            if not flush:
+                print(json.dumps(scenario(name + "_again",
+                                          lambda: pipelined(runner, qs),
+                                          root, warn)), flush=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
