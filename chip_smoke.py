@@ -160,6 +160,23 @@ Phases, one line each:
    best-hit run in a process of its own, untraced and with
    SMAFA_TPU_TRACE_DIR set: one torch.profiler trace that names the min2
    kernel, and the smoke's bytes both times.
+13. wide_windows: (a) 128 windows of 2^25 bp, where no 64-row tile
+   packs a key, written as FASTA and built by makedb through the CLI:
+   16 reads best-hit with and without --max-divergence 2000, K = 3 on 8
+   with and without --limit-per-sequence 1, and best-hit under a forced
+   stream layout with the card's memory cut to 20.6 GB (the wide
+   route's slab tier), each sha256 equal to a brute force on the card; the
+   dist_block kernel exact against its plain version at 16 x 128 and
+   timed beside its bound (``kernel_time`` with ``cell: wide_windows``),
+   and beside one torch._int_mm of the same block (``library_time``).
+   (b) cluster of 48 records of 2^25 bp at -d 1000 against a greedy
+   oracle on the card. (c) 64 windows of 25,165,824 bp (1.5 x 2^24):
+   the plain ``distances`` on the card at a pair whose dot is odd and
+   above 2^24, equal to code comparison where one float32 product over
+   all columns is off; best-hit on 8 reads against the brute force, and
+   a cluster of 32
+   records, whose resolve takes the plain distance products, against
+   the oracle.
 
 After the kernels' build, ``native_build`` builds the native host
 library (g++; a failed build fails the run) and logs g++'s version, the
@@ -799,13 +816,20 @@ def write_fasta(path: str, codes: np.ndarray, prefix: str) -> None:
 
 
 def brute_force_lines(codes: np.ndarray, q: np.ndarray, qnum: int,
-                      max_div: int) -> list[str]:
-    """The reference best-hit lines of one query (lib.rs:306-313)."""
+                      max_div: int, codes_t: torch.Tensor | None = None
+                      ) -> list[str]:
+    """The reference best-hit lines of one query (lib.rs:306-313); the
+    distances by code comparison on the card when ``codes_t``, a copy
+    of ``codes`` there, is given, else on the host."""
     L = codes.shape[1]
-    match = np.zeros(codes.shape[0], np.int32)
-    for c in range(L):
-        match += codes[:, c] == q[c]
-    dist = L - match
+    if codes_t is not None:
+        qt = torch.from_numpy(np.ascontiguousarray(q)).to(codes_t.device)
+        dist = (codes_t != qt).sum(dim=1, dtype=torch.int32).cpu().numpy()
+    else:
+        match = np.zeros(codes.shape[0], np.int32)
+        for c in range(L):
+            match += codes[:, c] == q[c]
+        dist = L - match
     mind = int(dist.min())
     if mind > max_div:
         return []
@@ -934,8 +958,9 @@ def end_to_end(sizes, cli, query_mod, min2_mod, compact_mod, rng,
             raise AssertionError(f"query {i}: best hit missing or worse than "
                                  f"its source window at distance {to_src[i]}")
     sample = rng.choice(nq, size=min(sizes.sample, nq), replace=False)
+    codes_t = torch.from_numpy(codes).cuda()
     for i in sorted(sample.tolist()):
-        want = brute_force_lines(codes, q[i], i, max_div)
+        want = brute_force_lines(codes, q[i], i, max_div, codes_t)
         if by_q.get(i, []) != want:
             raise AssertionError(f"query {i}: lines differ from brute force:\n"
                                  f"got {by_q.get(i, [])[:3]}\nwant {want[:3]}")
@@ -2542,8 +2567,451 @@ def layouts(sizes, cli, query_mod, mods: dict, dev, tmp: str, rng,
     log("layouts", seconds=time.perf_counter() - t0, card=card)
 
 
+# Phase 13: the wide route (windows of 2^25 bp, where not even one 64-row
+# tile packs a 31-bit key) and the exact plain products past 2^24 bp.
+# Its data is made on the card from the seed, and every FASTA line and
+# expected output line is spelled there: a host lookup of 2^25 codes
+# takes ~0.1 s a row.
+WIDE_L = 1 << 25
+WIDE_ROWS = 128
+WIDE_READS, WIDE_KMODE_READS = 16, 8
+WIDE_MAX_SUBS, WIDE_DIV = 3000, 2000
+WIDE_CLUSTER, WIDE_CLUSTER_DIV = 48, 1000
+EXACT_L = 3 << 23  # 25,165,824 bp: 1.5 x 2^24, the packed-key routes
+EXACT_ROWS, EXACT_READS, EXACT_CLUSTER = 64, 8, 32
+EXACT_SUBS = 1001  # odd: the direct check's dot L - 1001 is odd
+DIST_BLOCK_SOURCE = "smafa_tpu_torch/csrc/dist_block.cu"
+# not Pallas: the XLA block_distances of topm_scan (:226) and min_scan (:1329)
+DIST_BLOCK_REPLACES = "smafa_tpu/ops/distance.py:184"
+
+
+class CardRows:
+    """Rows of letter codes (0-3 ACGT, 4 N) made and spelled on the card
+    from one seeded generator."""
+
+    def __init__(self, dev, seed: int):
+        self.dev = dev
+        self.gen = torch.Generator(device=dev)
+        self.gen.manual_seed(seed)
+        self.lut = torch.tensor(list(b"ACGTN"), dtype=torch.uint8, device=dev)
+
+    def random(self, n: int, L: int) -> torch.Tensor:
+        """n random ACGT rows of L bp."""
+        return torch.randint(0, 4, (n, L), dtype=torch.uint8, device=self.dev,
+                             generator=self.gen)
+
+    def substitute(self, row: torch.Tensor, subs: int) -> torch.Tensor:
+        """A copy of row with up to ``subs`` substitutions (positions
+        drawn with replacement)."""
+        out = row.clone()
+        pos = torch.randint(0, row.shape[0], (subs,), device=self.dev,
+                            generator=self.gen)
+        shift = torch.randint(1, 4, (subs,), dtype=torch.uint8,
+                              device=self.dev, generator=self.gen)
+        out[pos] = (out[pos] + shift) % 4
+        return out
+
+    def ascii(self, row: torch.Tensor) -> bytes:
+        """The row's letters."""
+        return self.lut[row.long()].cpu().numpy().tobytes()
+
+    def write_fasta(self, path: str, rows: torch.Tensor, prefix: str) -> None:
+        """One record a row."""
+        with open(path, "wb") as f:
+            for i in range(rows.shape[0]):
+                f.write(f">{prefix}{i}\n".encode())
+                f.write(self.ascii(rows[i]))
+                f.write(b"\n")
+
+
+def card_distances(db_t: torch.Tensor, q_t: torch.Tensor) -> np.ndarray:
+    """int64 [nq, n] Hamming distances on the card by code comparison (N
+    against N a match), a db row at a time."""
+    out = torch.empty((q_t.shape[0], db_t.shape[0]), dtype=torch.int64,
+                      device=q_t.device)
+    for w in range(db_t.shape[0]):
+        out[:, w] = (q_t != db_t[w]).sum(dim=1)
+    return out.cpu().numpy()
+
+
+def expected_query(rows: CardRows, dist: np.ndarray, db_t: torch.Tensor,
+                   k: int | None, max_div: int | None,
+                   limit: int | None) -> tuple[str, int]:
+    """(sha256, lines) of the reference's output from the brute-force
+    distances: best-hit (lib.rs:296-313) or K-mode (lib.rs:241-295) with
+    --limit-per-sequence runs over identical rows."""
+    import hashlib
+
+    h, lines = hashlib.sha256(), 0
+    n = dist.shape[1]
+    for r, d in enumerate(dist):
+        if k is None:
+            hits = np.nonzero(d == d.min())[0]
+            if max_div is not None and d.min() > max_div:
+                hits = hits[:0]
+        else:
+            order = np.lexsort((np.arange(n), d))
+            cutoff = d.max() if k > n else d[order[k - 1]]
+            eff = cutoff if max_div is None else min(cutoff, max_div)
+            hits = order[d[order] <= eff]
+        run, last = 0, None
+        for i in hits.tolist():
+            if limit is not None:
+                same = last is not None and torch.equal(db_t[i], db_t[last])
+                run = run + 1 if same else 1
+                last = i
+                if run > limit:
+                    continue
+            h.update(f"{r}\t{i}\t{int(d[i])}\t".encode())
+            h.update(rows.ascii(db_t[i]))
+            h.update(b"\n")
+            lines += 1
+    return h.hexdigest(), lines
+
+
+def expected_cluster(rows: CardRows, rec_t: torch.Tensor,
+                     max_div: int) -> tuple[str, int, int]:
+    """(sha256, lines, centroids) of the reference's greedy clustering
+    (cluster.rs:13-94) on the card: exact duplicates print nothing, a
+    record joins the lowest-index centroid at the min distance within
+    max_div, else founds one."""
+    import hashlib
+
+    h, firsts, cents, lines = hashlib.sha256(), [], [], 0
+    for j in range(rec_t.shape[0]):
+        if any(torch.equal(rec_t[j], rec_t[u]) for u in firsts):
+            continue
+        firsts.append(j)
+        best = j
+        if cents:
+            d = torch.stack([(rec_t[c] != rec_t[j]).sum() for c in cents])
+            m = int(d.argmin())  # the first among equal minima
+            if int(d[m]) <= max_div:
+                best = cents[m]
+        if best == j:
+            cents.append(j)
+        h.update(rows.ascii(rec_t[j]) + b"\t" + rows.ascii(rec_t[best]) + b"\n")
+        lines += 1
+    return h.hexdigest(), lines, len(cents)
+
+
+def wide_query_runs(cli, query_mod, select_mod, mods: dict, rows: CardRows,
+                    db: str, runs: list, dist: dict, db_t, tmp: str,
+                    part: str, card: str) -> list[dict]:
+    """Each (name, reads file, flags, env) query through the CLI: the
+    kernels' counts set to 0 just before and read just after, the runner
+    built, the sha256 against the brute force's expected bytes."""
+    made, make = [], select_mod.make_runner
+    out_path = os.path.join(tmp, "wide.tsv")
+    done = []
+    for name, q_fa, flags, env in runs:
+        k = (int(flags[flags.index("--max-num-hits") + 1])
+             if "--max-num-hits" in flags else None)
+        md = (int(flags[flags.index("--max-divergence") + 1])
+              if "--max-divergence" in flags else None)
+        lim = (int(flags[flags.index("--limit-per-sequence") + 1])
+               if "--limit-per-sequence" in flags else None)
+        want_sha, want_lines = expected_query(rows, dist[q_fa], db_t, k, md,
+                                              lim)
+        saved = {v: os.environ.get(v) for v in env}
+        os.environ.update(env)
+        select_mod.make_runner = lambda *a: made.append(make(*a)) or made[-1]
+        for mod in mods.values():
+            mod.launches = 0
+        try:
+            rc, wall, timers = cli_query(
+                cli, query_mod, ["query", "-d", db, "-q", q_fa, *flags,
+                                 "-o", out_path, "--quiet"])
+        finally:
+            select_mod.make_runner = make
+            for v, val in saved.items():
+                if val is None:
+                    os.environ.pop(v, None)
+                else:
+                    os.environ[v] = val
+        launches = {m: mod.launches for m, mod in mods.items()}
+        sha, lines = file_digest(out_path)
+        os.remove(out_path)
+        runner = made.pop()
+        res = {"part": part, "run": name, "flags": flags, "env": env,
+               "rc": rc, "wall_s": wall, "stage_s": timers.seconds,
+               "hit_lines": lines, "expected_lines": want_lines,
+               "sha256": sha, "sha256_equal": sha == want_sha,
+               "runner": type(runner).__name__,
+               "tier": getattr(runner, "tier", None),
+               "n_slabs": getattr(runner, "n_slabs", None),
+               "h2d_s": (runner.h2d_seconds()
+                         if hasattr(runner, "h2d_seconds") else None),
+               "h2d_bytes": getattr(runner, "h2d_bytes", None),
+               "fill_s": getattr(runner, "fill_s", None),
+               "launches": launches, "card": card}
+        log("wide_windows", **res)
+        if rc != 0 or sha != want_sha:
+            raise AssertionError(f"wide_windows ({part}) {name}: {res}")
+        done.append(res)
+    return done
+
+
+def wide_cluster_run(cli, cluster_mod, mods: dict, rows: CardRows,
+                     rec_t: torch.Tensor, tmp: str, part: str,
+                     card: str) -> dict:
+    """``cluster -d WIDE_CLUSTER_DIV`` of the records ``rec_t`` through
+    the CLI against the greedy oracle on the card; the kernels' counts
+    set to 0 just before and read just after."""
+    inp, out = os.path.join(tmp, "cl.fna"), os.path.join(tmp, "cl.tsv")
+    rows.write_fasta(inp, rec_t, "c")
+    want_sha, want_lines, n_cent = expected_cluster(rows, rec_t,
+                                                    WIDE_CLUSTER_DIV)
+    for mod in mods.values():
+        mod.launches = 0
+    rc, wall, timers, _shapes = cluster_cli(
+        cli, cluster_mod, ["cluster", "-i", inp, "-d", str(WIDE_CLUSTER_DIV),
+                           "-o", out, "--quiet"])
+    launches = {m: mod.launches for m, mod in mods.items()}
+    sha, lines = file_digest(out)
+    os.remove(inp)
+    os.remove(out)
+    res = {"part": part, "run": "cluster", "records": rec_t.shape[0],
+           "L": rec_t.shape[1], "rc": rc, "wall_s": wall,
+           "stage_s": timers.seconds, "lines": lines,
+           "expected_lines": want_lines, "centroids": n_cent,
+           "sha256": sha, "sha256_equal": sha == want_sha,
+           "launches": launches, "card": card}
+    log("wide_windows", **res)
+    if rc != 0 or sha != want_sha:
+        raise AssertionError(f"wide_windows ({part}) cluster: {res}")
+    return res
+
+
+def near_duplicates(rows: CardRows, rng, L: int, n: int,
+                    groups: int) -> torch.Tensor:
+    """n records of L bp in ``groups`` near-duplicate groups: a group's
+    base and copies of it with 0-1,500 substitutions (0: an exact
+    duplicate), in a seeded order."""
+    bases = rows.random(groups, L)
+    subs = [0, 200, 700, 1100, 1500]
+    return torch.stack([
+        rows.substitute(bases[g], subs[int(rng.integers(0, len(subs)))])
+        for g in rng.permutation(np.arange(n) % groups)])
+
+
+def makedb_cli(cli, rows: CardRows, codes_t: torch.Tensor, tmp: str,
+               name: str) -> tuple[str, float, float]:
+    """codes_t written as FASTA and built by ``makedb --format native``
+    through the CLI: (db path, write seconds, makedb seconds)."""
+    fa, db = os.path.join(tmp, f"{name}.fna"), os.path.join(tmp, name)
+    t0 = time.perf_counter()
+    rows.write_fasta(fa, codes_t, "w")
+    t1 = time.perf_counter()
+    if cli.main(["makedb", "-i", fa, "-d", db, "--format", "native",
+                 "--quiet"]) != 0:
+        raise AssertionError(f"wide_windows: makedb of {name} failed")
+    os.remove(fa)
+    return db, t1 - t0, time.perf_counter() - t1
+
+
+def library_block_ms(q_emb: torch.Tensor, emb: torch.Tensor,
+                     zc: torch.Tensor, L: int, ref: torch.Tensor,
+                     card: str) -> float | None:
+    """dist_block's library_ms: the same block by one cuBLASLt int8
+    product, ``L - torch._int_mm(q, emb.T) - zc`` (m > 16, so the batch
+    padded to 32 rows; the port never calls it), held exactly to the
+    plain version and timed by CUDA events; None, with the error logged,
+    where cuBLASLt refuses the shape."""
+    b = q_emb.shape[0]
+    q32 = torch.nn.functional.pad(q_emb, (0, 0, 0, max(0, 32 - b)))
+
+    def library():
+        return L - torch._int_mm(q32, emb.T)[:b] - zc
+
+    try:
+        err = int((library() - ref).abs().max())
+        ms = time_ms(library, 5)
+    except RuntimeError as e:
+        log("library_time", kernel="dist_block", call="torch._int_mm",
+            B=b, W=emb.shape[0], EP=emb.shape[1], error=str(e)[:400],
+            card=card)
+        return None
+    log("library_time", kernel="dist_block", call="torch._int_mm", B=b,
+        padded_B=q32.shape[0], W=emb.shape[0], EP=emb.shape[1],
+        max_abs_err=err, ms=ms, card=card)
+    if err:
+        raise AssertionError(f"torch._int_mm's block differs from the "
+                             f"plain version: {err}")
+    return ms
+
+
+def exact_products(rows: CardRows, D, L: int, card: str) -> dict:
+    """The repaired plain product on the card: ``distances`` of a query
+    against a copy of it with EXACT_SUBS (odd) substitutions, whose dot
+    (L - EXACT_SUBS, no N) is odd and above 2^24, which no float32
+    holds, and against a random row with N, held to code comparison;
+    the product taken the old way, one float32 product over all
+    columns, is off at the first pair (the check tells the two apart)."""
+    dev = rows.dev
+    q = torch.randint(1, 5, (1, L), dtype=torch.uint8, device=dev,
+                      generator=rows.gen)
+    d = torch.cat([q, torch.randint(0, 5, (1, L), dtype=torch.uint8,
+                                    device=dev, generator=rows.gen)])
+    pos = torch.randperm(L, device=dev, generator=rows.gen)[:EXACT_SUBS]
+    d[0, pos] = d[0, pos] % 4 + 1  # another base: distinct positions
+    want = (q != d).sum(dim=1, dtype=torch.int32).unsqueeze(0)
+    qe = D.expand_embed_query(q, L)
+    de, zc = D.expand_embed_db(d, L)
+    dot = L - int(want[0, 0]) - int(zc[0])
+    got = D.distances(qe, de, zc, L)
+    old = L - (qe.float() @ de.float().T).to(torch.int32) - zc.unsqueeze(0)
+    res = {"part": "c", "run": "distances", "L": L,
+           "dot": dot, "expected": want.tolist(), "got": got.tolist(),
+           "max_abs_err": int((got - want).abs().max()),
+           "old_product": old.tolist(),
+           "old_product_err": int((old - want).abs().max()), "card": card}
+    log("wide_windows", **res)
+    if dot % 2 == 0 or dot <= 1 << 24:
+        raise AssertionError(f"exact_products: dot {dot} is not odd past "
+                             f"2^24")
+    if res["max_abs_err"] or not res["old_product_err"]:
+        raise AssertionError(f"exact_products: {res}")
+    return res
+
+
+def wide_windows(sizes, cli, query_mod, cluster_mod, select_mod, D, mods,
+                 dev, tmp: str, rng, card: str) -> dict:
+    """Phase 13. (a) A db of WIDE_ROWS windows of 2^25 bp (rows 0-1 and
+    2-4 identical, rows 5-7 with runs of N), written as FASTA and built
+    by ``makedb`` through the CLI: no 64-row tile packs a key, so query
+    takes the wide route (``WideRunner``, the dist_block kernel). 16 reads
+    with 0-3,000 substitutions off db rows (some off rows 0 and 2, one a
+    copy of an N-run row) and two random: best-hit with and without
+    --max-divergence 2000, K = 3 on 8 reads with and without
+    --limit-per-sequence 1, and best-hit again under a forced stream
+    layout with the card's memory cut to 1.2 x the twin (the slab tier,
+    batches cut by bytes), each sha256 equal to a brute force on the
+    card. dist_block held exactly to its plain version at 16 x 128 and
+    timed beside its bound and one torch._int_mm of the block. (b) cluster of 48 records of 2^25 bp in
+    near-duplicate groups at -d 1000 through the CLI (the wide centroid
+    scan) against a greedy oracle on the card. (c) 64 windows of
+    25,165,824 bp (1.5 x 2^24, past float32's exact integers, on the
+    packed-key routes): ``distances`` held to code comparison at a pair
+    whose dot is odd and above 2^24 (``exact_products``), best-hit on 8
+    reads against the brute force, and
+    a cluster of 32 records, whose resolve takes the plain distance
+    products, against the oracle. Returns dist_block's timing and its
+    launches on (a)'s best-hit run."""
+    from smafa_tpu_torch.ops import dist_block as DB
+
+    t0 = time.perf_counter()
+    all_mods = {**mods, "dist_block": DB}
+    rows = CardRows(dev, int(rng.integers(2**62)))
+    # (a)
+    L, n = WIDE_L, WIDE_ROWS
+    db_t = rows.random(n, L)
+    db_t[1] = db_t[0]
+    db_t[3] = db_t[4] = db_t[2]
+    for r in (5, 6, 7):
+        for _ in range(3):  # runs of 1,024 to 131,072 N at 2^25 bp
+            ln = int(rng.integers(max(1, L >> 15), max(2, L >> 8)))
+            a = int(rng.integers(0, L - ln))
+            db_t[r, a:a + ln] = 4
+    src = [0, 0, 2, 2, 6] + rng.integers(0, n, WIDE_READS - 7).tolist()
+    subs = [0, 500, 1500, 2500, 0] + rng.integers(
+        0, WIDE_MAX_SUBS + 1, WIDE_READS - 7).tolist()
+    q_t = torch.cat([torch.stack([rows.substitute(db_t[s], k)
+                                  for s, k in zip(src, subs)]),
+                     rows.random(2, L)])
+    db, write_s, makedb_s = makedb_cli(cli, rows, db_t, tmp, "wide_db")
+    q_fa, q8_fa = (os.path.join(tmp, f"wide_q{k}.fna")
+                   for k in (WIDE_READS, WIDE_KMODE_READS))
+    rows.write_fasta(q_fa, q_t, "r")
+    rows.write_fasta(q8_fa, q_t[:WIDE_KMODE_READS], "r")
+    t1 = time.perf_counter()
+    dist = card_distances(db_t, q_t)
+    dist = {q_fa: dist, q8_fa: dist[:WIDE_KMODE_READS]}
+    log("wide_windows", part="a", db_rows=n, L=L, reads=WIDE_READS,
+        write_db_fasta_s=write_s, makedb_s=makedb_s,
+        brute_force_s=time.perf_counter() - t1,
+        min_dist=[int(x) for x in dist[q_fa].min(axis=1)], card=card)
+    k3 = ["--max-num-hits", "3"]
+    # a card of 1.2 x the twin (20.6 GB): the twin passes 0.75 of it
+    twin = n * (D.embed_width(L) + 4)
+    cut = {"SMAFA_TPU_LAYOUT": "stream", "SMAFA_TPU_HBM_BYTES": str(twin * 6 // 5)}
+    runs = [("best", q_fa, [], {}),
+            ("best_div", q_fa, ["--max-divergence", str(WIDE_DIV)], {}),
+            ("k3", q8_fa, k3, {}),
+            ("k3_limit1", q8_fa, [*k3, "--limit-per-sequence", "1"], {}),
+            ("best_stream_cut", q_fa, [], cut)]
+    res = wide_query_runs(cli, query_mod, select_mod, all_mods, rows, db,
+                          runs, dist, db_t, tmp, "a", card)
+    for r in res:
+        tier = "slabs" if r["run"] == "best_stream_cut" else "resident"
+        if (r["runner"], r["tier"]) != ("WideRunner", tier):
+            raise AssertionError(f"wide_windows (a): the wide route did not "
+                                 f"serve: {r}")
+    main_launches = res[0]["launches"]["dist_block"]
+    if main_launches < 1 or any(v for m, v in res[0]["launches"].items()
+                                if m != "dist_block"):
+        raise AssertionError(f"wide_windows (a): launches {res[0]}")
+    for f in (db, q_fa, q8_fa):
+        os.remove(f)
+
+    # dist_block exact and timed at (a)'s main shape: 16 reads x 128 rows
+    emb, zc = D.embed_db(db_t, L, n)
+    del db_t
+    q_emb = D.expand_embed_query(q_t, L)
+    del q_t
+    got = DB.dist_block(q_emb, emb, zc, L)
+    ref = D.dist_block_reference(q_emb, emb, zc, L)
+    err = int((got - ref).abs().max())
+    log("kernel_parity", kernel="dist_block", L=L, B=WIDE_READS, W=n,
+        splits=DB.split_k(WIDE_READS, n, emb.shape[1], torch.cuda.
+                          get_device_properties(dev).multi_processor_count),
+        max_abs_err=err, card=card)
+    if err:
+        raise AssertionError(f"dist_block differs from its plain version: "
+                             f"{err}")
+    ms = time_ms(lambda: DB.dist_block(q_emb, emb, zc, L), 5)
+    plain_ms = time_ms(lambda: D.dist_block_reference(q_emb, emb, zc, L), 1)
+    timing = log_time("dist_block", L, WIDE_READS, n, ms, plain_ms,
+                      bound(WIDE_READS, n, L, emb.shape[1],
+                            WIDE_READS * n * 4), cell="wide_windows",
+                      card=card)
+    timing["max_abs_err"] = err
+    timing["library_ms"] = library_block_ms(q_emb, emb, zc, L, ref, card)
+    del got, ref, q_emb, emb, zc
+
+    # (b)
+    wide_cluster_run(cli, cluster_mod, all_mods, rows,
+                     near_duplicates(rows, rng, L, WIDE_CLUSTER, 12), tmp,
+                     "b", card)
+
+    # (c)
+    L = EXACT_L
+    exact_products(rows, D, L, card)
+    db_t = rows.random(EXACT_ROWS, L)
+    db_t[1] = db_t[0]
+    src = [0, 1] + rng.integers(0, EXACT_ROWS, EXACT_READS - 2).tolist()
+    q_t = torch.stack([rows.substitute(db_t[s], int(rng.integers(
+        0, WIDE_MAX_SUBS))) for s in src])
+    db, _, _ = makedb_cli(cli, rows, db_t, tmp, "exact_db")
+    rows.write_fasta(q_fa, q_t, "r")
+    (r,) = wide_query_runs(cli, query_mod, select_mod, all_mods, rows, db,
+                           [("best", q_fa, [], {})],
+                           {q_fa: card_distances(db_t, q_t)}, db_t, tmp, "c",
+                           card)
+    if r["runner"] != "SlabStreamRunner" or r["launches"]["min2"] < 1:
+        raise AssertionError(f"wide_windows (c): {r}")
+    del db_t, q_t
+    for f in (db, q_fa):
+        os.remove(f)
+    wide_cluster_run(cli, cluster_mod, all_mods, rows,
+                     near_duplicates(rows, rng, L, EXACT_CLUSTER, 8), tmp,
+                     "c", card)
+    log("wide_windows", seconds=time.perf_counter() - t0, card=card)
+    return {**timing, "launches": main_launches}
+
+
 def run_phases(seed: int, after=None) -> tuple[list, str]:
-    """Phases 0-12 in this process; ``after(phase)``, when given, is
+    """Phases 0-13 in this process; ``after(phase)``, when given, is
     called after each (tools/torch_trace_probe.py --after-phases traces
     there). Returns the kernels' summary and the card's nvidia-smi
     line."""
@@ -2571,7 +3039,7 @@ def run_phases(seed: int, after=None) -> tuple[list, str]:
             f"{src}.cu", "not measured (library already built)").splitlines()
         if "entry function" in line or "spill" in line or "Used" in line
         or "not measured" in line]
-        for src in ("min2", "compact", "kstats", "min_count")}
+        for src in ("min2", "compact", "kstats", "min_count", "dist_block")}
     log("build", seconds=time.perf_counter() - t0,
         library=str(_build.library_path().name), **ptxas)
 
@@ -2647,25 +3115,35 @@ def run_phases(seed: int, after=None) -> tuple[list, str]:
         layouts(sizes, cli, query_mod, stream_mods, dev, tmp,
                 np.random.default_rng([seed, 14]), card, mp_kept, e2e, db)
         after("layouts")
+        timing["dist_block"] = wide_windows(
+            sizes, cli, query_mod, cluster_mod, select_mod, D,
+            {**stream_mods, "min_count": mc_mod}, dev, tmp,
+            np.random.default_rng([seed, 15]), card)
+        after("wide_windows")
 
     launches = {"min2": e2e["launches"]["min2"],
                 "compact_mask": e2e["launches"]["compact_mask"],
                 "min_count": clu["launches"]["min_count"],
-                "kstats": kmode["a"]["launches"]["kstats"]}
+                "kstats": kmode["a"]["launches"]["kstats"],
+                "dist_block": timing["dist_block"]["launches"]}
     routes = {"min2": (MIN2_SOURCE, MIN2_REPLACES),
               "compact_mask": (COMPACT_SOURCE, COMPACT_REPLACES),
               "min_count": (MIN_COUNT_SOURCE, MIN_COUNT_REPLACES),
-              "kstats": (KSTATS_SOURCE, KSTATS_REPLACES)}
-    # library_ms: no single PyTorch call computes any of these per-row
-    # reductions over a distance matrix that is never materialised
-    # (torch._int_mm would write B x W int32: 128 GiB at min2's shape).
+              "kstats": (KSTATS_SOURCE, KSTATS_REPLACES),
+              "dist_block": (DIST_BLOCK_SOURCE, DIST_BLOCK_REPLACES)}
+    # library_ms: no single PyTorch call computes any of the four scans'
+    # per-row reductions over a distance matrix that is never
+    # materialised (torch._int_mm would write B x W int32: 128 GiB at
+    # min2's shape); dist_block's block is one torch._int_mm and an
+    # elementwise epilogue (library_block_ms).
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],
          "max_abs_err": timing[name]["max_abs_err"],
          "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
          "bound_ms": timing[name]["bound_ms"],
-         "bound_by": timing[name]["bound_by"], "library_ms": None}
+         "bound_by": timing[name]["bound_by"],
+         "library_ms": timing[name].get("library_ms")}
         for name, (src, rep) in routes.items()]
     return kernels, card
 

@@ -24,8 +24,15 @@ pipelined, as in ``smafa_tpu``:
    promoted rows reproduces the serial semantics exactly.
 
 The distance blocks of steps 2 and 3 are float32 products of the rank-4
-embeddings on the run's device (exact, TF32 off); only per-row results,
-and the failing rows' square block the sweep reads, cross to the host.
+embeddings on the run's device (``distance.distances``: exact at any
+width, TF32 off); only per-row results, and the failing rows' square
+block the sweep reads, cross to the host.
+
+Where the rows would not fit the card, the store's first capacity and
+the dispatch batches are cut by bytes (``_initial_capacity``,
+``_fit_batches``). On an 80 GB card the first capacity keeps
+``smafa_tpu``'s 16,384 rows below ~0.7 Mbp, and the batches their
+schedule up to 32,768 records below ~9.5 kbp.
 
 Exact duplicates are filtered by the native library's hash set (a
 Python set under ``SMAFA_TPU_NO_NATIVE=1``). ``resume_state`` checkpoints
@@ -60,9 +67,11 @@ from smafa_tpu_torch.engine.query import _ResumeState
 from smafa_tpu_torch.io.fastx import read_encoded_batches
 from smafa_tpu_torch.ops import distance as D
 from smafa_tpu_torch.ops import keys as K
+from smafa_tpu_torch.ops.dist_block import dist_block
 from smafa_tpu_torch.ops.min_count import min_count
 from smafa_tpu_torch.parallel import multihost
-from smafa_tpu_torch.parallel.runner import KeyPackingError
+from smafa_tpu_torch.parallel.select import (HBM_FRACTION, fit_batch,
+                                             hbm_capacity, resident_row_bytes)
 from smafa_tpu_torch.utils.profiling import StageTimers
 
 logger = logging.getLogger("smafa")
@@ -80,6 +89,36 @@ PIPELINE_DEPTH = 2
 
 INITIAL_CAPACITY = 16384  # centroid buffer rows; doubles on growth
 BIG = 2**30  # masks a promotion out of the rows before it
+
+# Query embeddings' worth of device bytes a dispatch batch row may take
+# (``select.fit_batch``): as a query row, plus the resolve's float32
+# distance blocks.
+ROW_EMBEDS = 16
+
+
+def _initial_capacity(seq_len: int, device: torch.device) -> int:
+    """INITIAL_CAPACITY rows, unless they (``select.resident_row_bytes``
+    each) would pass HBM_FRACTION of the card (past ~0.7 Mbp on an 80 GB
+    card): then the most rows, a power of two and at least 64, within a
+    quarter of that, which leaves room to double."""
+    cap = hbm_capacity(device)
+    row = resident_row_bytes(seq_len)
+    if cap is None or INITIAL_CAPACITY * row <= HBM_FRACTION * cap:
+        return INITIAL_CAPACITY
+    rows = max(D.WP_MULTIPLE, int(HBM_FRACTION * cap / 4) // row)
+    return 1 << (rows.bit_length() - 1)
+
+
+def _fit_batches(batches, device: torch.device):
+    """The batches as they come, each cut into pieces of
+    ``select.fit_batch`` rows where it would not fit the card."""
+    for ids, raws, codes in batches:
+        fit = fit_batch(codes.shape[1], device, ROW_EMBEDS)
+        if fit is None or len(ids) <= fit:
+            yield ids, raws, codes
+            continue
+        for s in range(0, len(ids), fit):
+            yield ids[s:s + fit], raws[s:s + fit], codes[s:s + fit]
 
 
 def _adaptive_max() -> int:
@@ -116,7 +155,7 @@ class _Scan(NamedTuple):
         seq_len = self.codes.shape[1]
         q = self.q_emb if rows is None else self.q_emb.index_select(0, rows)
         d_emb, zc = D.expand_embed_db(self.codes.index_select(0, cols), seq_len)
-        return D.distances(q.to(torch.float32), d_emb, zc, seq_len)
+        return D.distances(q, d_emb, zc, seq_len)
 
 
 class _CentroidStore:
@@ -144,22 +183,25 @@ class _CentroidStore:
     that (2^22 centroids at 300 bp, 2^25 at 60 bp) spans of
     ``keys.packing_span`` rows at their own shift, merged as (dist,
     index) pairs. ``smafa_tpu``'s ``min_scan`` switches to a pair carry
-    over its whole buffer there instead (ROADMAP.md, queue 1 item 5)."""
+    over its whole buffer there instead. Where not even a 64-row tile
+    packs (``keys.wide_route``, 2^25 - 1 bp or more) the scan is wide
+    (shift and span None): one dist_block launch over the live tiles
+    gives the batch's exact distance block, and its per-row minimum with
+    the lowest index (``smafa_tpu``'s pair carry, in one step)."""
 
     def __init__(self, seq_len: int, device: torch.device, comm=None):
         self.seq_len = seq_len
         self.device = torch.device(device)
         self.ws = WindowSet(version=0)  # version unused, reference cluster.rs:22
         self.decoded: list[str] = []
-        self.cap = INITIAL_CAPACITY
+        self.cap = _initial_capacity(seq_len, self.device)
         self.comm = comm if comm is not None else multihost.comm()
         if K.packing_shift(seq_len, self.cap * 64) is None:
             self.comm = None  # smafa_tpu/engine/cluster.py:202-206
         self._layout()
-        self.db_emb = torch.zeros((self.shard_rows, D.embed_width(seq_len)),
-                                  dtype=torch.int8, device=self.device)
-        self.zc = torch.full((self.shard_rows,), -1, dtype=torch.int32,
-                             device=self.device)
+        # the buffer, allocated at the first append (at 2^25 bp a row
+        # takes 134 MB)
+        self.db_emb = self.zc = None
         self.merge_s = 0.0  # host seconds in the scans' all_reduce
 
     @classmethod
@@ -181,17 +223,15 @@ class _CentroidStore:
         self.off = rank * self.shard_rows
         self.shift, self.span = self._plan()
 
-    def _plan(self) -> tuple[int, int]:
-        """(shift, span) of the scan over a buffer of ``cap`` rows."""
+    def _plan(self) -> tuple[int | None, int | None]:
+        """(shift, span) of the scan over a buffer of ``cap`` rows; (None,
+        None): the wide scan."""
         shift = K.packing_shift(self.seq_len, self.cap)
         if shift is not None:
             return shift, self.cap
+        if K.wide_route(self.seq_len):
+            return None, None
         span = K.packing_span(self.seq_len)
-        if span is None:
-            raise KeyPackingError(
-                f"centroids of length {self.seq_len} do not pack into "
-                "31-bit keys even over one 64-row tile (windows of "
-                "2^25 - 1 bp or more; see ROADMAP.md, queue 1 item 5)")
         return K.packing_shift(self.seq_len, span), span
 
     def __len__(self) -> int:
@@ -215,14 +255,14 @@ class _CentroidStore:
     def append(self, codes_rows: np.ndarray) -> None:
         n0 = len(self.ws)
         k = codes_rows.shape[0]
-        if n0 + k > self.cap:
+        if self.db_emb is None or n0 + k > self.cap:
             while self.cap < n0 + k:
                 self.cap *= 2
             if (self.comm is not None
                     and K.packing_shift(self.seq_len, self.cap) is None):
                 self.comm = None  # smafa_tpu/engine/cluster.py:237-241
             self._layout()
-            emb = torch.zeros((self.shard_rows, self.db_emb.shape[1]),
+            emb = torch.zeros((self.shard_rows, D.embed_width(self.seq_len)),
                               dtype=torch.int8, device=self.device)
             zc = torch.full((self.shard_rows,), -1, dtype=torch.int32,
                             device=self.device)
@@ -245,8 +285,9 @@ class _CentroidStore:
         """Move a batch to the device and launch its centroid scan over
         the first ``len(self)`` rows (the snapshot): one min_count launch
         over the rank's live rows, merged over the ranks, or one launch
-        per span that holds centroids; on one device nothing waits for
-        it. Fetch the result with ``scan_fetch``."""
+        per span that holds centroids, or the wide scan's one dist_block
+        launch; on one device nothing waits for it. Fetch the result with
+        ``scan_fetch``."""
         codes = torch.from_numpy(np.ascontiguousarray(q_codes, np.uint8))
         codes = codes.to(self.device)
         q_emb = D.expand_embed_query(codes, self.seq_len)
@@ -266,6 +307,14 @@ class _CentroidStore:
             self.merge_s += time.perf_counter() - t0
             dist, idx = D.unpack_min_key(key, self.shift)
             return _Scan(codes, q_emb, torch.stack([dist, idx]),
+                         (self.db_emb, self.zc))
+        if span is None:
+            # the wide scan: the live tiles' exact distances; min(dim)
+            # takes the lowest index among equal minima
+            live = -(-n // D.WP_MULTIPLE) * D.WP_MULTIPLE
+            dist, idx = dist_block(q_emb, self.db_emb[:live], self.zc[:live],
+                                   self.seq_len)[:, :n].min(dim=1)
+            return _Scan(codes, q_emb, torch.stack([dist, idx.to(torch.int32)]),
                          (self.db_emb, self.zc))
         for off in range(0, n, span):
             (key,) = min_count(q_emb, self.db_emb[off:off + span],
@@ -294,8 +343,7 @@ class _CentroidStore:
         codes in the host mirror (in a multi-process run they may lie in
         another rank's shard), uploaded once."""
         emb, zc = self._embed(self.ws.codes[snap_n:n_now])
-        dist = D.distances(handle.q_emb.to(torch.float32), emb, zc,
-                           self.seq_len)
+        dist = D.distances(handle.q_emb, emb, zc, self.seq_len)
         return _fetch_rows(*dist.min(dim=1))  # min(dim) takes the first index
 
 
@@ -478,7 +526,8 @@ def cluster(
         _resumed_batches(input_fasta, read_size, state.done, dedup, timers),
         batch_size)
     if adaptive:
-        batches = _grow_batches(batches, batch_size, _adaptive_max())
+        batches = _fit_batches(
+            _grow_batches(batches, batch_size, _adaptive_max()), device)
     while True:
         # Launched batches are resolved and emitted before any parse or
         # encode error propagates (reference streaming behavior: every

@@ -62,6 +62,11 @@ logger = logging.getLogger("smafa")
 
 DEFAULT_BATCH = 2048
 
+# Query embeddings' worth of device bytes a batch row may take
+# (``select.fit_batch``): its codes, its embedding and the embedding's
+# temporaries, two batches in flight.
+ROW_EMBEDS = 8
+
 
 class QueryError(ValueError):
     pass
@@ -112,6 +117,16 @@ def _auto_batch(db: _DbOnDevice) -> int:
     return DEFAULT_BATCH
 
 
+def _fit_batch(tier: int, db: _DbOnDevice, device: torch.device) -> int:
+    """The tier's batch, cut where its rows would not fit the card
+    (``select.fit_batch``): at 2^25 bp a row embeds to 134 MB, and a
+    tier of 2048 rows would not fit. Where the tier fits, it stays."""
+    from smafa_tpu_torch.parallel.select import fit_batch
+
+    fit = fit_batch(db.seq_len or 1, device, ROW_EMBEDS)
+    return tier if fit is None else min(tier, fit)
+
+
 def query(
     db_path: str | Path,
     query_fasta: str | Path,
@@ -149,7 +164,7 @@ def query(
         )
     db = _DbOnDevice(windows, device)
     if batch_size is None:
-        batch_size = _auto_batch(db)
+        batch_size = _fit_batch(_auto_batch(db), db, device)
 
     logger.info("Querying ..")
     timers = StageTimers()

@@ -48,6 +48,8 @@ _SIGNATURES = {
                         _P],
     # q, db, zc, ts, cnt, mx, part, B, n_valid, EP, seq_len, splits, stream
     "smafa_kstats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # q, db, zc, dist, B, W, EP, seq_len, splits, stream
+    "smafa_dist_block": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -20,10 +20,14 @@ Operands, as the kernels take them:
   distance is exactly L + 1, above every real distance and threshold.
 
 The plain versions run on CPU and CUDA tensors alike. The dot is taken
-in float32, which is exact here (entries in {-1, 0, 1}, |dot| <= 4L,
-far below 2^24); int8 @ int8 is never used, because on the CPU it
-returns int8 and wraps. TF32 would round the products, so it is switched
-off before every float32 product on the card.
+in float32 (``dots``): a position adds -1, 0 or 1, so every partial sum
+of a row's dot is an integer of magnitude at most the positions summed,
+exact in float32 up to 2^24. Windows of up to 2^24 bp take one float32
+product; longer ones take it in column blocks of 2^24 positions
+(``EXACT_COLS``), whose partials add in int32. int8 @ int8 is never
+used, because on the CPU it returns int8 and wraps. TF32 would round
+the products, so it is switched off before every float32 product on
+the card.
 """
 
 from __future__ import annotations
@@ -36,6 +40,15 @@ from smafa_tpu_torch.ops.keys import BIG_KEY, KSTATS_PROBES, kstats_steps
 K_STEP = 32          # embed width granularity in bytes
 WP_MULTIPLE = 64     # db rows per kernel tile: the runner pads Wp to this
 CHUNK = 8192         # db rows per step of the plain versions
+# Embedded columns of 2^24 window positions: a float32 product over at
+# most this many is exact (see the module docstring).
+EXACT_COLS = 4 << 24
+# Bytes of one-hot temporaries an embedding step may make (16 a
+# position: bool and int8 of four channels); below ~2 Mbp the
+# CHUNK * 16-row cap binds first.
+EMBED_TEMP_BYTES = 1 << 32
+# Bytes of the [hits, L] code gathers of one ``hit_distances`` step.
+GATHER_BYTES = 1 << 30
 
 
 def embed_width(seq_len: int) -> int:
@@ -86,22 +99,61 @@ def embed_db_into(codes: torch.Tensor, seq_len: int, emb: torch.Tensor,
     [wp], on the codes' device): [n, L] codes, n <= wp, fill rows 0..n-1
     and poison rows n..wp-1 to distance L + 1."""
     n = codes.shape[0]
-    for off in range(0, n, CHUNK * 16):  # bound the one-hot temporaries
-        e, z = expand_embed_db(codes[off:off + CHUNK * 16], seq_len)
+    # bound the one-hot temporaries, by rows and by bytes
+    step = max(1, min(CHUNK * 16, EMBED_TEMP_BYTES // (16 * seq_len)))
+    for off in range(0, n, step):
+        e, z = expand_embed_db(codes[off:off + step], seq_len)
         emb[off:off + e.shape[0]] = e
         zc[off:off + e.shape[0]] = z
     emb[n:].zero_()
     zc[n:] = -1
 
 
+def dots(q: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """int32 [B, w] exact dots of embedded rows q [B, C] and d [w, C]
+    (int8 or float32 holding -1, 0 and 1, at most one nonzero of q in
+    each position's four columns): one float32 product up to
+    EXACT_COLS columns, else one a block of EXACT_COLS columns, the
+    blocks' partials added in int32."""
+    if q.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    cols = q.shape[1]
+    if cols <= EXACT_COLS:
+        return (q.to(torch.float32) @ d.to(torch.float32).T).to(torch.int32)
+    out = torch.zeros((q.shape[0], d.shape[0]), dtype=torch.int32,
+                      device=q.device)
+    for c0 in range(0, cols, EXACT_COLS):
+        c1 = c0 + EXACT_COLS
+        out += (q[:, c0:c1].to(torch.float32)
+                @ d[:, c0:c1].to(torch.float32).T).to(torch.int32)
+    return out
+
+
 def distances(q_f: torch.Tensor, d_emb: torch.Tensor, zc: torch.Tensor,
               seq_len: int) -> torch.Tensor:
-    """int32 [B, w] distances of float32 query rows vs db rows (exact
-    Hamming distances for real rows: N against N is a match)."""
-    if q_f.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
-    dots = (q_f @ d_emb.to(torch.float32).T).to(torch.int32)
-    return seq_len - dots - zc.unsqueeze(0)
+    """int32 [B, w] distances of query rows (int8 or float32 embedding)
+    vs db rows (exact Hamming distances for real rows: N against N is a
+    match), at any window length (``dots``)."""
+    return seq_len - dots(q_f, d_emb) - zc.unsqueeze(0)
+
+
+def dist_block_reference(q_emb: torch.Tensor, db_emb: torch.Tensor,
+                         zc: torch.Tensor, seq_len: int) -> torch.Tensor:
+    """Plain version of the dist_block kernel (the ``block_distances``
+    of ``smafa_tpu``'s ``topm_scan`` and ``min_scan``): int32 [B, Wp],
+    dist[b, w] = seq_len - (q_emb[b] . db_emb[w] + zc[w]); padding rows
+    read seq_len + 1."""
+    out = torch.empty((q_emb.shape[0], db_emb.shape[0]), dtype=torch.int32,
+                      device=q_emb.device)
+    # wide rows convert a column block at a time, inside ``dots``, and
+    # take fewer db rows a step (float32 blocks of 2 GiB at most)
+    cols = min(q_emb.shape[1], EXACT_COLS)
+    q_f = q_emb.to(torch.float32) if q_emb.shape[1] <= EXACT_COLS else q_emb
+    step = max(1, min(CHUNK, (1 << 31) // (4 * cols)))
+    for off in range(0, db_emb.shape[0], step):
+        out[:, off:off + step] = distances(
+            q_f, db_emb[off:off + step], zc[off:off + step], seq_len)
+    return out
 
 
 def min2_reference(q_emb: torch.Tensor, db_emb: torch.Tensor,
@@ -277,7 +329,13 @@ def hit_distances(q_codes: torch.Tensor, db_codes: torch.Tensor,
     ``idx[h]``) from the channel codes, N against N a match: the gather
     and compare of ``smafa_tpu``'s ``compactd`` program."""
     L = db_codes.shape[1]
-    return (q_codes[rows, :L] != db_codes[idx]).sum(dim=1, dtype=torch.int32)
+    step = max(1, GATHER_BYTES // max(1, L))  # bound the [hits, L] gathers
+    if rows.shape[0] <= step:
+        return (q_codes[rows, :L] != db_codes[idx]).sum(dim=1,
+                                                        dtype=torch.int32)
+    return torch.cat([
+        (q_codes[rows[s:s + step], :L] != db_codes[idx[s:s + step]])
+        .sum(dim=1, dtype=torch.int32) for s in range(0, rows.shape[0], step)])
 
 
 def sort_hit_keys(rows: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:

@@ -56,6 +56,16 @@ def packing_span(seq_len: int) -> int | None:
     return None
 
 
+def wide_route(seq_len: int) -> bool:
+    """Port-only: windows so long that not even one 64-row tile packs a
+    31-bit key (2^25 - 1 bp or more), which the port serves from exact
+    int32 distance blocks (``parallel.wide``, and the cluster's wide
+    centroid scan) where ``smafa_tpu`` runs its top-M sort-merge and
+    ``min_scan``'s pair carry. Found through ``packing_span``, so it
+    follows that one packing rule."""
+    return packing_span(seq_len) is None
+
+
 def unpack_key(key: np.ndarray, shift: int) -> tuple[np.ndarray, np.ndarray]:
     """Packed keys -> (distance, index); BIG/int32-max for empty rows."""
     big = key == np.int32(BIG_KEY)

@@ -27,7 +27,9 @@ max when K exceeds the window count), in (distance, index) order:
 The JAX package's latency-driven variants (``miditer``, ``tcount``,
 ``bestfull``, the tie-EMA switch, ``_SharedFetch``) give byte-identical
 output under its own tests and are left out here, as are the K-mode
-histogram variant (``SMAFA_TPU_KMODE_HIST=1``) and the top-M fallback.
+histogram variant (``SMAFA_TPU_KMODE_HIST=1``) and the top-M fallback
+(the stream layout and the wide route, ``parallel.wide``, serve its
+inputs).
 """
 
 from __future__ import annotations
@@ -46,6 +48,10 @@ COMPACT_MAX = 1 << 22
 # A compaction dispatch's [rows, wp/32] int32 mask stays under this many
 # words (1 GiB).
 MASK_WORDS_BUDGET = 1 << 28
+
+# Code bytes a step of the host enumeration of one row reads (2^20 rows
+# a step up to 64 bp).
+HOST_STEP_BYTES = 1 << 26
 
 
 def mask_row_cap(span_rows: int) -> int:
@@ -291,7 +297,7 @@ class HitModesMixin:
         L = self.seq_len
         q = q_row[:L]
         out = []
-        step = 1 << 20
+        step = max(1, min(1 << 20, HOST_STEP_BYTES // L))
         for s in range(0, self.n_windows, step):
             d = np.asarray(self._codes_host[s:s + step])[:, :L]
             dist = L - (q == d).sum(axis=1)

@@ -100,8 +100,9 @@ class RingRunner(DeviceRunner):
         if self.local_shift is None:
             raise KeyPackingError(
                 f"shards of {self.shard_rows} windows of length {L} do not "
-                "pack into 31-bit keys; the sharded layout streams them in "
-                "narrower slabs")
+                "pack into 31-bit keys; the sharded layout serves them (in "
+                "narrower slabs, or on the wide route where not even a "
+                "64-row tile packs)")
         # the mixin reads these only from packed keys; merged results come
         # in the pair form
         self.wp, self.shift = self.n_windows, None

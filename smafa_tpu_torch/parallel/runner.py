@@ -7,7 +7,8 @@ kernels it calls are the min2 kernel (best-hit phase A), the kstats
 kernel (the K-mode cutoff passes) and the compact_mask kernel (tie and
 K-mode hit enumeration). ``parallel.select.make_runner`` picks it while
 the db's global packed keys fit 31 bits and its resident form fits the
-card; past either, the stream layout (``parallel.slab``) serves.
+card; past either, the stream layout (``parallel.slab``) serves, and
+past a 64-row tile's keys the wide route (``parallel.wide``).
 ``DeviceRunner`` holds what both runners share: query padding and
 embedding, and the side stream of a batch's first pass.
 """
@@ -109,9 +110,11 @@ class ScanRunner(DeviceRunner):
         if self.shift is None:
             raise KeyPackingError(
                 f"{self.n_windows} windows of length {self.seq_len} do not "
-                "pack into 31-bit global keys; the stream layout "
-                "(parallel.slab, which select.make_runner builds for such "
-                "a db) packs them per slab (see ROADMAP.md)")
+                "pack into 31-bit global keys; select.make_runner builds "
+                "the stream layout (parallel.slab), which packs them per "
+                "slab, or, where not even a 64-row tile packs (windows of "
+                "2^25 - 1 bp or more), the wide route "
+                "(parallel.wide.WideRunner)")
         # np.array copies: the host view may be a read-only memmap
         self.db_codes = torch.from_numpy(
             np.array(codes, dtype=np.uint8)).to(self.device)

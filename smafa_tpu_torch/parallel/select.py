@@ -7,11 +7,11 @@ db's rows over the ranks, and each rank serves its shard by the
 one-device rule below. At windows of ``SMAFA_TPU_COL_SEQ_THRESHOLD``
 (default ``COL_SEQ_THRESHOLD``) bp or more over more than one process
 it is ``col``, as in ``smafa_tpu``, while the col layout's ranks on a
-card fit it (``col_bytes``). The rule rests on one measurement, two
-ranks sharing one H100 over gloo, where ``col`` ran 29,903 bp windows
-in about half the time of ``sharded`` (ROADMAP.md, queue 3); one card a
-rank over NCCL is not measured yet. On one device two layouts
-serve the same exact hit-mode contract
+card fit it (``col_bytes``). The rule stays ``smafa_tpu``'s until it is
+measured with one card a rank over NCCL: with two ranks sharing one
+H100 over gloo, ``sharded`` ran 29,903 bp windows faster than ``col``
+(3.33-3.45 s against 3.90-5.23 s for 4,096 reads; PERF.md, section 7).
+On one device three layouts serve the same exact hit-mode contract
 (``parallel.hitops.HitModesMixin``):
 
 - ``sharded``: ``parallel.runner.ScanRunner``, the db resident on the
@@ -21,15 +21,22 @@ serve the same exact hit-mode contract
   slabs with slab-local keys merged as (dist, index) pairs, so any row
   count packs, at any window length below 2^25 - 1 bp; its slabs stay on
   the card when they fit (``slab.CODES_RESIDENT_FRACTION``), else they
-  stream from host memory every pass.
+  stream from host memory every pass;
+- ``wide``: ``parallel.wide.WideRunner``, for windows of 2^25 - 1 bp or
+  more (``keys.wide_route``), where not even a 64-row tile packs a key:
+  each batch's exact int32 distance block, from which every hit mode
+  reads.
 
 Where global keys overflow, ``smafa_tpu`` streams too, unless a span of
 2^24 rows cannot pack either (windows of 127 bp or more); it then serves
 the db with its exact top-M sort-merge (``topm_scan``). The port's slabs
 are never wider than ``keys.packing_span``, so the stream layout serves
 that case as well, with the same output; a forced ``sharded`` past the
-global budget also streams. Only windows of 2^25 - 1 bp or more, where
-not even a 64-row tile packs, raise ``KeyPackingError``.
+global budget also streams. Where not even a 64-row tile packs, the
+wide route serves, forced ``sharded`` and ``stream`` included; a forced
+``ring`` raises ``KeyPackingError`` there, as ``smafa_tpu``'s ring
+does. A forced ``col`` runs: its min2 fold is the pair form and it
+packs no key.
 
 ``SMAFA_TPU_LAYOUT`` is ``auto`` (the default), ``sharded``, ``stream``
 (in a multi-process run a forced ``stream`` scans the whole db on every
@@ -53,7 +60,7 @@ import torch
 from smafa_tpu_torch.ops import distance as D
 from smafa_tpu_torch.ops import keys as K
 from smafa_tpu_torch.parallel import multihost
-from smafa_tpu_torch.parallel.runner import KeyPackingError, ScanRunner
+from smafa_tpu_torch.parallel.runner import ScanRunner
 
 logger = logging.getLogger("smafa")
 
@@ -84,6 +91,24 @@ def resident_row_bytes(seq_len: int) -> int:
     return D.embed_width(seq_len) + seq_len + 4
 
 
+def fit_batch(seq_len: int, device: torch.device,
+              embeds_per_row: int) -> int | None:
+    """The largest power-of-two batch whose rows, ``embeds_per_row``
+    query embeddings (EP bytes) each, fit the 1 - HBM_FRACTION of the
+    card left beside the db; None when the card's memory is unknown. A
+    batch row holds its codes, its embedding and the embedding's one-hot
+    temporaries, twice with two batches in flight; a cluster row also
+    the float32 blocks of the resolve. On an 80 GB card every query tier
+    fits it below ~300 kbp, and the cluster's batches of up to 32,768
+    records below ~9.5 kbp."""
+    cap = hbm_capacity(device)
+    if cap is None:
+        return None
+    rows = max(1, int((1 - HBM_FRACTION) * cap)
+               // (embeds_per_row * D.embed_width(seq_len)))
+    return 1 << (rows.bit_length() - 1)
+
+
 def col_bytes(n_windows: int, seq_len: int, size: int) -> int:
     """Device bytes a rank of the col layout over ``size`` ranks takes:
     its column slice of every row's twin and every row's zc, and the
@@ -104,7 +129,8 @@ def choose_layout(n_windows: int, seq_len: int, device: torch.device,
     on ``device``: the forced one, else ``smafa_tpu.parallel.select``'s
     rule: in a multi-process run ``col`` at long windows (see the module
     docstring), else ``sharded``; else (or with ``one_device``, for a
-    rank's own shard) the one-device rule, ``sharded`` or ``stream``."""
+    rank's own shard) the one-device rule, ``sharded``, ``stream`` or
+    ``wide``."""
     env = os.environ.get("SMAFA_TPU_LAYOUT", "auto").lower()
     if env in ("sharded", "stream", "ring", "col"):
         return env
@@ -123,14 +149,9 @@ def choose_layout(n_windows: int, seq_len: int, device: torch.device,
             return "col"
         return "sharded"
     if K.packing_shift(seq_len, max(2, 2 * n_windows)) is None:
-        # Global keys overflow 31 bits; the stream layout packs per slab.
-        if K.packing_span(seq_len) is None:
-            raise KeyPackingError(
-                f"windows of length {seq_len} do not pack into 31-bit keys "
-                "even over one 64-row tile (windows of 2^25 - 1 bp or "
-                "more); smafa_tpu's top-M sort-merge for them is not "
-                "ported (see ROADMAP.md, queue 1 item 5)")
-        return "stream"
+        # Global keys overflow 31 bits; the stream layout packs per slab,
+        # and where not even a tile packs the wide route serves.
+        return "wide" if K.wide_route(seq_len) else "stream"
     cap = hbm_capacity(device)
     if (cap is not None
             and resident_row_bytes(seq_len) * n_windows > HBM_FRACTION * cap):
@@ -171,6 +192,12 @@ def one_device_runner(codes: np.ndarray, seq_len: int, device: torch.device):
     layout = choose_layout(n, seq_len, device, one_device=True)
     logger.debug("db layout: %s (%d windows, length %d)",
                  layout, n, seq_len)
+    if K.wide_route(seq_len):
+        # no 64-row tile packs: a forced sharded or stream takes the wide
+        # route too
+        from smafa_tpu_torch.parallel.wide import WideRunner
+
+        return WideRunner(codes, seq_len, device)
     wp = -(-n // D.WP_MULTIPLE) * D.WP_MULTIPLE
     if layout == "sharded" and K.packing_shift(seq_len, wp) is None:
         # forced past the global key budget: ScanRunner cannot pack it

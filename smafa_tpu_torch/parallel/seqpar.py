@@ -29,7 +29,9 @@ Outputs are the same on every rank, so nothing else merges. Like
 ``smafa_tpu``'s column layout this one runs no hand-written kernel: the
 partial product is ``torch._int_mm`` on the card (exact int32; k and n
 multiples of 8 and m > 16, so batches are padded to 32 rows at least)
-and a float32 product on the CPU (exact: |dot| <= 4L < 2^24); an int8
+and on the CPU ``distance.dots``' float32 products, exact at any width
+(one product while the slice holds at most 2^24 window positions, where
+|dot| <= 2^24; past it one a block of 2^24 positions); an int8
 ``matmul`` is never used, since on the CPU it wraps once L >= 128. The
 folds are plain torch ops on the block. A chunk's block is at most
 ``BLOCK_BYTES``; ``merge_s`` counts the host seconds in the all_reduces.
@@ -125,7 +127,7 @@ class ColumnShardedRunner(DeviceRunner):
                                device=q.device)
         if q.is_cuda:
             return torch._int_mm(q, d.T)
-        return (q.to(torch.float32) @ d.to(torch.float32).T).to(torch.int32)
+        return D.dots(q, d)
 
     def _sweep(self, q: torch.Tensor, fold) -> None:
         """fold(dist int32 [B, n], off) for each chunk of db rows in

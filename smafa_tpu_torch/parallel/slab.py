@@ -11,7 +11,8 @@ slab results into one accumulator:
   is the layout for dbs past the global key budget (2^25 windows at
   60 bp, 2^22 at 150 bp). A slab is never wider than
   ``keys.packing_span`` (2^23 rows at 127-254 bp), so every window
-  length below 2^25 - 1 bp packs;
+  length below 2^25 - 1 bp packs (longer ones take the wide route,
+  ``parallel.wide``, which reads ``slab_plan`` for its slab tier);
 - K-mode cutoff passes: kstats over each slab's real rows, counts summed
   and maxima taken over slabs;
 - compactions: compact_mask per slab, hits offset by the slab's first
@@ -78,33 +79,19 @@ def slab_plan(n_windows: int, seq_len: int) -> tuple[int, int]:
     return slab_rows, max(1, -(-n_windows // slab_rows))
 
 
-class SlabStreamRunner(DeviceRunner):
-    """Every hit mode of ``ScanRunner`` (identical results) over a db
-    scanned slab by slab."""
+class SlabUploads:
+    """The streaming tier's uploads of a db's codes held in host memory,
+    shared by ``SlabStreamRunner`` and the wide route's slab tier
+    (``parallel.wide``): each slab goes through one of ``_INFLIGHT``
+    pinned staging buffers on a copy stream, and is embedded on the
+    card. Counters: ``h2d_bytes``, ``fill_s`` (host seconds filling
+    staging) and ``h2d_seconds()``. The user sets ``device``,
+    ``seq_len`` and ``n_windows`` before ``_init_uploads``."""
 
-    def __init__(self, codes: np.ndarray, seq_len: int, device: torch.device,
-                 slab_rows: int | None = None):
-        super().__init__(device)
-        self.seq_len = max(1, seq_len)
-        self.n_windows = int(codes.shape[0])
+    def _init_uploads(self, codes: np.ndarray, slab_rows: int) -> None:
         self._codes_host = codes
-        if self.n_windows >= 2**31:
-            raise ValueError("db indices must fit int32")
-        if slab_rows is None:
-            slab_rows, _ = slab_plan(self.n_windows, self.seq_len)
-        if slab_rows <= 0 or slab_rows % D.WP_MULTIPLE:
-            raise ValueError(f"slab_rows {slab_rows} is not a positive "
-                             f"multiple of {D.WP_MULTIPLE}")
         self.slab_rows = slab_rows
         self.n_slabs = max(1, -(-self.n_windows // slab_rows))
-        self.wp = self.n_slabs * slab_rows
-        self.shift = K.packing_shift(self.seq_len, slab_rows)
-        if self.shift is None:
-            raise KeyPackingError(
-                f"slabs of {slab_rows} windows of length {self.seq_len} do "
-                "not pack into 31-bit keys (at 2^25 - 1 bp or more not "
-                "even one 64-row tile does); smafa_tpu's top-M sort-merge "
-                "for them is not ported (see ROADMAP.md, queue 1 item 5)")
         # device seconds of the code uploads (CUDA event pairs not yet
         # summed), their bytes, and the host seconds filling staging
         self.h2d_bytes = 0
@@ -114,22 +101,6 @@ class SlabStreamRunner(DeviceRunner):
         self._copy = None
         self._staging = [None] * _INFLIGHT
         self._scanned = [None] * _INFLIGHT
-        env = os.environ.get("SMAFA_TPU_SLAB_RESIDENT", "")
-        if env:
-            resident = env not in ("0", "false")
-        else:
-            cap = hbm_capacity(self.device)
-            resident = (cap is not None and self.wp * resident_row_bytes(
-                self.seq_len) <= CODES_RESIDENT_FRACTION * cap)
-        self.tier = "resident" if resident else "streaming"
-        self.db_codes = self.db_emb = self.zc = None
-        if resident:
-            self.db_codes = self._to_device(codes)
-            self.db_emb, self.zc = D.embed_db(self.db_codes, self.seq_len,
-                                              self.wp)
-        logger.debug("stream layout: %d slabs of %d rows (slab-local shift "
-                     "%d), %s tier", self.n_slabs, slab_rows, self.shift,
-                     self.tier)
 
     def h2d_seconds(self) -> float:
         """Device seconds of the db's host-to-device copies so far (0 on
@@ -141,7 +112,7 @@ class SlabStreamRunner(DeviceRunner):
         return self._h2d_s
 
     def _to_device(self, rows: np.ndarray) -> torch.Tensor:
-        """The resident tier's one upload of the codes (timed)."""
+        """A resident tier's upload of code rows (timed)."""
         t = torch.from_numpy(np.array(rows, dtype=np.uint8))
         if self.device.type != "cuda":
             return t
@@ -190,20 +161,15 @@ class SlabStreamRunner(DeviceRunner):
         buf.record_stream(compute)
         return buf
 
-    def _sweep(self, fold) -> None:
+    def _stream_slabs(self, fold) -> None:
         """fold(emb, zc, codes, n_valid, off) for each slab in ascending
-        order, on the current stream: emb int8 [slab_rows, EP] and zc
-        int32 [slab_rows] the slab's twin, padding rows poisoned to
-        distance L + 1; codes uint8 [n_valid, L] its real rows; off the
-        global index of its first row."""
+        order, on the current stream, uploaded and embedded: emb int8
+        [slab_rows, EP] and zc int32 [slab_rows] the slab's twin, padding
+        rows poisoned to distance L + 1; codes uint8 [n_valid, L] its
+        real rows; off the global index of its first row."""
         for s in range(self.n_slabs):
             off = s * self.slab_rows
             n_valid = min(self.slab_rows, self.n_windows - off)
-            if self.db_emb is not None:
-                end = off + self.slab_rows
-                fold(self.db_emb[off:end], self.zc[off:end],
-                     self.db_codes[off:off + n_valid], n_valid, off)
-                continue
             codes = self._upload(s, off, n_valid)
             emb, zc = D.embed_db(codes, self.seq_len, self.slab_rows)
             fold(emb, zc, codes, n_valid, off)
@@ -211,6 +177,63 @@ class SlabStreamRunner(DeviceRunner):
                 done = torch.cuda.Event()
                 done.record(torch.cuda.current_stream(self.device))
                 self._scanned[s % _INFLIGHT] = done
+
+
+class SlabStreamRunner(SlabUploads, DeviceRunner):
+    """Every hit mode of ``ScanRunner`` (identical results) over a db
+    scanned slab by slab."""
+
+    def __init__(self, codes: np.ndarray, seq_len: int, device: torch.device,
+                 slab_rows: int | None = None):
+        super().__init__(device)
+        self.seq_len = max(1, seq_len)
+        self.n_windows = int(codes.shape[0])
+        if self.n_windows >= 2**31:
+            raise ValueError("db indices must fit int32")
+        if slab_rows is None:
+            slab_rows, _ = slab_plan(self.n_windows, self.seq_len)
+        if slab_rows <= 0 or slab_rows % D.WP_MULTIPLE:
+            raise ValueError(f"slab_rows {slab_rows} is not a positive "
+                             f"multiple of {D.WP_MULTIPLE}")
+        self._init_uploads(codes, slab_rows)
+        self.wp = self.n_slabs * slab_rows
+        self.shift = K.packing_shift(self.seq_len, slab_rows)
+        if self.shift is None:
+            raise KeyPackingError(
+                f"slabs of {slab_rows} windows of length {self.seq_len} do "
+                "not pack into 31-bit keys (at 2^25 - 1 bp or more not "
+                "even one 64-row tile does: select.make_runner builds the "
+                "wide route, parallel.wide.WideRunner, for those)")
+        env = os.environ.get("SMAFA_TPU_SLAB_RESIDENT", "")
+        if env:
+            resident = env not in ("0", "false")
+        else:
+            cap = hbm_capacity(self.device)
+            resident = (cap is not None and self.wp * resident_row_bytes(
+                self.seq_len) <= CODES_RESIDENT_FRACTION * cap)
+        self.tier = "resident" if resident else "streaming"
+        self.db_codes = self.db_emb = self.zc = None
+        if resident:
+            self.db_codes = self._to_device(codes)
+            self.db_emb, self.zc = D.embed_db(self.db_codes, self.seq_len,
+                                              self.wp)
+        logger.debug("stream layout: %d slabs of %d rows (slab-local shift "
+                     "%d), %s tier", self.n_slabs, slab_rows, self.shift,
+                     self.tier)
+
+    def _sweep(self, fold) -> None:
+        """fold(emb, zc, codes, n_valid, off) for each slab in ascending
+        order, as ``_stream_slabs`` gives them; in the resident tier the
+        slabs are row views of the resident twin and codes."""
+        if self.db_emb is None:
+            self._stream_slabs(fold)
+            return
+        for s in range(self.n_slabs):
+            off = s * self.slab_rows
+            n_valid = min(self.slab_rows, self.n_windows - off)
+            end = off + self.slab_rows
+            fold(self.db_emb[off:end], self.zc[off:end],
+                 self.db_codes[off:off + n_valid], n_valid, off)
 
     # -- HitModesMixin primitives ------------------------------------------
 

@@ -150,13 +150,18 @@ def test_runner_from_codes_matches_scan_runner():
 
 
 def test_key_overflow_names_roadmap():
+    """ScanRunner cannot pack 2^25 bp windows and names the runner that
+    does; the layout choice builds that runner on the same codes."""
     import torch
 
     from smafa_tpu_torch.parallel.runner import KeyPackingError, ScanRunner
+    from smafa_tpu_torch.parallel.select import make_runner
+    from smafa_tpu_torch.parallel.wide import WideRunner
 
-    with pytest.raises(KeyPackingError, match="ROADMAP.md"):
-        codes = np.broadcast_to(np.zeros(1, np.uint8), (4, 2**25))
+    codes = np.broadcast_to(np.zeros(1, np.uint8), (4, 2**25))
+    with pytest.raises(KeyPackingError, match="parallel.wide.WideRunner"):
         ScanRunner(codes, 2**25, torch.device("cpu"))
+    assert type(make_runner(codes, 2**25, torch.device("cpu"))) is WideRunner
 
 
 def test_import_loads_no_jax_or_triton():
@@ -166,7 +171,8 @@ def test_import_loads_no_jax_or_triton():
             "smafa_tpu_torch.parallel.runner, smafa_tpu_torch.ops.min2, "
             "smafa_tpu_torch.parallel.select, smafa_tpu_torch.parallel.slab, "
             "smafa_tpu_torch.ops.compact, smafa_tpu_torch.ops.min_count, "
-            "smafa_tpu_torch.ops.kstats, "
+            "smafa_tpu_torch.ops.kstats, smafa_tpu_torch.ops.dist_block, "
+            "smafa_tpu_torch.parallel.wide, "
             "smafa_tpu_torch.engine.cluster, smafa_tpu_torch.engine.count; "
             "smafa_tpu_torch.cluster, smafa_tpu_torch.count; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -94,15 +94,19 @@ def test_bad_layout_raises(select, monkeypatch):
 
 
 def test_topm_case_raises(select):
-    """smafa_tpu's top-M case (no 2^24-row span packs) streams; only
-    windows where not even a 64-row tile packs still raise."""
-    from smafa_tpu_torch.parallel.runner import KeyPackingError
+    """smafa_tpu's top-M case (no 2^24-row span packs) streams; windows
+    where not even a 64-row tile packs take the wide route, whose runner
+    is built without reading or allocating a row."""
+    from smafa_tpu_torch.parallel.wide import WideRunner
 
     assert select.mod.choose_layout(2**30, 2**20, select.cpu) == "stream"
+    assert select.mod.choose_layout(2**30, 2**25 - 2, select.cpu) == "stream"
     for L in (2**25 - 1, 2**25):
-        with pytest.raises(KeyPackingError,
-                           match="2\\^25 - 1 bp.*ROADMAP.md, queue 1 item 5"):
-            select.mod.choose_layout(2**30, L, select.cpu)
+        assert select.mod.choose_layout(2**30, L, select.cpu) == "wide"
+        codes = np.broadcast_to(np.zeros(1, np.uint8), (4, L))
+        r = select.mod.make_runner(codes, L, select.cpu)
+        assert type(r) is WideRunner and r.tier == "slabs"
+        assert r.db_emb is None and r.wp == 64
 
 
 def test_make_runner_classes(select, monkeypatch):

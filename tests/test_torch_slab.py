@@ -182,16 +182,23 @@ def test_slab_plan_matches_smafa_tpu(monkeypatch):
         assert slab.slab_plan(n, 10) == (st0.slab_rows, st0.n_slabs)
 
 
-def test_slab_rows_and_keys_checked():
+def test_slab_rows_and_keys_checked(monkeypatch):
+    """Slab rows are whole tiles; at 2^25 bp no slab packs, the stream
+    layout names the wide route, and a forced stream layout builds it."""
     from smafa_tpu_torch.parallel.runner import KeyPackingError
+    from smafa_tpu_torch.parallel.select import make_runner
     from smafa_tpu_torch.parallel.slab import SlabStreamRunner
+    from smafa_tpu_torch.parallel.wide import WideRunner
 
     codes = np.zeros((100, 10), np.uint8)
     with pytest.raises(ValueError, match="multiple of 64"):
         SlabStreamRunner(codes, 10, _cpu(), slab_rows=100)
-    with pytest.raises(KeyPackingError, match="ROADMAP.md"):
-        SlabStreamRunner(np.broadcast_to(np.zeros(1, np.uint8), (100, 2**25)),
-                         2**25, _cpu(), slab_rows=64)
+    wide = np.broadcast_to(np.zeros(1, np.uint8), (100, 2**25))
+    with pytest.raises(KeyPackingError, match="parallel.wide.WideRunner"):
+        SlabStreamRunner(wide, 2**25, _cpu(), slab_rows=64)
+    monkeypatch.setenv("SMAFA_TPU_LAYOUT", "stream")
+    r = make_runner(wide, 2**25, _cpu())
+    assert type(r) is WideRunner and (r.wp, r.db_emb) == (128, None)
 
 
 def test_pair_merge_equals_whole_db_min2():

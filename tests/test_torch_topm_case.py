@@ -12,7 +12,8 @@ that case: smafa_tpu picks ``sharded`` and its ``topm`` serves the query
 equal, byte for byte, both smafa_tpu's top-M run and smafa_tpu's
 unpatched run, in best-hit and K-mode; a forced SMAFA_TPU_LAYOUT=sharded
 and a slab byte budget wider than the span are served the same way.
-Only windows of 2^25 - 1 bp or more still raise KeyPackingError."""
+Windows of 2^25 - 1 bp or more take the wide route
+(test_torch_wide.py)."""
 
 from __future__ import annotations
 
@@ -181,14 +182,15 @@ def test_packing_span(L, span):
 
 
 def test_refusal_past_one_tile():
-    """Windows of 2^25 - 1 bp: no 64-row tile packs, so the layout choice,
-    a forced layout and the cluster's store all raise KeyPackingError
-    naming the case, before any row is read or any buffer allocated."""
+    """Windows of 2^25 - 1 bp: no 64-row tile packs, so the layout choice
+    and a forced sharded or stream layout build the wide route, and the
+    cluster's store plans its wide scan, before any row is read or any
+    buffer allocated."""
     import torch
 
     from smafa_tpu_torch.engine.cluster import _CentroidStore
     from smafa_tpu_torch.parallel import select
-    from smafa_tpu_torch.parallel.runner import KeyPackingError
+    from smafa_tpu_torch.parallel.wide import WideRunner
 
     L = (1 << 25) - 1
     codes = np.broadcast_to(np.zeros(1, np.uint8), (4, L))
@@ -196,7 +198,7 @@ def test_refusal_past_one_tile():
     for layout in ("auto", "sharded", "stream"):
         with pytest.MonkeyPatch.context() as m:
             m.setenv("SMAFA_TPU_LAYOUT", layout)
-            with pytest.raises(KeyPackingError, match="2\\^25 - 1 bp"):
-                select.make_runner(codes, L, cpu)
-    with pytest.raises(KeyPackingError, match="2\\^25 - 1 bp"):
-        _CentroidStore(L, cpu)
+            r = select.make_runner(codes, L, cpu)
+            assert type(r) is WideRunner and r.db_emb is None
+    store = _CentroidStore(L, cpu)
+    assert (store.shift, store.span, store.db_emb) == (None, None, None)
