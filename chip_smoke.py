@@ -49,7 +49,15 @@ Phases, one line each:
    and emit); checks the exit codes, kstats_steps(60) = 3 kstats
    launches per batch, that compact_mask launched, and 256 sampled
    reads' lines of each run against a numpy brute force of the reference
-   rule (lib.rs:241-295).
+   rule (lib.rs:241-295). The hist kernel (K-mode's one-pass cutoff
+   program under SMAFA_TPU_KMODE_HIST=1) against its plain version,
+   exact, each line with its route, db splits, query rows a block and
+   bin bytes a block: at B = 16384 and 4096 x (2^20 + 37) (timed beside
+   one kstats pass's bound, the whole K = 99 kstats search and the
+   histogram's own cutoffs, whose eff and hits must equal the search's),
+   at B = 1 and 77 (many splits), n_valid = 37, a db of one repeated
+   row, and L = 3 and 64; each K-mode run again with the switch, its
+   sha256 equal to the run's, one hist launch a batch and no kstats.
 5. cluster through the CLI at BASELINE.json config 4: 1M 60 bp records
    from tools/cluster_bench.py's generator (4000 ancestors, 0-4
    mutations, seed 0) at -d 5; checks the exit code, that the min_count
@@ -108,12 +116,16 @@ Phases, one line each:
    long routes at this phase's shapes (one slab each), exact against
    their plain versions, timed by CUDA events beside their bounds, each
    line with its route and db splits (the K-chunked split tile, form
-   (a), "kchunk"). Then, exact and timed (``cell: long_routes``), on 32,768
-   random rows: min2 at 4,096 reads, kstats at 1,024 and compact_mask at
-   4,096 (300 bp) and 1,024 (29,903 bp) reads at their K = 99 cutoffs,
-   at 300 bp and at 29,903 bp (form (b), route "kchunk_stream"); and
-   min_count at 32,768 reads at 150 bp (form (a)). The db file is
-   deleted at the end.
+   (a), "kchunk"), and hist at the K-mode batch x one slab beside the
+   whole 4-pass kstats search there. Then, exact and timed (``cell:
+   long_routes``), on 32,768 random rows: min2 at 4,096 reads, kstats at
+   1,024 and compact_mask at 4,096 (300 bp) and 1,024 (29,903 bp) reads
+   at their K = 99 cutoffs, at 300 bp and at 29,903 bp (form (b), route
+   "kchunk_stream"); min_count at 32,768 reads at 150 bp (form (a)); and
+   hist at 1,024 reads at 300 and 1023 bp (the widest window the switch
+   takes), beside the kstats search (5 passes) there. The K = 99 run
+   also runs with SMAFA_TPU_KMODE_HIST=1: bytes equal, hist once per
+   slab per batch. The db file is deleted at the end.
 10. cluster spans: (a) cluster 1M through the CLI again with the port's
    key budget cut in-process to 12 index bits (``keys.packing_shift``
    patched, as the CPU tests do; the package has no knob for it), so
@@ -136,7 +148,9 @@ Phases, one line each:
    best-hit on 65,536 reads at --max-divergence 5 and K = 99 on 16,384
    reads, both with the query split: sha256 equal to the port's
    single-process run on the same files, 64 sampled reads a run equal
-   to a brute force. (b) phase 8's 34,603,008-window db (kept from phase
+   to a brute force; the K = 99 run again with SMAFA_TPU_KMODE_HIST=1,
+   sha256 equal, hist launched on each rank and kstats on none. (b)
+   phase 8's 34,603,008-window db (kept from phase
    8) in 2 ranks, where global keys overflow and each shard packs
    alone: phase 8's best-hit sha256. (c) cluster 1M in 2 ranks: phase
    5's sha256 and 29,321 centroids. (d) one rank with a coordinator,
@@ -156,7 +170,9 @@ Phases, one line each:
    --max-divergence 300 in 2 ranks under col and under sharded, timed
    side by side (the times behind the auto rule), and K = 99 on 1,024
    reads in 2 ranks under the auto rule (col), each sha256 equal to the
-   single process's; then col in 1 rank on NCCL. (c) the query smoke's
+   single process's (the single K = 99 run again with
+   SMAFA_TPU_KMODE_HIST=1: bytes equal, no hist launch, as 29,903 bp is
+   past HIST_MAX); then col in 1 rank on NCCL. (c) the query smoke's
    best-hit run in a process of its own, untraced and with
    SMAFA_TPU_TRACE_DIR set: one torch.profiler trace that names the min2
    kernel, and the smoke's bytes both times.
@@ -216,6 +232,11 @@ MIN_COUNT_REPLACES = "smafa_tpu/ops/pallas_scan.py:152"  # _min_kernel
 KSTATS_SOURCE = "smafa_tpu_torch/csrc/kstats.cu"
 # not a Pallas kernel: the XLA pass _statsN_pass of the K-mode cutoff search
 KSTATS_REPLACES = "smafa_tpu/ops/distance.py:1302"
+HIST_SOURCE = "smafa_tpu_torch/csrc/hist.cu"
+# not a Pallas kernel: the XLA program hist_scan, K-mode's cutoff pass
+# under SMAFA_TPU_KMODE_HIST=1
+HIST_REPLACES = "smafa_tpu/ops/distance.py:1087"
+KMODE_HIST = "SMAFA_TPU_KMODE_HIST"  # the switch of the histogram pass
 
 # What smafa_tpu prints for the cluster phase's input (tools/cluster_bench.py
 # defaults, -d 5), from its CPU run: distinct centroids and the sha256
@@ -258,6 +279,14 @@ def smoke_sizes(query_mod) -> types.SimpleNamespace:
                              (300, 37)),
         kmode_runs=(("a", 16384, None, None, 16384), ("b", 4096, 5, 1, None),
                     ("c", 65536, 5, None, 16384)),
+        # hist's split shapes at 60 bp: (B, n_valid, db) against
+        # kstats_rows, db "random" or "repeated" (one row); then (B, L)
+        # at the narrowest and widest windows of the split tile
+        hist_split_shapes=((1, (1 << 20) + 37, "random"),
+                           (77, (1 << 20) + 37, "random"),
+                           (300, 37, "random"),
+                           (300, (1 << 20) + 37, "repeated")),
+        hist_widths=((4096, 3), (4096, 64)),
         kmode_sample=256,
         # phase 8 (b): K-mode reads and sampled reads a run
         stream_kmode_queries=16384, stream_sample=64,
@@ -776,6 +805,117 @@ def kstats_parity(sizes, dev, D, K, ks_mod, min2_mod, rng, rng_s) -> dict:
     return timings["main"]
 
 
+def hist_plan(hist_mod, b: int, n_valid: int, L: int, dev) -> dict:
+    """The hist kernel's route, db splits, query rows a block and bin
+    bytes a block at a launch of this shape on this card."""
+    return hist_mod.launch_plan(b, n_valid, L,
+                                hist_mod.M.sm_count(dev))._asdict()
+
+
+def hist_check(hist_mod, D, q_emb, db_emb, zc, n_valid: int, L: int,
+               where: str) -> torch.Tensor:
+    """The kernel's histogram, held exactly to the plain version's."""
+    got = hist_mod.hist(q_emb, db_emb, zc, n_valid, L)
+    want = D.hist_reference(q_emb, db_emb, zc, n_valid, L)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if err != 0 or int(got.sum()) != q_emb.shape[0] * n_valid:
+        raise AssertionError(f"hist kernel differs from its plain version "
+                             f"at {where} (max |err| {err})")
+    return got
+
+
+def hist_vs_search(sizes, D, K, hist_mod, ks_mod, q_emb, db_emb, zc,
+                   n: int, L: int, reps: int) -> dict:
+    """One K = 99 cutoff search both ways on the same operands: the
+    kstats search (kstats_steps(L) passes, ``kmode_phase1``) and one
+    hist pass read by ``kmode_cutoffs_from_hist``; their (eff, hits)
+    must be equal. Times by CUDA events, in this call."""
+    b = q_emb.shape[0]
+
+    def search():
+        return D.kmode_phase1(
+            lambda t: ks_mod.kstats(q_emb, db_emb, zc, t, n, L),
+            sizes.kmode_k, L + 1, n, L, b, q_emb.device)
+
+    def by_hist():
+        return D.kmode_cutoffs_from_hist(
+            hist_mod.hist(q_emb, db_emb, zc, n, L), sizes.kmode_k, L + 1, n)
+
+    if not all(torch.equal(g, w) for g, w in zip(by_hist(), search())):
+        raise AssertionError(f"the histogram's cutoffs differ from the "
+                             f"kstats search's at B={b}, L={L}")
+    return {"kstats_search_ms": time_ms(search, reps),
+            "kstats_passes": K.kstats_steps(L),
+            "hist_cutoffs_ms": time_ms(by_hist, reps)}
+
+
+def hist_parity(sizes, dev, D, K, hist_mod, ks_mod, rng) -> dict:
+    """Phase 4, hist: kernel vs plain version on the card, exact, each
+    line with its route, db splits, query rows a block and bin bytes a
+    block: at the K-mode batches B = 16384 and 4096 against 2^20 + 37
+    db rows (60 bp), timed beside one kstats pass's bound and beside the
+    whole K = 99 kstats search and the histogram's own cutoffs at the
+    same shape (``hist_vs_search``); at B = 1 and 77 (many splits), at
+    n_valid = 37 (one partial tile; the buffer's rows past it live), on
+    a db of one repeated row (every row in one bin), and at L = 3 and
+    64. Returns the B = 16384 timing."""
+    n = sizes.kstats_rows
+    wp = -(-n // D.WP_MULTIPLE) * D.WP_MULTIPLE
+    ep = D.embed_width(L_SMOKE)
+    codes = random_db(rng, n, L_SMOKE)
+    db_emb, zc = D.embed_db(torch.from_numpy(codes).to(dev), L_SMOKE, wp)
+
+    def queries(b: int, L: int = L_SMOKE, src=codes):
+        q = mutate(rng, src[rng.integers(0, src.shape[0], b)], 6)
+        return D.expand_embed_query(torch.from_numpy(q).to(dev), L)
+
+    timings = {}
+    for b, which in sizes.kstats_queries:
+        q_emb = queries(b)
+        hist_check(hist_mod, D, q_emb, db_emb, zc, n, L_SMOKE,
+                   f"B={b} W={n}")
+        plan = hist_plan(hist_mod, b, n, L_SMOKE, dev)
+        log("kernel_parity", kernel="hist", L=L_SMOKE, B=b, W=n, n_valid=n,
+            **plan, exact=True)
+        ms = time_ms(lambda: hist_mod.hist(q_emb, db_emb, zc, n, L_SMOKE),
+                     sizes.reps)
+        plain_ms = time_ms(lambda: D.hist_reference(q_emb, db_emb, zc, n,
+                                                    L_SMOKE), 1)
+        bnd = bound(b, n, L_SMOKE, ep, out_bytes=4 * (L_SMOKE + 1) * b)
+        timings[which] = {"max_abs_err": 0, **log_time(
+            "hist", L_SMOKE, b, n, ms, plain_ms, bnd, **plan,
+            **hist_vs_search(sizes, D, K, hist_mod, ks_mod, q_emb, db_emb,
+                             zc, n, L_SMOKE, sizes.reps))}
+        del q_emb
+    rep = np.repeat(codes[:1], n, axis=0)
+    rep_emb, rep_zc = D.embed_db(torch.from_numpy(rep).to(dev), L_SMOKE, wp)
+    for b, n_valid, db in sizes.hist_split_shapes:
+        emb, z = (db_emb, zc) if db == "random" else (rep_emb, rep_zc)
+        q_emb = queries(b, src=codes if db == "random" else codes[:64])
+        got = hist_check(hist_mod, D, q_emb, emb, z, n_valid, L_SMOKE,
+                         f"B={b} n_valid={n_valid} db={db}")
+        if db == "repeated" and not bool((got.max(dim=1).values
+                                          == n_valid).all()):
+            raise AssertionError("hist: a repeated-row db's rows are not "
+                                 "in one bin")
+        log("kernel_parity", kernel="hist", L=L_SMOKE, B=b, W=n,
+            n_valid=n_valid, db=db,
+            **hist_plan(hist_mod, b, n_valid, L_SMOKE, dev), exact=True)
+    del rep_emb, rep_zc, db_emb, zc
+    for b, L in sizes.hist_widths:
+        nw = 70001
+        src = random_db(rng, nw, L)
+        emb, z = D.embed_db(torch.from_numpy(src).to(dev), L,
+                            -(-nw // D.WP_MULTIPLE) * D.WP_MULTIPLE)
+        q_emb = queries(b, L, src)
+        hist_check(hist_mod, D, q_emb, emb, z, nw, L, f"B={b} L={L}")
+        log("kernel_parity", kernel="hist", L=L, B=b, W=nw, n_valid=nw,
+            **hist_plan(hist_mod, b, nw, L, dev), exact=True)
+    torch.cuda.empty_cache()
+    return timings["main"]
+
+
 def kmode_compact_parity(sizes, dev, D, K, ks_mod, compact_mod, hitops,
                          codes, rng) -> None:
     """Phase 4, compact_mask at the K-mode compaction's shape: one
@@ -1009,11 +1149,13 @@ def brute_force_kmode(codes_t: np.ndarray, codes: np.ndarray, q: np.ndarray,
     return lines
 
 
-def kmode_end_to_end(sizes, cli, query_mod, K, ks_mod, compact_mod, codes,
-                     db, tmp, rng) -> dict:
+def kmode_end_to_end(sizes, cli, query_mod, K, ks_mod, compact_mod,
+                     hist_mod, codes, db, tmp, rng) -> dict:
     """Phase 4, K-mode query through the CLI on phase 3's db: each run's
     kernel counts set to 0 just before it and read just after; sampled
-    reads checked against a brute force; the output file deleted."""
+    reads checked against a brute force; the output file deleted. Each
+    run again with SMAFA_TPU_KMODE_HIST=1 (``<run>_hist``): its sha256
+    equal to the run's, one hist launch a batch and no kstats."""
     n = codes.shape[0]
     codes_t = np.ascontiguousarray(codes.T)
     results = {}
@@ -1043,6 +1185,28 @@ def kmode_end_to_end(sizes, cli, query_mod, K, ks_mod, compact_mod, codes,
                 or launches["compact_mask"] < 1):
             raise AssertionError(f"K-mode run {name}: launches {launches} "
                                  f"for {batches} batch(es)")
+        sha, _ = file_digest(out)
+        out_h = os.path.join(tmp, "khits_hist.tsv")
+        ks_mod.launches = compact_mod.launches = hist_mod.launches = 0
+        os.environ[KMODE_HIST] = "1"
+        try:
+            rc_h, wall_h, timers_h = cli_query(
+                cli, query_mod, [out_h if a == out else a for a in argv])
+        finally:
+            del os.environ[KMODE_HIST]
+        launches_h = {"hist": hist_mod.launches, "kstats": ks_mod.launches,
+                      "compact_mask": compact_mod.launches}
+        sha_h, _ = file_digest(out_h)
+        os.remove(out_h)
+        log("kmode_end_to_end", run=f"{name}_hist", db_rows=n, reads=nq,
+            batches=batches, wall_s=wall_h, reads_per_s=nq / wall_h,
+            stage_s=timers_h.seconds, launches=launches_h, sha256=sha_h,
+            sha256_equal=sha_h == sha)
+        if (rc_h != 0 or sha_h != sha or launches_h["hist"] != batches
+                or launches_h["kstats"] != 0):
+            raise AssertionError(f"K-mode run {name} with {KMODE_HIST}=1: "
+                                 f"rc={rc_h}, sha256 equal {sha_h == sha}, "
+                                 f"launches {launches_h}")
         sample = set(rng.choice(nq, size=sizes.kmode_sample,
                                 replace=False).tolist())
         by_q: dict[int, list[str]] = {}
@@ -1071,7 +1235,8 @@ def kmode_end_to_end(sizes, cli, query_mod, K, ks_mod, compact_mod, codes,
                "wall_s": wall, "reads_per_s": nq / wall,
                "hit_lines": n_lines, "stage_s": timers.seconds,
                "sampled_exact": len(sample), "launches": launches,
-               "host_calls": spies.counts}
+               "host_calls": spies.counts, "sha256": sha,
+               "hist_launches": launches_h["hist"]}
         log("kmode_end_to_end", run=name, db_rows=n, **res)
         if name == "b":
             res.update(reads_file=q_fa.replace(".fna", "_b.fna"),
@@ -1394,7 +1559,7 @@ def resume_phase(sizes, cli, query_mod, cluster_mod, dev, e2e: dict, db: str,
 STREAM_SLAB_BYTES_A = (1 << 18) * L_SMOKE
 STREAM_ROWS = (1 << 25) + (1 << 20)
 STREAM_VARS = ("SMAFA_TPU_LAYOUT", "SMAFA_TPU_SLAB_BYTES",
-               "SMAFA_TPU_SLAB_RESIDENT", "SMAFA_TPU_HBM_BYTES")
+               "SMAFA_TPU_SLAB_RESIDENT", "SMAFA_TPU_HBM_BYTES", KMODE_HIST)
 
 
 class StreamRun:
@@ -1764,6 +1929,14 @@ def long_window_kernels(sizes, D, K, mods: dict, min2_mod, hitops, codes,
                                                   torch.maximum(mx, x))
         return cnt, mx
 
+    hm = mods["hist"]
+    held("hist", lambda: (hm.hist(q_emb, emb, zc, n0, L),),
+         lambda: (D.hist_reference(q_emb, emb, zc, n0, L),), b, n0,
+         bound(b, n0, L, ep, out_bytes=4 * (L + 1) * b),
+         **hist_plan(hm, b, n0, L, dev),
+         **hist_vs_search(sizes, D, K, hm, ks, q_emb, emb, zc, n0, L,
+                          sizes.long_reps))
+
     eff, _ = D.kmode_phase1(stats, sizes.kmode_k, L + 1, n, L, b, dev)
     cm = mods["compact_mask"]
     rows = min(hitops.mask_row_cap(slab_rows), b)
@@ -1787,7 +1960,8 @@ def long_window_kernels(sizes, D, K, mods: dict, min2_mod, hitops, codes,
 LONG_ROUTE_SHAPES = (("min2", 300, 4096), ("kstats", 300, 1024),
                      ("min2", 29903, 4096), ("kstats", 29903, 1024),
                      ("compact_mask", 300, 4096),
-                     ("compact_mask", 29903, 1024), ("min_count", 150, 32768))
+                     ("compact_mask", 29903, 1024), ("min_count", 150, 32768),
+                     ("hist", 300, 1024), ("hist", 1023, 1024))
 LONG_ROUTE_ROWS = 32768
 
 
@@ -1851,6 +2025,14 @@ def long_route_kernels(sizes, D, K, mods: dict, min2_mod, dev,
                         extra_in_bytes=4 * b)
             extra = {"k": sizes.kmode_k,
                      "thresh_median": float(th.float().median())}
+        elif name == "hist":
+            args = (q_emb, emb, zc, rows, L)
+            fn, ref = (lambda: (mods["hist"].hist(*args),),
+                       lambda: (D.hist_reference(*args),))
+            bnd = bound(b, rows, L, ep, out_bytes=4 * (L + 1) * b)
+            plan = hist_plan(mods["hist"], b, rows, L, dev)
+            extra = hist_vs_search(sizes, D, K, mods["hist"], mods["kstats"],
+                                   q_emb, emb, zc, rows, L, sizes.long_reps)
         else:
             shift = K.packing_shift(L, rows)
             args = (q_emb, emb, zc, rows, L, shift, False)
@@ -1946,6 +2128,22 @@ def long_windows(sizes, cli, query_mod, select_mod, slab_mod, hitops, mods,
             log("long_windows", run=name, reads=nq, db_rows=n, L=L, **res)
             if not ok:
                 raise AssertionError(f"long windows {name} {tier}: {res}")
+        if k is not None:  # the K-mode run again with the histogram
+            out = os.path.join(tmp, "l_hist.tsv")
+            res = stream_query(cli, query_mod, select_mod, mods,
+                               ["query", "-d", db, "-q", q_fa, *flags, "-o",
+                                out, "--quiet"], {KMODE_HIST: "1"}, nq, n,
+                               card)
+            res["sha256"], res["hit_lines"] = file_digest(out)
+            os.remove(out)
+            per = n_slabs * -(-nq // 65536)
+            log("long_windows", run="kmode_hist", reads=nq, db_rows=n, L=L,
+                **res)
+            if (res["sha256"] != digests[0] or res["tier"] != "resident"
+                    or res["launches"]["hist"] != per
+                    or res["launches"]["kstats"] != 0):
+                raise AssertionError(f"long windows kmode with "
+                                     f"{KMODE_HIST}=1: {res}")
         os.remove(q_fa)
         if digests[0] != digests[1]:
             raise AssertionError(f"long windows {name}: the tiers' outputs "
@@ -2102,11 +2300,11 @@ def rank_worker(out_json: str, argv: list[str]) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from smafa_tpu_torch import cli
     from smafa_tpu_torch.engine import cluster as cluster_mod, query as query_mod
-    from smafa_tpu_torch.ops import compact, kstats, min2, min_count
+    from smafa_tpu_torch.ops import compact, hist, kstats, min2, min_count
     from smafa_tpu_torch.parallel import select as select_mod
 
     mods = {"min2": min2, "compact_mask": compact, "kstats": kstats,
-            "min_count": min_count}
+            "min_count": min_count, "hist": hist}
     runners, stores, timers = [], [], []
     make, store_cls = select_mod.make_runner, cluster_mod._CentroidStore
 
@@ -2276,6 +2474,25 @@ def multiprocess(sizes, cli, query_mod, cluster_mod, mods: dict, dev,
             raise AssertionError(f"multiprocess (a) {name}: {res}")
         os.remove(out)
         os.remove(single)
+        if k is not None:  # the K-mode run again with the histogram
+            runs = run_ranks(["query", "-d", db, "-q", q_fa, *flags, "-o",
+                              out, "-v"], tmp, env={KMODE_HIST: "1"})
+            sha, _ = file_digest(out)
+            os.remove(out)
+            res = {"part": "a", "run": "kmode_hist", "reads": nq,
+                   "ranks": MP_RANKS, "sha256": sha,
+                   "sha256_equal": sha == want_sha,
+                   "wall_s": [r["wall_s"] for r in runs],
+                   "reads_per_s": nq / max(r["wall_s"] for r in runs),
+                   "stage_s": [r["stage_s"] for r in runs],
+                   "merge_s": [r["merge_s"] for r in runs],
+                   "launches": [r["launches"] for r in runs], "card": card}
+            log("multiprocess", **res)
+            if sha != want_sha or any(
+                    r["launches"]["hist"] <= 0 or r["launches"]["kstats"]
+                    for r in runs):
+                raise AssertionError(f"multiprocess (a) kmode with "
+                                     f"{KMODE_HIST}=1: {res}")
         kept["runs"].append({"name": name, "q": q, "reads": q_fa,
                              "flags": flags, "k": k, "max_div": max_div,
                              "sha256": want_sha})
@@ -2478,6 +2695,25 @@ def layouts(sizes, cli, query_mod, mods: dict, dev, tmp: str, rng,
         launches1 = {k: mod.launches for k, mod in mods.items()}
         want_sha, lines = file_digest(single)
         os.remove(single)
+        if name == "kmode":  # L >= HIST_MAX: the switch keeps kstats
+            for mod in mods.values():
+                mod.launches = 0
+            os.environ[KMODE_HIST] = "1"
+            try:
+                rc_h, wall_h, _ = cli_query(cli, query_mod,
+                                            [*argv, "-o", single, "--quiet"])
+            finally:
+                del os.environ[KMODE_HIST]
+            launches_h = {k: mod.launches for k, mod in mods.items()}
+            sha_h, _ = file_digest(single)
+            os.remove(single)
+            log("layouts", part="b", run="kmode_hist", reads=nq, L=COL_L,
+                rc=rc_h, wall_s=wall_h, launches=launches_h, sha256=sha_h,
+                sha256_equal=sha_h == want_sha, card=card)
+            if (rc_h != 0 or sha_h != want_sha or launches_h["hist"] != 0
+                    or launches_h["kstats"] <= 0):
+                raise AssertionError(f"layouts (b) kmode with "
+                                     f"{KMODE_HIST}=1: {launches_h}")
         res = {"part": "b", "run": name, "reads": nq, "db_rows": COL_ROWS,
                "L": COL_L, "ranks": MP_RANKS, "rc": rc, "hit_lines": lines,
                "sha256_single": want_sha, "single_wall_s": wall1,
@@ -3021,7 +3257,8 @@ def run_phases(seed: int, after=None) -> tuple[list, str]:
     from smafa_tpu_torch.engine import cluster as cluster_mod, query as query_mod
     from smafa_tpu_torch.ops import _build, compact as compact_mod
     from smafa_tpu_torch.ops import distance as D, keys as K, min2 as min2_mod
-    from smafa_tpu_torch.ops import kstats as ks_mod, min_count as mc_mod
+    from smafa_tpu_torch.ops import hist as hist_mod, kstats as ks_mod
+    from smafa_tpu_torch.ops import min_count as mc_mod
     from smafa_tpu_torch.parallel import hitops
     from smafa_tpu_torch.parallel import select as select_mod, slab as slab_mod
 
@@ -3039,7 +3276,8 @@ def run_phases(seed: int, after=None) -> tuple[list, str]:
             f"{src}.cu", "not measured (library already built)").splitlines()
         if "entry function" in line or "spill" in line or "Used" in line
         or "not measured" in line]
-        for src in ("min2", "compact", "kstats", "min_count", "dist_block")}
+        for src in ("min2", "compact", "kstats", "min_count", "dist_block",
+                    "hist")}
     log("build", seconds=time.perf_counter() - t0,
         library=str(_build.library_path().name), **ptxas)
 
@@ -3071,6 +3309,8 @@ def run_phases(seed: int, after=None) -> tuple[list, str]:
                                            rng, rng_n)
     timing["kstats"] = kstats_parity(sizes, dev, D, K, ks_mod, min2_mod, rng_k,
                                      rng_s)
+    timing["hist"] = hist_parity(sizes, dev, D, K, hist_mod, ks_mod,
+                                 np.random.default_rng([seed, 16]))
     after("kernel_parity")
     with tempfile.TemporaryDirectory(prefix="smafa_smoke_") as tmp:
         e2e, codes, db = end_to_end(sizes, cli, query_mod, min2_mod,
@@ -3079,7 +3319,8 @@ def run_phases(seed: int, after=None) -> tuple[list, str]:
         kmode_compact_parity(sizes, dev, D, K, ks_mod, compact_mod, hitops,
                              codes, rng_k)
         kmode = kmode_end_to_end(sizes, cli, query_mod, K, ks_mod,
-                                 compact_mod, codes, db, tmp, rng_k)
+                                 compact_mod, hist_mod, codes, db, tmp,
+                                 rng_k)
         after("kmode_end_to_end")
         clu, cluster_inp = cluster_end_to_end(
             sizes, cli, cluster_mod, mc_mod, D, K, dev, rng,
@@ -3092,7 +3333,7 @@ def run_phases(seed: int, after=None) -> tuple[list, str]:
                      cluster_inp, tmp)
         after("resume")
         stream_mods = {"min2": min2_mod, "compact_mask": compact_mod,
-                       "kstats": ks_mod}
+                       "kstats": ks_mod, "hist": hist_mod}
         stream_parity(sizes, cli, query_mod, select_mod, stream_mods, e2e,
                       kmode, db, tmp, card)
         stream_kept = stream_full(sizes, cli, query_mod, select_mod,
@@ -3125,17 +3366,19 @@ def run_phases(seed: int, after=None) -> tuple[list, str]:
                 "compact_mask": e2e["launches"]["compact_mask"],
                 "min_count": clu["launches"]["min_count"],
                 "kstats": kmode["a"]["launches"]["kstats"],
+                "hist": kmode["a"]["hist_launches"],
                 "dist_block": timing["dist_block"]["launches"]}
     routes = {"min2": (MIN2_SOURCE, MIN2_REPLACES),
               "compact_mask": (COMPACT_SOURCE, COMPACT_REPLACES),
               "min_count": (MIN_COUNT_SOURCE, MIN_COUNT_REPLACES),
               "kstats": (KSTATS_SOURCE, KSTATS_REPLACES),
+              "hist": (HIST_SOURCE, HIST_REPLACES),
               "dist_block": (DIST_BLOCK_SOURCE, DIST_BLOCK_REPLACES)}
-    # library_ms: no single PyTorch call computes any of the four scans'
-    # per-row reductions over a distance matrix that is never
-    # materialised (torch._int_mm would write B x W int32: 128 GiB at
-    # min2's shape); dist_block's block is one torch._int_mm and an
-    # elementwise epilogue (library_block_ms).
+    # library_ms: no single PyTorch call computes any of the five scans'
+    # per-row reductions (hist's per-row histogram among them) over a
+    # distance matrix that is never materialised (torch._int_mm would
+    # write B x W int32: 128 GiB at min2's shape); dist_block's block is
+    # one torch._int_mm and an elementwise epilogue (library_block_ms).
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],

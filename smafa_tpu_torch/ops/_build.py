@@ -50,6 +50,8 @@ _SIGNATURES = {
     "smafa_kstats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, db, zc, dist, B, W, EP, seq_len, splits, stream
     "smafa_dist_block": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # q, db, zc, hist, B, n_valid, EP, seq_len, splits, stream
+    "smafa_hist": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -368,6 +368,47 @@ def stats_reference(q_emb: torch.Tensor, db_emb: torch.Tensor,
     return cnt, mx
 
 
+def hist_reference(q_emb: torch.Tensor, db_emb: torch.Tensor,
+                   zc: torch.Tensor, n_valid: int,
+                   seq_len: int) -> torch.Tensor:
+    """Plain version of the hist kernel (the semantics of
+    ``smafa_tpu.ops.distance.hist_scan``): int32 [B, L+1], hist[r, d] the
+    number of db rows w < n_valid at distance d from query row r. Rows at
+    or past n_valid are never read."""
+    b = q_emb.shape[0]
+    hist = torch.zeros((b, seq_len + 1), dtype=torch.int32,
+                       device=q_emb.device)
+    q_f = q_emb.to(torch.float32)
+    for off in range(0, n_valid, CHUNK):
+        end = min(off + CHUNK, n_valid)
+        dist = distances(q_f, db_emb[off:end], zc[off:end], seq_len)
+        hist.scatter_add_(1, dist.to(torch.int64), torch.ones_like(dist))
+    return hist
+
+
+def kmode_cutoffs_from_hist(hist: torch.Tensor, k: int,
+                            max_divergence: int | None,
+                            n_windows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The K-mode cutoff rule read off the distance histogram
+    (``smafa_tpu.ops.distance.kmode_cutoffs_from_hist``, in torch on the
+    histogram's device, so nothing is read back): the cutoff is the K-th
+    smallest distance, or the row's largest when K exceeds the window
+    count (lib.rs:253-256); eff = min(cutoff, max_divergence) clipped to
+    [0, L], and hits the number of windows at distance <= eff. Returns
+    (eff, hits) int32 [B], as ``kmode_phase1`` does."""
+    seq_len = hist.shape[1] - 1
+    cum = hist.cumsum(dim=1, dtype=torch.int64)
+    kth = (cum < k).sum(dim=1)  # first d with cum[d] >= k; L + 1 if none
+    # the last nonzero bin (L where a row is empty, as numpy's argmax)
+    last = torch.argmax((hist > 0).flip(1).to(torch.int32), dim=1)
+    cutoff = kth if k <= n_windows else seq_len - last
+    if max_divergence is not None:
+        cutoff = torch.clamp(cutoff, max=max_divergence)
+    eff = torch.clamp(cutoff, 0, seq_len)
+    hits = cum.gather(1, eff.unsqueeze(1)).squeeze(1)
+    return eff.to(torch.int32), hits.to(torch.int32)
+
+
 def kmode_phase1(scan_stats, k: int, maxdiv: int, n_windows: int,
                  seq_len: int, b: int,
                  device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:

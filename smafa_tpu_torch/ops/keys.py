@@ -19,6 +19,9 @@ import numpy as np
 BIG = np.int32(2**30)  # sentinel distance for padded / masked-out windows
 BIG_KEY = 2**31 - 1    # empty-row key
 KSTATS_PROBES = 4      # per-row thresholds probed per K-mode cutoff pass
+# The K-mode histogram program serves only windows shorter than this
+# (``SMAFA_TPU_KMODE_HIST=1``); longer ones keep the kstats search.
+HIST_MAX = 1024
 
 
 def kstats_steps(seq_len: int) -> int:

@@ -19,20 +19,25 @@ max when K exceeds the window count), in (distance, index) order:
 
 - the cutoff search is kstats_steps(L) kstats kernel passes, queued on
   the device with nothing read back (``distance.kmode_phase1``); it
-  gives each row's effective cutoff and exact hit count;
+  gives each row's effective cutoff and exact hit count. Under
+  ``SMAFA_TPU_KMODE_HIST=1``, for windows below ``keys.HIST_MAX``, one
+  hist kernel pass gives each row's [L + 1] distance histogram instead,
+  and the same two numbers are read off its cumulative sum on the device
+  (``distance.kmode_cutoffs_from_hist``), as ``smafa_tpu`` switches;
 - one compaction per row group at thresh = the row's cutoff, with the
   hits' distances recomputed from the codes and sorted by (row,
   distance, index) on the device (the JAX package's ``compactd``).
 
 The JAX package's latency-driven variants (``miditer``, ``tcount``,
 ``bestfull``, the tie-EMA switch, ``_SharedFetch``) give byte-identical
-output under its own tests and are left out here, as are the K-mode
-histogram variant (``SMAFA_TPU_KMODE_HIST=1``) and the top-M fallback
-(the stream layout and the wide route, ``parallel.wide``, serve its
-inputs).
+output under its own tests and are left out here, as is the top-M
+fallback (the stream layout and the wide route, ``parallel.wide``,
+serve its inputs).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -70,7 +75,8 @@ class HitModesMixin:
     ``_phase_a(q_emb)`` -> packed keys ``(lo, hi, cnt)`` or the pair form
     ``(pair [3, B], cnt)`` (``distance.min2_pair_finish``),
     ``_compact(q_emb, row_ids, thresh) -> (rows, idx, counts)``,
-    ``_kstats(q_emb, ts) -> (cnt, mx)``, ``_compactd(q_padded, q_emb,
+    ``_kstats(q_emb, ts) -> (cnt, mx)``, ``_hist(q_emb) -> int32 [B,
+    L+1]`` (windows below ``keys.HIST_MAX``), ``_compactd(q_padded, q_emb,
     row_ids, thresh) -> (rows, idx, dist, counts)``, ``_compact_span_rows()``
     (the db rows one compaction mask spans), and the attributes seq_len,
     n_windows, wp, shift, _codes_host. A runner that scans the db in
@@ -220,10 +226,18 @@ class HitModesMixin:
 
     # -- K-mode ------------------------------------------------------------
 
+    def _kmode_hist_enabled(self) -> bool:
+        """``smafa_tpu``'s switch of the cutoff program: the histogram
+        under SMAFA_TPU_KMODE_HIST=1 for windows below HIST_MAX, else
+        the kstats search."""
+        return (self.seq_len < K.HIST_MAX
+                and os.environ.get("SMAFA_TPU_KMODE_HIST", "") == "1")
+
     def kmode_stats_async(self, q_codes: np.ndarray, k: int,
                           max_divergence: int | None):
-        """Launch the K-mode cutoff search without waiting; opaque handle
-        for kmode_flat."""
+        """Launch the K-mode cutoff search (or the histogram pass, see
+        ``_kmode_hist_enabled``) without waiting; opaque handle for
+        kmode_flat."""
         self._require_windows()
         q_padded, nq = self._pad(q_codes)
         q_emb = self._embed_queries(q_padded)
@@ -235,9 +249,13 @@ class HitModesMixin:
         maxdiv = self.seq_len + 1
         if max_divergence is not None:
             maxdiv = min(maxdiv, max_divergence)
-        stats = self._ahead(q_emb, lambda: D.kmode_phase1(
-            lambda ts: self._kstats(q_emb, ts), k, maxdiv, self.n_windows,
-            self.seq_len, q_emb.shape[0], q_emb.device))
+        if self._kmode_hist_enabled():
+            stats = self._ahead(q_emb, lambda: D.kmode_cutoffs_from_hist(
+                self._hist(q_emb), k, maxdiv, self.n_windows))
+        else:
+            stats = self._ahead(q_emb, lambda: D.kmode_phase1(
+                lambda ts: self._kstats(q_emb, ts), k, maxdiv,
+                self.n_windows, self.seq_len, q_emb.shape[0], q_emb.device))
         return stats, nq, q_padded, q_emb
 
     def kmode_flat(self, q_codes: np.ndarray, k: int,

@@ -41,7 +41,8 @@ arriving shards beside its own.
   dbs past the global key budget (``smafa_tpu``'s pair mode);
 - a K-mode cutoff pass: kstats per step over the held shard's real rows,
   counts summed and maxima taken over the steps, then the blocks
-  gathered;
+  gathered; the histogram (``SMAFA_TPU_KMODE_HIST=1``) likewise, hist
+  summed over the steps;
 - compactions: every group of a batch shares one rotation. At each step
   compact_mask runs over the held shard for each group's rows that lie
   in the rank's block, the hits offset by the owner's first row (in
@@ -68,6 +69,7 @@ import torch
 from smafa_tpu_torch.ops import distance as D
 from smafa_tpu_torch.ops import keys as K
 from smafa_tpu_torch.ops.compact import compact_mask
+from smafa_tpu_torch.ops.hist import hist
 from smafa_tpu_torch.ops.kstats import kstats
 from smafa_tpu_torch.ops.min2 import min2
 from smafa_tpu_torch.parallel import multihost
@@ -225,6 +227,19 @@ class RingRunner(DeviceRunner):
         self._sweep(fold)
         both = self._gather_rows(torch.cat([cnt, mx[None]]))
         return both[:-1].contiguous(), both[-1].contiguous()
+
+    def _hist(self, q_emb: torch.Tensor) -> torch.Tensor:
+        """The K-mode distance histogram: the block's over every shard,
+        then the blocks gathered: int32 [B, L+1]."""
+        lo_row, hi_row = self._rows(q_emb.shape[0])
+        blk = q_emb[lo_row:hi_row]
+        out = torch.zeros((blk.shape[0], self.seq_len + 1),
+                          dtype=torch.int32, device=q_emb.device)
+
+        def fold(emb, zc, _codes, n_valid, _off, _owner):
+            out.add_(hist(blk, emb, zc, n_valid, self.seq_len))
+        self._sweep(fold)
+        return torch.cat(self._timed(self.comm.all_gather, out))
 
     def _groups_hits(self, q_padded, q_emb: torch.Tensor, groups,
                      kmode: bool):

@@ -4,8 +4,9 @@ Counterpart of ``smafa_tpu.parallel.sharded.ScanRunner`` on a 1x1 mesh.
 It holds the db channel codes and their embedded twin on
 ``self.device`` and supplies the primitives of ``HitModesMixin``; the
 kernels it calls are the min2 kernel (best-hit phase A), the kstats
-kernel (the K-mode cutoff passes) and the compact_mask kernel (tie and
-K-mode hit enumeration). ``parallel.select.make_runner`` picks it while
+kernel (the K-mode cutoff passes; the hist kernel instead under
+``SMAFA_TPU_KMODE_HIST=1``) and the compact_mask kernel (tie and K-mode
+hit enumeration). ``parallel.select.make_runner`` picks it while
 the db's global packed keys fit 31 bits and its resident form fits the
 card; past either, the stream layout (``parallel.slab``) serves, and
 past a 64-row tile's keys the wide route (``parallel.wide``).
@@ -21,6 +22,7 @@ import torch
 from smafa_tpu_torch.ops import distance as D
 from smafa_tpu_torch.ops import keys as K
 from smafa_tpu_torch.ops.compact import compact_mask
+from smafa_tpu_torch.ops.hist import hist
 from smafa_tpu_torch.ops.kstats import kstats
 from smafa_tpu_torch.ops.min2 import min2
 from smafa_tpu_torch.parallel.hitops import HitModesMixin
@@ -151,6 +153,11 @@ class ScanRunner(DeviceRunner):
         mx [B]) at the per-row thresholds ts [P, B]."""
         return kstats(q_emb, self.db_emb, self.zc, ts, self.n_windows,
                       self.seq_len)
+
+    def _hist(self, q_emb: torch.Tensor) -> torch.Tensor:
+        """The K-mode distance histogram over the db's real rows: int32
+        [B, L+1]."""
+        return hist(q_emb, self.db_emb, self.zc, self.n_windows, self.seq_len)
 
     def _compactd(self, q_padded: np.ndarray, q_emb: torch.Tensor,
                   row_ids: np.ndarray, thresh: np.ndarray):

@@ -19,7 +19,8 @@ distance block then folds, the same on every rank, into:
 - phase A: (dist, i_lo, i_hi, count) pair carries, chunks in ascending
   order (``distance.min2_pair_fold``), so any row count packs;
 - a K-mode cutoff pass: the counts at the per-row thresholds and the row
-  maxima;
+  maxima; the histogram (``SMAFA_TPU_KMODE_HIST=1``): each row's count
+  at every distance;
 - compactions: the hits ``dist <= thresh`` of every group of a batch,
   read straight from the block (one sweep for all groups, over the rows
   of the groups alone), in (row, index) order, in K-mode (row, distance,
@@ -194,6 +195,16 @@ class ColumnShardedRunner(DeviceRunner):
             torch.maximum(mx, dist.amax(dim=1), out=mx)
         self._sweep(q_emb, fold)
         return cnt, mx
+
+    def _hist(self, q_emb: torch.Tensor) -> torch.Tensor:
+        """The K-mode distance histogram: int32 [B, L+1]."""
+        out = torch.zeros((q_emb.shape[0], self.seq_len + 1),
+                          dtype=torch.int32, device=q_emb.device)
+
+        def fold(dist, _off):
+            out.scatter_add_(1, dist.to(torch.int64), torch.ones_like(dist))
+        self._sweep(q_emb, fold)
+        return out
 
     def _groups_hits(self, q_emb: torch.Tensor, groups, kmode: bool):
         """Every compaction of a batch in one sweep over the groups' rows:

@@ -22,7 +22,8 @@ collective in place of the loop over slabs:
   this one path serves dbs whose global keys would overflow (where
   ``smafa_tpu`` switches to shard-local keys and pair merges);
 - the K-mode cutoff passes: counts summed and maxima taken over ranks
-  (``all_reduce``), between the passes, on the device;
+  (``all_reduce``), between the passes, on the device; the histogram
+  (``SMAFA_TPU_KMODE_HIST=1``) summed over ranks the same way;
 - compactions: each rank's hits with its offset added, gathered with
   their lengths and sorted by (row, index), in K-mode by (row, distance,
   index).
@@ -185,6 +186,16 @@ class ShardedRunner(DeviceRunner):
                             device=q_emb.device)
         return (self._timed(self.comm.all_reduce, cnt, "sum"),
                 self._timed(self.comm.all_reduce, mx, "max"))
+
+    def _hist(self, q_emb: torch.Tensor) -> torch.Tensor:
+        """The K-mode distance histogram: each rank's over its shard,
+        summed over the ranks."""
+        if self.local is not None:
+            h = self.local._hist(q_emb)
+        else:
+            h = torch.zeros((q_emb.shape[0], self.seq_len + 1),
+                            dtype=torch.int32, device=q_emb.device)
+        return self._timed(self.comm.all_reduce, h, "sum")
 
     def _compact_groups(self, q_emb: torch.Tensor, groups):
         """Every best-hit compaction dispatch of a batch on every rank's

@@ -14,7 +14,8 @@ slab results into one accumulator:
   length below 2^25 - 1 bp packs (longer ones take the wide route,
   ``parallel.wide``, which reads ``slab_plan`` for its slab tier);
 - K-mode cutoff passes: kstats over each slab's real rows, counts summed
-  and maxima taken over slabs;
+  and maxima taken over slabs; the histogram (``SMAFA_TPU_KMODE_HIST=1``):
+  hist over each slab's real rows, summed over slabs;
 - compactions: compact_mask per slab, hits offset by the slab's first
   row. All dispatches of a batch share one pass over the slabs.
 
@@ -49,6 +50,7 @@ import torch
 from smafa_tpu_torch.ops import distance as D
 from smafa_tpu_torch.ops import keys as K
 from smafa_tpu_torch.ops.compact import compact_mask
+from smafa_tpu_torch.ops.hist import hist
 from smafa_tpu_torch.ops.kstats import kstats
 from smafa_tpu_torch.ops.min2 import min2
 from smafa_tpu_torch.parallel.runner import DeviceRunner, KeyPackingError
@@ -267,6 +269,17 @@ class SlabStreamRunner(SlabUploads, DeviceRunner):
             torch.maximum(mx, m, out=mx)
         self._sweep(fold)
         return cnt, mx
+
+    def _hist(self, q_emb: torch.Tensor) -> torch.Tensor:
+        """The K-mode distance histogram: hist per slab over its real
+        rows, summed over slabs."""
+        out = torch.zeros((q_emb.shape[0], self.seq_len + 1),
+                          dtype=torch.int32, device=q_emb.device)
+
+        def fold(emb, zc, _codes, n_valid, _off):
+            out.add_(hist(q_emb, emb, zc, n_valid, self.seq_len))
+        self._sweep(fold)
+        return out
 
     def _groups_on_device(self, q_emb: torch.Tensor, groups):
         """Each group's (query embeddings, thresholds) on the card."""

@@ -97,10 +97,11 @@ def maybe_trace(cuda: bool = False, rank: int | None = None):
 def _launches() -> dict[str, int]:
     """Launches so far of each of the port's kernels, by the name its
     CUDA kernels share."""
-    from smafa_tpu_torch.ops import compact, kstats, min2, min_count
+    from smafa_tpu_torch.ops import compact, hist, kstats, min2, min_count
 
     return {"min2": min2.launches, "compact": compact.launches,
-            "kstats": kstats.launches, "min_count": min_count.launches}
+            "kstats": kstats.launches, "min_count": min_count.launches,
+            "hist": hist.launches}
 
 
 def lost_kernel_events(prof, launched: dict[str, int]) -> dict:

@@ -180,7 +180,7 @@ def test_new_modules_load_no_jax():
             "smafa_tpu_torch.parallel.comm, smafa_tpu_torch.parallel.sharded, "
             "smafa_tpu_torch.parallel.querysplit, "
             "smafa_tpu_torch.parallel.ring, smafa_tpu_torch.parallel.seqpar, "
-            "smafa_tpu_torch.utils.profiling; "
+            "smafa_tpu_torch.utils.profiling, smafa_tpu_torch.ops.hist; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'triton', 'smafa_tpu')); print(bad)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

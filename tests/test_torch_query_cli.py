@@ -172,6 +172,7 @@ def test_import_loads_no_jax_or_triton():
             "smafa_tpu_torch.parallel.select, smafa_tpu_torch.parallel.slab, "
             "smafa_tpu_torch.ops.compact, smafa_tpu_torch.ops.min_count, "
             "smafa_tpu_torch.ops.kstats, smafa_tpu_torch.ops.dist_block, "
+            "smafa_tpu_torch.ops.hist, "
             "smafa_tpu_torch.parallel.wide, "
             "smafa_tpu_torch.engine.cluster, smafa_tpu_torch.engine.count; "
             "smafa_tpu_torch.cluster, smafa_tpu_torch.count; "

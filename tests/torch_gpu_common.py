@@ -28,15 +28,15 @@ def cuda():
         pytest.skip("needs a CUDA device")
     from smafa_tpu_torch.engine import cluster
     from smafa_tpu_torch.engine import query
-    from smafa_tpu_torch.ops import (compact, distance, keys, kstats, min2,
-                                     min_count)
+    from smafa_tpu_torch.ops import (compact, distance, hist, keys, kstats,
+                                     min2, min_count)
     from smafa_tpu_torch.parallel.runner import ScanRunner
 
     torch.backends.cuda.matmul.allow_tf32 = False
     return types.SimpleNamespace(
         dev=torch.device("cuda"), torch=torch, C=compact, D=distance,
-        K=keys, KS=kstats, M=min2, MC=min_count, ScanRunner=ScanRunner,
-        CL=cluster, Q=query)
+        HI=hist, K=keys, KS=kstats, M=min2, MC=min_count,
+        ScanRunner=ScanRunner, CL=cluster, Q=query)
 
 
 def operands(g, seq_len, nw, b, seed):

@@ -35,6 +35,25 @@ process (``chip_smoke.run_phases``) and ``pipelined`` traced after each,
 to find the phase after which a trace loses kernel events; each line
 adds the phase and the process's seconds so far, and the lines also go
 to the file OUT (chip_smoke.py's own lines fill the standard output).
+
+``--bisect-cli OUT``: instead, splits chip_smoke.py's phase 3 (the first
+in-process CLI run, after which a trace loses events) into its parts,
+each in a fresh process of this script (``--cli-step STEP``) that traces
+``pipelined`` before and after that part alone, on phase 3's data
+(2^20 random 60 bp windows, 65,536 reads): ``none`` (the control),
+``mem_get_info`` (the layout choice's ``torch.cuda.mem_get_info``),
+``makedb`` (CLI ``makedb --format native`` of the FASTA), ``query``
+(CLI best-hit ``query --quiet`` on a db saved without the CLI),
+``query_no_native`` (the same with SMAFA_TPU_NO_NATIVE=1: no native
+parse and emit threads), ``runner`` (the query's ``ScanRunner`` and
+one pipelined best-hit pass over its batches, no CLI), ``makedb_query``
+(the two CLI runs in turn, as phase 3 runs them),
+``session_makedb_query`` (the same after a CUDA-only profiler session,
+as phase 2's ``device_ms`` takes them), and ``parity_makedb_query`` and
+``parity_query``: chip_smoke.py's kernel parity phase first (its four
+kernels' parity and timing functions, seed 0, before the first trace),
+then both CLI runs or the query alone. One line a step, also to the
+file OUT.
 """
 
 from __future__ import annotations
@@ -159,6 +178,108 @@ def after_phases(seed: int, out: str) -> None:
         chip_smoke.run_phases(seed, after=probe)
 
 
+CLI_STEPS = ("none", "mem_get_info", "makedb", "query", "query_no_native",
+             "runner", "makedb_query", "session_makedb_query",
+             "parity_makedb_query", "parity_query")
+
+
+def parity_phase(dev) -> None:
+    """chip_smoke.py's kernel parity phase (phase 2 and kstats' part of
+    phase 4) in this process, as ``run_phases`` runs it at seed 0."""
+    import chip_smoke
+    from smafa_tpu_torch.engine import query as query_mod
+    from smafa_tpu_torch.ops import compact, distance, kstats, min_count
+
+    sizes = chip_smoke.smoke_sizes(query_mod)
+    rng = np.random.default_rng(0)
+    chip_smoke.kernel_parity(sizes, dev, distance, K, M, rng,
+                             np.random.default_rng([0, 5]))
+    chip_smoke.compact_parity(sizes, dev, distance, compact, rng,
+                              np.random.default_rng([0, 6]))
+    chip_smoke.min_count_parity(sizes, dev, distance, K, min_count, M, rng,
+                                np.random.default_rng([0, 8]))
+    chip_smoke.kstats_parity(sizes, dev, distance, K, kstats, M,
+                             np.random.default_rng([0, 4]),
+                             np.random.default_rng([0, 7]))
+
+
+def cli_step(step: str, out: str) -> None:
+    """One part of phase 3 between two traces of ``pipelined``, in this
+    (fresh) process; appends its line to ``out``."""
+    import chip_smoke
+    from smafa_tpu_torch import cli
+    from smafa_tpu_torch.core.windowset import WindowSet
+    from smafa_tpu_torch.io import native_format
+
+    dev = torch.device("cuda")
+    warn = Warnings()
+    logging.getLogger("smafa").addHandler(warn)
+    runner, qs = data(dev)
+    pipelined(runner, qs)  # builds the kernels, outside every trace
+    rng = np.random.default_rng(0)
+    with tempfile.TemporaryDirectory() as root:
+        codes = chip_smoke.random_db(rng, 1 << 20, 60)
+        q = chip_smoke.mutate(rng, codes[rng.integers(0, 1 << 20, 65536)], 6)
+        db_fa, q_fa = (os.path.join(root, f) for f in ("db.fna", "q.fna"))
+        db = os.path.join(root, "db.native")
+        chip_smoke.write_fasta(q_fa, q, "r")
+        if "makedb" in step:
+            chip_smoke.write_fasta(db_fa, codes, "s")
+        else:
+            native_format.save(WindowSet.from_matrix(codes, 2), db)
+        if step.startswith("parity_"):
+            parity_phase(dev)
+        before = scenario("before", lambda: pipelined(runner, qs), root, warn)
+        t0 = time.perf_counter()
+        if step == "session_makedb_query":
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CUDA]):
+                min2_calls(runner, qs, torch.cuda.current_stream())
+        if step == "mem_get_info":
+            torch.cuda.mem_get_info(dev)
+        elif "makedb" in step:
+            assert cli.main(["makedb", "-i", db_fa, "-d", db, "--format",
+                             "native", "--quiet"]) == 0
+        if step in ("query", "query_no_native") or step.endswith("_query"):
+            if step == "query_no_native":
+                os.environ["SMAFA_TPU_NO_NATIVE"] = "1"
+            assert cli.main(["query", "-d", db, "-q", q_fa,
+                             "--max-divergence", "5", "-o",
+                             os.path.join(root, "hits.tsv"),
+                             "--quiet"]) == 0
+            os.environ.pop("SMAFA_TPU_NO_NATIVE", None)
+        elif step == "runner":
+            big = ScanRunner(codes, 60, dev)
+            pipelined(big, np.array_split(q, 4))
+            del big
+        seconds = time.perf_counter() - t0
+        after = scenario("after", lambda: pipelined(runner, qs), root, warn)
+    line = {"step": step, "seconds": seconds,
+            "before": before["all_kernel_events"],
+            "after": after["all_kernel_events"],
+            "before_port": before["kernel_events"],
+            "after_port": after["kernel_events"],
+            "launches": after["launches"], "warning": after["warning"]}
+    print(json.dumps(line), flush=True)
+    with open(out, "a") as f:
+        f.write(json.dumps(line) + "\n")
+
+
+def bisect_cli(out: str) -> None:
+    """Each of CLI_STEPS in a process of its own (``cli_step``)."""
+    open(out, "w").close()
+    for step in CLI_STEPS:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--cli-step", step, out],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            print(json.dumps({"step": step, "rc": proc.returncode,
+                              "stderr": proc.stderr[-2000:]}), flush=True)
+    with open(out) as f:
+        sys.stdout.write(f.read())
+
+
 def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
@@ -168,7 +289,19 @@ def main() -> int:
                     "the lines also go to the file OUT")
     ap.add_argument("--seed", type=int, default=0,
                     help="chip_smoke.py's seed (with --after-phases)")
+    ap.add_argument("--bisect-cli", metavar="OUT",
+                    help="trace before and after each part of phase 3's "
+                    "CLI run, each in a process of its own; the lines also "
+                    "go to the file OUT")
+    ap.add_argument("--cli-step", nargs=2, metavar=("STEP", "OUT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.cli_step:
+        cli_step(*args.cli_step)
+        return 0
+    if args.bisect_cli:
+        bisect_cli(args.bisect_cli)
+        return 0
     if args.after_phases:
         after_phases(args.seed, args.after_phases)
         return 0
