@@ -6,7 +6,9 @@ Phases, one line each:
 0. device: the card's name and power limit (nvidia-smi) and the
    torch/CUDA versions; fails when no CUDA device is visible.
 1. build: compiles the CUDA kernels from smafa_tpu_torch/csrc with nvcc;
-   logs each source's ``ptxas -v`` (registers, spills).
+   logs each source's ``ptxas -v`` (registers, spills) and, where the
+   toolkit has cuobjdump, the hist kernels' warpgroup MMA and TMA load
+   instructions (fails if a hist kernel has none of either).
 2. kernel parity: each kernel against its plain PyTorch version on the
    card, exact equality (all values are integers), with both times and
    the kernel's bound (the larger of its int8 operations over 1,979
@@ -341,6 +343,41 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+# SASS opcodes of the Hopper machinery the hist kernels must use
+SASS_WGMMA = ("HGMMA", "IGMMA", "WGMMA")  # warpgroup MMA (int8: IGMMA)
+SASS_TMA = ("UTMALDG",)                   # TMA tensor loads
+
+
+def hist_sass(build_mod) -> dict:
+    """The hist kernels' warpgroup MMA and TMA load instructions in the
+    built library (``cuobjdump -sass``): per kernel their counts and
+    first lines; fails if a hist kernel has none of either. "not
+    measured" where the toolkit has no cuobjdump."""
+    tool = os.path.join(os.path.dirname(build_mod._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {"hist_sass": "not measured (no cuobjdump)"}
+    text = subprocess.run([tool, "-sass", str(build_mod.library_path())],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    kernels, name = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            name = name if "hist_kernel" in name else None
+            if name:
+                kernels[name] = {"wgmma": [], "tma": []}
+        elif name:
+            for key, ops in (("wgmma", SASS_WGMMA), ("tma", SASS_TMA)):
+                if any(op in line for op in ops):
+                    kernels[name][key].append(line.strip())
+    counts = {n: {k: len(v) for k, v in d.items()} for n, d in kernels.items()}
+    if not counts or any(0 in c.values() for c in counts.values()):
+        raise AssertionError(f"hist kernels without wgmma or TMA: {counts}")
+    return {"hist_sass": {n: {k: {"count": len(v), "first": v[:2]}
+                              for k, v in d.items()}
+                          for n, d in kernels.items()}}
 
 
 def time_ms(fn, reps: int) -> float:
@@ -3279,7 +3316,8 @@ def run_phases(seed: int, after=None) -> tuple[list, str]:
         for src in ("min2", "compact", "kstats", "min_count", "dist_block",
                     "hist")}
     log("build", seconds=time.perf_counter() - t0,
-        library=str(_build.library_path().name), **ptxas)
+        library=str(_build.library_path().name), **ptxas,
+        **hist_sass(_build))
 
     from smafa_tpu_torch import native
 

@@ -11,6 +11,7 @@ nothing to scan).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -22,12 +23,38 @@ from smafa_tpu_torch.ops.keys import HIST_MAX
 
 launches = 0
 
-# The kernel's routes (csrc/hist.cu), by embedding width: (route, the
-# widest EP it takes, query rows a block, db rows a step, bins two to an
-# int32 word). One block an SM on every route.
-ROUTES = (("split", M.SPLIT_EP_MAX, 256, 64, False),
-          ("kchunk", M.RESIDENT_EP_MAX, 128, 128, False),
-          ("kchunk_stream", None, 64, 256, True))
+
+class Route(NamedTuple):
+    """One of the kernel's routes (csrc/hist.cu ``Route``)."""
+    name: str
+    ep_max: int | None  # the widest EP it takes (None: any)
+    rows: int           # query rows a block
+    step: int           # db rows a step
+    copies: int         # copies of a row's 16-bit bins: 4 (a lane's
+    #                     own) or 2 (a lane pair's), [d][8 copies] words
+    #                     a warp, a word's halves rows g and g + 8; 0: one
+    #                     copy a row, two bins a word
+    rows_at: str        # where the query rows live an item: "registers"
+    #                     (A fragments, EP <= 256), "shared" (resident),
+    #                     "streamed" (K chunks beside the db's)
+
+
+# By embedding width; one block an SM on every route; every warpgroup's
+# wgmma is m64 x N.
+ROUTES = (Route("split", M.SPLIT_EP_MAX, 128, 128, 4, "registers"),
+          Route("kchunk", M.RESIDENT_EP_MAX, 128, 128, 2, "shared"),
+          Route("kchunk_stream", None, 64, 256, 0, "streamed"))
+N = 128  # db columns of a warpgroup's wgmma
+
+# csrc/hist.cu's shared-memory plan
+SMEM_LIMIT = 232_448    # shared bytes a block can use
+CONSUMER_WARPS = 8      # two consumer warpgroups (and a producer one)
+RING_MAX = 6            # stages of the TMA ring at most
+ZC_STEPS = 4            # steps' zc in flight
+PANEL = 128             # bytes of a row a TMA box (the 128-byte swizzle)
+SLACK, BAR_BYTES = 1024, 256
+# an item's fixed cost (its query rows, its flush), in steps of its route
+ITEM_STEPS = 4
 
 
 class Plan(NamedTuple):
@@ -35,25 +62,97 @@ class Plan(NamedTuple):
     splits: int
     block_rows: int   # query rows a block
     bin_bytes: int    # shared bytes of a block's bins
+    stages: int       # stages of the TMA ring
+    smem_bytes: int   # dynamic shared bytes of a block
+    flush_steps: int  # steps between flushes of the 16-bit bins
+    grid: int         # persistent blocks: min(items, SMs)
 
 
+def route_of(seq_len: int) -> Route:
+    ep = D.embed_width(seq_len)
+    return next(r for r in ROUTES if r.ep_max is None or ep <= r.ep_max)
+
+
+def _panels(ep: int) -> int:
+    return -(-ep // PANEL)
+
+
+def bin_bytes(r: Route, seq_len: int) -> int:
+    if r.copies:
+        return CONSUMER_WARPS * (seq_len + 1) * 8 * r.copies * 4
+    return r.rows * (((seq_len + 2) // 2) | 1) * 4  # an odd row stride
+
+
+def stage_bytes(r: Route) -> int:
+    """A ring stage: a db K chunk of 128 bytes, and the query K chunk
+    beside it when streamed."""
+    return ((r.rows if r.rows_at == "streamed" else 0) + r.step) * PANEL
+
+
+def fixed_bytes(r: Route, seq_len: int, ep: int) -> int:
+    """Shared bytes beside the ring: resident query rows, the zc ring,
+    the bins, the barriers, the alignment slack."""
+    return ((_panels(ep) * r.rows * PANEL if r.rows_at == "shared" else 0)
+            + ZC_STEPS * r.step * 4 + bin_bytes(r, seq_len) + BAR_BYTES
+            + SLACK)
+
+
+def increments_per_step(r: Route) -> int:
+    """The most one 16-bit bin takes a step: N / copies columns of a row
+    (the lanes sharing a copy), or every column of the step."""
+    return N // r.copies if r.copies else r.step
+
+
+def splits_for(qtiles: int, steps: int, sms: int) -> int:
+    """db splits S: the least time in steps of the busiest block,
+    ceil(qtiles S / sms) items of steps / S + ITEM_STEPS steps each, over
+    1 <= S <= min(steps, sms); the fewest splits on a tie (costs compared
+    as fractions num / S, exactly)."""
+    best, best_num = 1, None
+    for s in range(1, min(steps, sms) + 1):
+        num = -(-qtiles * s // sms) * (steps + ITEM_STEPS * s)
+        if best_num is None or num * best < best_num * s:
+            best, best_num = s, num
+    return best
+
+
+@functools.lru_cache(maxsize=None)
 def launch_plan(b: int, n_valid: int, seq_len: int, sms: int) -> Plan:
     """The hist kernel's launch on a card with ``sms`` SMs: its route by
-    the embedding width, and db splits S of the grid (ceil(b / rows a
-    block) query tiles x S): 1 when the query tiles fill the SMs, else
-    as many as fit beside them, never more than the steps over the
-    first ``n_valid`` db rows. ("none", 0, ...) when there is nothing to
-    scan (b == 0 or n_valid == 0), which launches nothing."""
+    the embedding width, its ring and shared bytes, and db splits S:
+    items = ceil(b / rows a block) query tiles x S, walked by min(items,
+    sms) persistent blocks (``splits_for``). ("none", 0, ...) when there
+    is nothing to scan (b == 0 or n_valid == 0), which launches
+    nothing. Cached: the search is host work every launch of a shape
+    would repeat."""
     ep = D.embed_width(seq_len)
-    route, _, rows, step, pairs = next(
-        r for r in ROUTES if r[1] is None or ep <= r[1])
-    words = (seq_len + 2) // 2 if pairs else seq_len + 1
-    bin_bytes = 4 * rows * words
+    r = route_of(seq_len)
+    stage, fixed = stage_bytes(r), fixed_bytes(r, seq_len, ep)
+    stages = min(RING_MAX, (SMEM_LIMIT - fixed) // stage)
+    flush = 65535 // increments_per_step(r)
+    args = (r.rows, bin_bytes(r, seq_len), stages, fixed + stages * stage,
+            flush)
     if b == 0 or n_valid == 0:
-        return Plan("none", 0, rows, bin_bytes)
-    qtiles, steps = -(-b // rows), -(-n_valid // step)
-    splits = 1 if qtiles >= sms else max(1, min(steps, sms // qtiles))
-    return Plan(route, splits, rows, bin_bytes)
+        return Plan("none", 0, *args, 0)
+    qtiles, steps = -(-b // r.rows), -(-n_valid // r.step)
+    splits = splits_for(qtiles, steps, sms)
+    return Plan(r.name, splits, *args, min(qtiles * splits, sms))
+
+
+def work_items(plan: Plan, b: int, n_valid: int) -> list[tuple[int, ...]]:
+    """The kernel's items in order, as (block, first query row, end
+    query row, first db row, end db row): item i is query tile i %
+    qtiles against db split i // qtiles (steps [T y / S, T (y + 1) / S)
+    of T), run by block i % grid."""
+    r = next(x for x in ROUTES if x.name == plan.route)
+    qtiles, steps = -(-b // r.rows), -(-n_valid // r.step)
+    out = []
+    for i in range(qtiles * plan.splits):
+        qt, y = i % qtiles, i // qtiles
+        s0, s1 = steps * y // plan.splits, steps * (y + 1) // plan.splits
+        out.append((i % plan.grid, qt * r.rows, min(b, (qt + 1) * r.rows),
+                    s0 * r.step, min(n_valid, s1 * r.step)))
+    return out
 
 
 def hist(q_emb: torch.Tensor, db_emb: torch.Tensor, zc: torch.Tensor,
@@ -78,6 +177,8 @@ def hist(q_emb: torch.Tensor, db_emb: torch.Tensor, zc: torch.Tensor,
         return D.hist_reference(q_emb, db_emb, zc, n_valid, seq_len)
     if not q_emb.is_cuda:
         raise ValueError(f"no hist kernel for device {q_emb.device}")
+    if zc.data_ptr() % 16:
+        raise ValueError("zc must be 16-byte aligned (a TMA source)")
     b = q_emb.shape[0]
     plan = launch_plan(b, n_valid, seq_len, M.sm_count(q_emb.device))
     out = torch.empty((b, seq_len + 1), dtype=torch.int32,

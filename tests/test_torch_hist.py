@@ -109,22 +109,29 @@ def test_hist_rejects_bad_operands(port, bad):
 
 
 def test_launch_plan_routes(port):
-    """The route follows min2's plan by embedding width; the bins of a
-    block fit the card's 232,448 shared bytes beside the route's tiles,
-    and the splits fill 132 SMs without passing the db steps."""
-    for seq_len, route, rows, words in (
-            (3, "split", 256, 4), (60, "split", 256, 61),
-            (64, "split", 256, 65), (65, "kchunk", 128, 66),
-            (168, "kchunk", 128, 169), (169, "kchunk_stream", 64, 85),
-            (1023, "kchunk_stream", 64, 512)):
+    """The route follows min2's plan by embedding width; a block's bins
+    (16-bit copies a lane on the split route, a lane pair to 168 bp, one
+    odd-strided row of two-bin words past it) and ring fit the card's
+    232,448 shared bytes;
+    the splits make the items fill 132 SMs exactly at 4096 reads and
+    never pass the db steps."""
+    for seq_len, route, rows in (
+            (3, "split", 128), (60, "split", 128), (64, "split", 128),
+            (65, "kchunk", 128), (168, "kchunk", 128),
+            (169, "kchunk_stream", 64), (1023, "kchunk_stream", 64)):
         plan = port.H.launch_plan(4096, (1 << 20) + 37, seq_len, 132)
         ep = port.D.embed_width(seq_len)
         assert plan.route == route
         assert port.M.launch_plan(4096, 1 << 20, ep, 132)[0] == route
-        assert (plan.block_rows, plan.bin_bytes) == (rows, 4 * rows * words)
-        assert plan.splits == 132 // (4096 // rows)
+        want_bins = (8 * (seq_len + 1) * 32 * 4 if route == "split"
+                     else 8 * (seq_len + 1) * 16 * 4 if route == "kchunk"
+                     else rows * (((seq_len + 2) // 2) | 1) * 4)
+        assert (plan.block_rows, plan.bin_bytes) == (rows, want_bins)
+        assert plan.smem_bytes <= 232_448 and plan.stages >= 2
+        assert plan.splits == 33 and (4096 // rows * 33) % 132 == 0
+        assert plan.grid == 132
         assert port.H.launch_plan(1, 37, seq_len, 132).splits == 1
-        step = {"split": 64, "kchunk": 128, "kchunk_stream": 256}[route]
+        step = {"split": 128, "kchunk": 128, "kchunk_stream": 256}[route]
         assert port.H.launch_plan(1, 10 * step, seq_len, 132).splits == 10
         assert port.H.launch_plan(1, 10 * step + 1, seq_len,
                                   132).splits == 11
