@@ -7,8 +7,10 @@ Phases, one line each:
    torch/CUDA versions; fails when no CUDA device is visible.
 1. build: compiles the CUDA kernels from smafa_tpu_torch/csrc with nvcc;
    logs each source's ``ptxas -v`` (registers, spills) and, where the
-   toolkit has cuobjdump, the hist kernels' warpgroup MMA and TMA load
-   instructions (fails if a hist kernel has none of either).
+   toolkit has cuobjdump, the warpgroup MMA and TMA load instructions
+   of the hist kernels and of min2's and compact_mask's short route
+   (fails if one of them has none of either, or if a short-route kernel
+   has an mma.sync, ldmatrix or cp.async instruction).
 2. kernel parity: each kernel against its plain PyTorch version on the
    card, exact equality (all values are integers), with both times and
    the kernel's bound (the larger of its int8 operations over 1,979
@@ -345,19 +347,27 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-# SASS opcodes of the Hopper machinery the hist kernels must use
+# SASS opcodes of the Hopper machinery the warpgroup kernels must use
 SASS_WGMMA = ("HGMMA", "IGMMA", "WGMMA")  # warpgroup MMA (int8: IGMMA)
 SASS_TMA = ("UTMALDG",)                   # TMA tensor loads
+# and what the short route of min2 and compact_mask must not use: the
+# split tile's mma.sync (IMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
+SASS_OLD_TILE = ("IMMA", "LDSM", "LDGSTS")
+# the warpgroup kernels, by a part of their names: each must be built
+WG_KERNELS = ("hist_kernel", "min2_wg_kernel", "compact_wg_kernel")
 
 
-def hist_sass(build_mod) -> dict:
-    """The hist kernels' warpgroup MMA and TMA load instructions in the
-    built library (``cuobjdump -sass``): per kernel their counts and
-    first lines; fails if a hist kernel has none of either. "not
-    measured" where the toolkit has no cuobjdump."""
+def warpgroup_sass(build_mod) -> dict:
+    """The warpgroup kernels' (hist, and min2's and compact_mask's short
+    route) warpgroup MMA and TMA load instructions in the built library
+    (``cuobjdump -sass``): per kernel their counts and first lines, and
+    the short route's count of split-tile instructions; fails if a kind
+    of kernel is missing, if one has none of either, or if a short-route
+    kernel has any split-tile instruction. "not measured" where the
+    toolkit has no cuobjdump."""
     tool = os.path.join(os.path.dirname(build_mod._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
-        return {"hist_sass": "not measured (no cuobjdump)"}
+        return {"wg_sass": "not measured (no cuobjdump)"}
     text = subprocess.run([tool, "-sass", str(build_mod.library_path())],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
@@ -365,19 +375,28 @@ def hist_sass(build_mod) -> dict:
     for line in text.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            name = name if "hist_kernel" in name else None
+            name = name if any(k in name for k in WG_KERNELS) else None
             if name:
-                kernels[name] = {"wgmma": [], "tma": []}
+                kernels[name] = {"wgmma": [], "tma": [], "old_tile": []}
         elif name:
-            for key, ops in (("wgmma", SASS_WGMMA), ("tma", SASS_TMA)):
-                if any(op in line for op in ops):
+            ops = line.split(";")[0]
+            for key, names in (("wgmma", SASS_WGMMA), ("tma", SASS_TMA)):
+                if any(op in ops for op in names):
                     kernels[name][key].append(line.strip())
+            if any(op in ops.replace("IGMMA", "") for op in SASS_OLD_TILE):
+                kernels[name]["old_tile"].append(line.strip())
     counts = {n: {k: len(v) for k, v in d.items()} for n, d in kernels.items()}
-    if not counts or any(0 in c.values() for c in counts.values()):
-        raise AssertionError(f"hist kernels without wgmma or TMA: {counts}")
-    return {"hist_sass": {n: {k: {"count": len(v), "first": v[:2]}
-                              for k, v in d.items()}
-                          for n, d in kernels.items()}}
+    missing = [k for k in WG_KERNELS if not any(k in n for n in counts)]
+    if (missing or any(c["wgmma"] == 0 or c["tma"] == 0
+                       for c in counts.values())
+            or any(c["old_tile"] for n, c in counts.items()
+                   if "hist_kernel" not in n)):
+        raise AssertionError(f"warpgroup kernels without wgmma or TMA, "
+                             f"missing ({missing}) or on the split tile: "
+                             f"{counts}")
+    return {"wg_sass": {n: {k: {"count": len(v), "first": v[:2]}
+                            for k, v in d.items()}
+                        for n, d in kernels.items()}}
 
 
 def time_ms(fn, reps: int) -> float:
@@ -499,16 +518,16 @@ def kernel_parity(sizes, dev, D, K, min2_mod, rng, rng_m) -> dict:
                 if with_count:
                     min_dist = int(want[0].min()) >> shift
                     max_count = int(want[2].max())
-            log("kernel_parity", kernel="min2", L=L, B=b, W=n,
-                splits=min2_mod.launch_plan(b, wp, ep, sms)[1],
+            plan = dict(zip(("route", "splits"),
+                            min2_mod.kernel_plan(b, wp, ep, sms)))
+            log("kernel_parity", kernel="min2", L=L, B=b, W=n, **plan,
                 min_dist=min_dist, max_count=max_count, exact=True)
             if timed in ("parity", "main", "b512"):
                 ms = time_ms(lambda: min2_mod.min2(q_emb, db_emb, zc, L, shift), sizes.reps)
                 plain_ms = time_ms(lambda: D.min2_reference(q_emb, db_emb, zc, L, shift), 2)
                 timings[timed] = log_time(
                     "min2", L, b, n, ms, plain_ms,
-                    bound(b, n, L, ep, out_bytes=3 * 4 * b),
-                    splits=min2_mod.launch_plan(b, wp, ep, sms)[1])
+                    bound(b, n, L, ep, out_bytes=3 * 4 * b), **plan)
             del q_emb, got, want
         del db_emb, zc
     return {"max_abs_err": 0, **timings["main"]}
@@ -517,7 +536,7 @@ def kernel_parity(sizes, dev, D, K, min2_mod, rng, rng_m) -> dict:
 def compact_plan(compact_mod, b: int, wp: int, ep: int, dev) -> dict:
     """The route and db splits the compact_mask wrapper launches with."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    route, splits = compact_mod.launch_plan(b, wp, ep, sms)
+    route, splits = compact_mod.kernel_plan(b, wp, ep, sms)
     return {"route": route, "splits": splits}
 
 
@@ -1943,7 +1962,7 @@ def long_window_kernels(sizes, D, K, mods: dict, min2_mod, hitops, codes,
     held("min2", lambda: m.min2(q_emb, emb, zc, L, shift, True),
          lambda: D.min2_reference(q_emb, emb, zc, L, shift, True), b,
          n0, bound(b, n0, L, ep, out_bytes=3 * 4 * b),
-         **dict(zip(("route", "splits"), min2_mod.launch_plan(
+         **dict(zip(("route", "splits"), min2_mod.kernel_plan(
              b, slab_rows, ep, sms))), shift=shift)
     del q_emb
     ks = mods["kstats"]
@@ -1982,7 +2001,7 @@ def long_window_kernels(sizes, D, K, mods: dict, min2_mod, hitops, codes,
          lambda: (D.compact_mask_reference(qc, emb, zc, th, L),), rows, n0,
          bound(rows, n0, L, ep, out_bytes=rows * slab_rows // 8,
                extra_in_bytes=4 * rows),
-         **dict(zip(("route", "splits"), min2_mod.launch_plan(
+         **dict(zip(("route", "splits"), cm.kernel_plan(
              rows, slab_rows, ep, sms))),
          k=sizes.kmode_k, thresh_median=float(th.float().median()))
     del slabs, emb, zc, q_emb, qc, ts
@@ -3307,17 +3326,18 @@ def run_phases(seed: int, after=None) -> tuple[list, str]:
 
     t0 = time.perf_counter()
     _build.load()
-    # ptxas -v of each source: registers, stack and spills of each kernel
+    # ptxas -v of each source: registers, stack and spills of each
+    # kernel, and any C75xx line (a wgmma serialised)
     ptxas = {f"{src}_ptxas": [
         line.strip() for line in _build.compile_log.get(
             f"{src}.cu", "not measured (library already built)").splitlines()
         if "entry function" in line or "spill" in line or "Used" in line
-        or "not measured" in line]
+        or "C75" in line or "not measured" in line]
         for src in ("min2", "compact", "kstats", "min_count", "dist_block",
                     "hist")}
     log("build", seconds=time.perf_counter() - t0,
         library=str(_build.library_path().name), **ptxas,
-        **hist_sass(_build))
+        **warpgroup_sass(_build))
 
     from smafa_tpu_torch import native
 

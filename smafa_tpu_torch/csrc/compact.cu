@@ -19,33 +19,36 @@
 // version took the dot products with __dp4a on the CUDA cores and
 // reached 2.35% of that bound.
 //
-// What the design does about it (compact_split_kernel): it runs min2's
-// tensor-core tile and main loop (split_tile.cuh; see min2.cu, lever 3):
-// ceil(B / 256) query tiles x S db splits, S from ops/min2.py's
-// split_count, each split a contiguous run of whole 64-row db tiles.
-// Each (row, window) bit belongs to one block, so there is no merge and
-// no scratch. The mma.sync accumulators start from the columns' zc, so
-// each ends as the window's score (matches), and a window is a hit iff
+// What the design does about it. Each (row, window) bit belongs to one
+// block, so there is no merge and no scratch; a window is a hit iff
 // score >= seq_len - thresh[r], a per-row bound kept in registers (rows
-// at or past B get INT_MAX). The epilogue is a compare and a predicated
-// OR per accumulator into the row's two words of the tile, an OR of the
-// four lanes that share a row (two xor shuffles per word), and one 8-byte
-// store per row and tile: a quarter of a 32-byte sector, which L2 merges
-// with the next three tiles' stores before it writes the sector back.
-// The store takes ~8% of the kernel's time; keeping four tiles' words
-// in the quad and storing each row's 32 bytes at once saved 1-2% for 88
-// bytes of spills, so the simple store stays (PERF.md, section 6).
+// at or past B get INT_MAX), and the epilogue is a compare and a
+// predicated OR per score into the row's words, then an OR of the four
+// lanes that share a row (two xor shuffles per word).
 //
-// Longer windows (EP > 256, L > 64) take compact_chunk_kernel: the same
-// grid, init and epilogue (MaskRows) on the K-chunked split tile
-// (split_tile.cuh kchunk_scan), one block an SM, form (a) with the query
-// rows resident up to EP = 672 (168 bp) and form (b) past it. It
+// Up to 64 bp (EP <= 256, compact_wg_kernel, epilogue MaskWg): the
+// warp-specialised wgmma tile of wg_scan.cuh (TMA copies into an
+// mbarrier ring; two consumer warpgroups of 128 query rows running
+// wgmma m64n64k32 s8 against each 64-row db step and the epilogue in
+// turn; persistent blocks over query tiles x db splits from
+// ops/min2.py's short_plan). Lane t of a quad stores row t of the
+// quad's four, after both m64 tiles of a step: 16 bytes a row for two
+// steps where rows are 16-byte aligned (Wp % 128 == 0), else 8 bytes a
+// step; no word past Wp / 32 and no row past B is written.
+//
+// Longer windows (EP > 256, L > 64) take compact_chunk_kernel: ceil(B /
+// 256) query tiles x S db splits (ops/min2.py launch_plan), the same
+// compare and OR (MaskRows, accumulators started at the columns' zc,
+// one 8-byte store a row and tile) on the K-chunked split tile
+// (split_tile.cuh kchunk_scan), one block an SM, form (a) with the
+// query rows resident up to EP = 672 (168 bp) and form (b) past it. It
 // replaces the first version's loop there (__dp4a on the CUDA cores,
 // one split; 2.5% of the bound at 150 bp).
 
 #include <climits>
 
 #include "split_tile.cuh"
+#include "wg_scan.cuh"
 
 namespace {
 
@@ -118,71 +121,108 @@ struct MaskRows {
   }
 };
 
-// mask: [B, W / 32] words; split blockIdx.y of gridDim.y.
-__global__ void __launch_bounds__(S_THREADS, S_BLOCKS_PER_SM)
-    compact_split_kernel(const int8_t* __restrict__ q,
-                         const int8_t* __restrict__ db,
-                         const int* __restrict__ zc,
-                         const int* __restrict__ thresh,
-                         unsigned* __restrict__ mask, int B, int W, int EP,
-                         int seq_len) {
-  extern __shared__ __align__(16) int8_t smem[];
-  const int stride = EP + S_PAD;
-  const int sbytes = stage_bytes(stride);
-  int8_t* sA = smem;  // the block's S_BM query rows
-  int8_t* ring = smem + S_BM * stride;
-  const int nks = EP >> 5;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // mma groupID: fragment row / db column
-  const int t = lane & 3;   // mma threadID_in_group
-  const long q0 = (long)blockIdx.x * S_BM + warp * 32;
-  const bool live = q0 < B;  // the warp has a row below B
-  const int tiles = W / S_BN;
-  const int t_begin = (int)((long)tiles * blockIdx.y / gridDim.y);
-  const int nt = (int)((long)tiles * (blockIdx.y + 1) / gridDim.y) - t_begin;
+// The short route's epilogue (wg_scan.cuh): a lane's rows i = 2M + h
+// (row r0 + 64 M + 8 h) of the mask, and their bounds. Lane t stores
+// row i = t of its quad: the two words of a step, or, where rows are
+// 16-byte aligned (W % 128 == 0), the four words of steps 2k and 2k + 1
+// in one store.
+struct MaskWg {
+  const int* thresh;
+  unsigned* mask;
+  int B, seq_len, t, s0, s1;
+  long words;
+  bool wide;
+  int bound[4];
+  unsigned* out;  // the words of the row lane t stores (null past B)
+  uint2 cur, prev;
 
-  // The query tile, zero past B, joins the first tile's copy group.
-  issue_queries(sA, q, (long)blockIdx.x * S_BM, B, EP, stride);
+  // dist <= thresh iff score >= seq_len - thresh, as MaskRows::init.
+  __device__ __forceinline__ void begin(long r0, const wg_scan::Item& im) {
 #pragma unroll
-  for (int s = 0; s < S_STAGES - 1; ++s) {
-    if (s < nt) {
-      issue_tile(ring + s * sbytes, db, zc, (long)(t_begin + s) * S_BN, EP,
-                 stride);
+    for (int i = 0; i < 4; ++i) {
+      const long row = r0 + 64 * (i >> 1) + 8 * (i & 1);
+      bound[i] = row < B ? (int)min((long long)INT_MAX,
+                                    (long long)seq_len - thresh[row])
+                         : INT_MAX;
     }
-    cp_async_commit();
+    const long row = r0 + 64 * (t >> 1) + 8 * (t & 1);
+    out = row < B ? mask + row * words : nullptr;
+    s0 = im.s0;
+    s1 = im.s1;
   }
 
-  MaskRows rows;
-  rows.init(thresh, mask, q0, g, B, W, seq_len);
-  // ldmatrix.x4 row addresses (split_tile.cuh).
-  const int b_off = b_frag_offset(lane, stride);
-  const int8_t* a_row = a_frag_row(sA, warp, lane, stride);
-
-  for (int it = 0; it < nt; ++it) {
-    cp_async_wait<S_STAGES - 2>();
-    __syncthreads();  // tile it visible; stage (it - 1) % S_STAGES free
-    {
-      const int nx = it + S_STAGES - 1;
-      if (nx < nt) {
-        issue_tile(ring + (nx % S_STAGES) * sbytes, db, zc,
-                   (long)(t_begin + nx) * S_BN, EP, stride);
+  // Step s's two words of the tile's rows (acc[4j + 2h + c]: row h,
+  // column 8j + 2t + c, bit 8(j % 4) + 2t + c of word j / 4): a compare
+  // and a predicated OR an element, the quad's lanes ORed; after tile
+  // 1, the stores.
+  template <int M>
+  __device__ __forceinline__ void tile(const int (&acc)[32], const int (&z)[16],
+                                       int s) {
+    unsigned lo[2] = {0u, 0u}, hi[2] = {0u, 0u};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          set_if_ge(j < 4 ? lo[h] : hi[h], acc[4 * j + 2 * h + c] + z[2 * j + c],
+                    bound[2 * M + h], 1u << (8 * (j & 3) + c));
+        }
       }
-      cp_async_commit();
     }
-    if (!live) continue;  // the last query tile's rows past B
-    const int8_t* sD = ring + (it % S_STAGES) * sbytes;
-    int acc[2][8][4];
-    acc_from_zc(acc, reinterpret_cast<const int*>(sD + S_BN * stride), t);
-    tile_mma(acc, a_row, sD + b_off, stride, nks);
-    rows.tile(acc, t, t_begin + it, q0 + g, B);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      unsigned a = lo[h] << (2 * t), b = hi[h] << (2 * t);
+      a |= __shfl_xor_sync(0xffffffffu, a, 1);
+      b |= __shfl_xor_sync(0xffffffffu, b, 1);
+      a |= __shfl_xor_sync(0xffffffffu, a, 2);
+      b |= __shfl_xor_sync(0xffffffffu, b, 2);
+      if (t == 2 * M + h) cur = make_uint2(a, b);
+    }
+    if (M == 1 && out != nullptr) {
+      if (!wide) {
+        *reinterpret_cast<uint2*>(out + 2L * s) = cur;
+      } else if (s & 1) {
+        if (s > s0) {
+          *reinterpret_cast<uint4*>(out + 2L * (s - 1)) =
+              make_uint4(prev.x, prev.y, cur.x, cur.y);
+        } else {
+          *reinterpret_cast<uint2*>(out + 2L * s) = cur;
+        }
+      } else if (s + 1 == s1) {
+        *reinterpret_cast<uint2*>(out + 2L * s) = cur;
+      } else {
+        prev = cur;
+      }
+    }
   }
-  cp_async_wait<0>();
+
+  __device__ __forceinline__ void end(const wg_scan::Item&) {}
+};
+
+// mask: [B, W / 32] words; S db splits.
+template <int NKP>
+__global__ void __launch_bounds__(wg_scan::THREADS, 1)
+    compact_wg_kernel(const __grid_constant__ CUtensorMap tm_db,
+                      const __grid_constant__ CUtensorMap tm_zc,
+                      const int8_t* __restrict__ q,
+                      const int* __restrict__ thresh,
+                      unsigned* __restrict__ mask, int B, int W, int EP,
+                      int seq_len, int S) {
+  MaskWg epi;
+  epi.thresh = thresh;
+  epi.mask = mask;
+  epi.B = B;
+  epi.seq_len = seq_len;
+  epi.t = threadIdx.x & 3;
+  epi.words = W >> 5;
+  epi.wide = (W & 127) == 0 && (reinterpret_cast<uintptr_t>(mask) & 15) == 0;
+  wg_scan::run<NKP>(&tm_db, &tm_zc, q, B, W / wg_scan::N, EP, S, epi);
 }
 
 // Long windows (EP > S_KS * 32): the K-chunked split tile, form (a) with
-// the query rows resident (QRES) or (b) streamed, on the split kernel's
-// grid, init and epilogue. Every warp copies and syncs inside
+// the query rows resident (QRES) or (b) streamed, with MaskRows' init
+// and epilogue. Every warp copies and syncs inside
 // kchunk_scan; only warps with a row below B run the products.
 template <bool QRES>
 __global__ void __launch_bounds__(S_THREADS, K_BLOCKS_PER_SM)
@@ -231,9 +271,10 @@ cudaError_t launch(Kernel kernel, int smem, dim3 grid, const void* q,
 
 // Launch on `stream`. q: int8 [B, EP], db: int8 [W, EP], zc: int32 [W],
 // thresh: int32 [B], mask: int32 [B, W / 32]. Requires EP % 32 == 0,
-// W % 64 == 0, 16-byte aligned q and db and 1 <= splits <= W / 64: the
-// split kernel up to EP = S_KS * 32, the K-chunked one past it, in form
-// (a) up to RESIDENT_EP_MAX. Returns the cudaError_t of the launch.
+// W % 64 == 0, 16-byte aligned q, db and zc and 1 <= splits <= W / 64:
+// the wgmma kernel up to EP = wg_scan::EP_MAX, the K-chunked one past
+// it, in form (a) up to RESIDENT_EP_MAX. Returns the cudaError_t of the
+// launch.
 extern "C" int smafa_compact_mask(const void* q, const void* db,
                                   const void* zc, const void* thresh,
                                   void* mask, int B, int W, int EP,
@@ -242,11 +283,19 @@ extern "C" int smafa_compact_mask(const void* q, const void* db,
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((B + S_BM - 1) / S_BM, splits);
-  if (EP <= S_KS * 32) {
-    return (int)launch(compact_split_kernel, split_smem(EP), grid, q, db, zc,
-                       thresh, mask, B, W, EP, seq_len, s);
+  const auto* qp = static_cast<const int8_t*>(q);
+  const auto* tp = static_cast<const int*>(thresh);
+  auto* mp = static_cast<unsigned*>(mask);
+  if (EP <= wg_scan::EP_MAX) {
+    return (int)(EP <= wg_tile::PANEL
+                     ? wg_scan::launch<1>(compact_wg_kernel<1>, db, zc, B, W,
+                                          EP, splits, s, qp, tp, mp, B, W, EP,
+                                          seq_len, splits)
+                     : wg_scan::launch<2>(compact_wg_kernel<2>, db, zc, B, W,
+                                          EP, splits, s, qp, tp, mp, B, W, EP,
+                                          seq_len, splits));
   }
+  const dim3 grid((B + S_BM - 1) / S_BM, splits);
   return (int)(EP <= RESIDENT_EP_MAX
                    ? launch(compact_chunk_kernel<true>, kchunk_smem<true>(EP),
                             grid, q, db, zc, thresh, mask, B, W, EP, seq_len,

@@ -20,60 +20,60 @@
 // loop reached ~10% of that bound at 60 bp and 8.7% at 150 bp: its
 // per-pair key epilogue on the CUDA cores, its 32-bit shared-memory
 // fragment loads and its load-then-sync tile copies cost more than the
-// mma.sync work, and B / 128 blocks with one db split left most SMs
-// idle at small batches. What is left is the issue rate of mma.sync and
-// the ldmatrix traffic that feeds it (wgmma and TMA are later work).
-// The levers:
+// tensor-core work, and B / 128 blocks with one db split left most SMs
+// idle at small batches. The levers:
 //
-// 1. Max-first epilogue (Min2State::tile, both routes). A row's score
-//    in a column is acc + zc, its distance seq_len - score. Each lane
-//    folds its 16 scores per row in a 64-row tile into the tile's best
-//    with __viaddmax_s32 (add and max in one DPX instruction on sm_90);
-//    one branch per tile then runs the exact key and count update for
-//    the rows whose tile best reaches their running best, ties
-//    included. No other tile can change lo, hi or cnt, because a key's
-//    distance sits above its index bits.
-// 2. Split-W grid (both routes): ceil(B / 256) query tiles x S db
-//    splits, each split a contiguous run of whole 64-row tiles (S from
-//    ops/min2.py's launch_plan over the route's resident block slots, 1
-//    when the query tiles fill them). With S > 1 the splits write lo,
-//    hi and cnt partials to int32 scratch [3, S, B] (the wrapper
+// 1. Max-first epilogue (both routes). A row's score in a column is
+//    acc + zc, its distance seq_len - score. Each lane folds its 16
+//    scores per row in a 64-row tile into the tile's best with
+//    __viaddmax_s32 (add and max in one DPX instruction on sm_90); one
+//    branch per tile then runs the exact key and count update for the
+//    rows whose tile best reaches their running best, ties included. No
+//    other tile can change lo, hi or cnt, because a key's distance sits
+//    above its index bits. On the short route (Min2Wg) the quad's four
+//    lanes share a row's running best (two xor shuffles a row a tile),
+//    so the branch runs at the row's records and ties, not at each
+//    lane's, and the update takes the lane's hits as a bit mask: their
+//    count by popc, lo and hi from its lowest and highest bit.
+// 2. Db splits (both routes): query tiles x S db splits, each split a
+//    contiguous run of whole 64-row tiles. With S > 1 the splits write
+//    lo, hi and cnt partials to int32 scratch [3, S, B] (the wrapper
 //    allocates it) and min2_merge_kernel, launched right after on the
 //    same stream, takes the min of lo and hi and sums the counts of the
 //    splits whose partial distance (lo >> shift) is the row's minimum.
-// 3. Feeding the tensor cores (split_tile.cuh): each warp owns 32 query
-//    rows (two m16 tiles) against all 64 columns of a tile, so each B
-//    fragment feeds two mma.sync.m16n8k32 s8 products and each A
-//    fragment eight; all fragments come from ldmatrix.x4 on shared rows
-//    padded by 16 bytes (the eight 16-byte rows of every ldmatrix on
-//    distinct banks); copies are cp.async (16 B, .cg) in a ring, one
-//    __syncthreads a stage.
-//    - Up to 64 bp (EP <= 256, min2_split_kernel): the block's 256
-//      query rows stay in shared memory and whole db tiles arrive in a
-//      2-stage ring. At 126 registers two blocks (16 warps) share an
-//      SM; the variant that kept the A fragments in registers (190
-//      registers, one block per SM, 4 stages) was 10-18% slower
-//      (PERF.md, section 6).
-//    - Past 64 bp (min2_chunk_kernel): the K-chunked tile, one block an
-//      SM; each db tile's products run over chunks of 256 bytes of the
-//      row, the accumulators held across them, and the epilogue runs
-//      after the last. Form (a), query rows resident and a 3-stage ring
-//      of db chunks, up to EP = 672 (168 bp); form (b), query and db
-//      chunks streamed together in a 2-stage ring, past it. Measured
-//      (chip_smoke.py, phase 9, against the first loop in one call;
-//      NVIDIA H100 80GB HBM3, 700 W): 32768 x 2,621,440 at 150 bp, form
-//      (a), 189 ms against 593 ms (27.5% of the bound); 4096 x 32,768 at
-//      300 bp, form (b), 1.34 ms (12.1%; the first loop 10.0 ms,
-//      tools/torch_long_route_probe.py), at 29,903 bp 108 ms (15.0%;
-//      1,192 ms).
+// 3. Feeding the tensor cores.
+//    - Up to 64 bp (EP <= 256, min2_wg_kernel): the warp-specialised
+//      wgmma tile of wg_scan.cuh: TMA copies into an mbarrier ring, two
+//      consumer warpgroups of 128 query rows (A fragments in registers)
+//      running wgmma m64n64k32 s8 against each 64-row db step and the
+//      epilogue in turn, persistent blocks over query tiles x splits
+//      (ops/min2.py short_plan: every split restarts its rows' running
+//      best, so min2 takes the fewest splits that fill the card).
+//    - Past 64 bp (min2_chunk_kernel): the K-chunked split tile
+//      (split_tile.cuh), one block an SM, ceil(B / 256) x S blocks (S
+//      from ops/min2.py's launch_plan); each warp owns 32 query rows
+//      against a 64-row db tile's columns, mma.sync.m16n8k32 s8 fed by
+//      ldmatrix.x4, cp.async copies; each db tile's products run over
+//      chunks of 256 bytes of the row, the accumulators held across
+//      them, and the epilogue runs after the last. Form (a), query rows
+//      resident and a 3-stage ring of db chunks, up to EP = 672 (168
+//      bp); form (b), query and db chunks streamed together in a 2-stage
+//      ring, past it. Measured (chip_smoke.py, phase 9, against the
+//      first loop in one call; NVIDIA H100 80GB HBM3, 700 W): 32768 x
+//      2,621,440 at 150 bp, form (a), 189 ms against 593 ms (27.5% of
+//      the bound); 4096 x 32,768 at 300 bp, form (b), 1.34 ms (12.1%;
+//      the first loop 10.0 ms, tools/torch_long_route_probe.py), at
+//      29,903 bp 108 ms (15.0%; 1,192 ms).
 //
 #include <climits>
 
 #include "split_tile.cuh"
+#include "wg_scan.cuh"
 
 namespace {
 
 using namespace split_tile;  // the tile's constants and copy helpers
+using wg_tile::PANEL;
 
 constexpr int MERGE_THREADS = 256;
 
@@ -136,6 +136,23 @@ struct Min2State {
     }
   }
 
+  // Merge row i's state over the 4 lanes (t = 0..3) of the quad that
+  // share the row: the best, the counts at it summed, lo and hi the
+  // least.
+  __device__ __forceinline__ void merge_quad(int i) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const int ob = __shfl_xor_sync(0xffffffffu, best[i], off);
+      const int olo = __shfl_xor_sync(0xffffffffu, lo[i], off);
+      const int ohi = __shfl_xor_sync(0xffffffffu, hi[i], off);
+      const int ocnt = __shfl_xor_sync(0xffffffffu, cnt[i], off);
+      cnt[i] = ob > best[i] ? ocnt : (ob == best[i] ? cnt[i] + ocnt : cnt[i]);
+      best[i] = max(best[i], ob);
+      lo[i] = min(lo[i], olo);
+      hi[i] = min(hi[i], ohi);
+    }
+  }
+
   // Merge the 4 lanes (t = 0..3) that share each row and write the rows
   // below B of the warp from q0 at out0 (split y's partials, or the
   // outputs).
@@ -145,17 +162,7 @@ struct Min2State {
                                         int with_count) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        const int ob = __shfl_xor_sync(0xffffffffu, best[i], off);
-        const int olo = __shfl_xor_sync(0xffffffffu, lo[i], off);
-        const int ohi = __shfl_xor_sync(0xffffffffu, hi[i], off);
-        const int ocnt = __shfl_xor_sync(0xffffffffu, cnt[i], off);
-        cnt[i] = ob > best[i] ? ocnt : (ob == best[i] ? cnt[i] + ocnt : cnt[i]);
-        best[i] = max(best[i], ob);
-        lo[i] = min(lo[i], olo);
-        hi[i] = min(hi[i], ohi);
-      }
+      merge_quad(i);
       const long row = q0 + (i >> 1) * 16 + g + 8 * (i & 1);
       if (t == 0 && row < B) {
         lo_out[out0 + row] = lo[i];
@@ -166,71 +173,126 @@ struct Min2State {
   }
 };
 
-// lo/hi/cnt_out hold [S, B] partials (split s at s * B), or the final
-// outputs when S == 1.
-__global__ void __launch_bounds__(S_THREADS, S_BLOCKS_PER_SM)
-    min2_split_kernel(const int8_t* __restrict__ q,
-                      const int8_t* __restrict__ db,
-                      const int* __restrict__ zc, int* __restrict__ lo_out,
-                      int* __restrict__ hi_out, int* __restrict__ cnt_out,
-                      int B, int W, int EP, int seq_len, int shift,
-                      int with_count) {
-  extern __shared__ __align__(16) int8_t smem[];
-  const int stride = EP + S_PAD;
-  const int sbytes = stage_bytes(stride);
-  int8_t* sA = smem;  // the block's S_BM query rows
-  int8_t* ring = smem + S_BM * stride;
-  const int nks = EP >> 5;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // mma groupID: fragment row / db column
-  const int t = lane & 3;   // mma threadID_in_group
-  const long q0 = (long)blockIdx.x * S_BM + warp * 32;
-  const int tiles = W / S_BN;
-  const int t_begin = (int)((long)tiles * blockIdx.y / gridDim.y);
-  const int nt = (int)((long)tiles * (blockIdx.y + 1) / gridDim.y) - t_begin;
+// w |= bit where s == v: a compare and a predicated OR.
+__device__ __forceinline__ void set_if_eq(unsigned& w, int s, int v,
+                                          unsigned bit) {
+  asm("{\n\t.reg .pred p;\n\tsetp.eq.s32 p, %1, %2;\n\t@p or.b32 %0, %0, %3;\n\t}"
+      : "+r"(w)
+      : "r"(s), "r"(v), "r"(bit));
+}
 
-  // The query tile, zero past B, joins the first tile's copy group.
-  issue_queries(sA, q, (long)blockIdx.x * S_BM, B, EP, stride);
+// The short route's epilogue (wg_scan.cuh): a lane's running state of
+// its rows i = 2M + h (row r0 + 64 M + 8 h): the row's best score, the
+// same in the 4 lanes of the quad, and lo, hi and the count at it over
+// the db columns the lane owns (8j + 2t + c of every step).
+struct Min2Wg : Min2State {
+  int* lo_out;
+  int* hi_out;
+  int* cnt_out;
+  int B, W, seq_len, shift, with_count, t;
+  long r0;
+
+  __device__ __forceinline__ void begin(long r, const wg_scan::Item&) {
+    r0 = r;
+    init();
+  }
+
+  // Max-first: the step's best score of each of the tile's two rows
+  // over the lane's columns (add and max in one DPX instruction), then
+  // over the quad's (two xor shuffles), so the quad shares the row's
+  // running best; then one branch into the exact update of the rows
+  // that reach it. A lane's own best would reach it far more often:
+  // ties of random columns at a lane's own maximum.
+  template <int M>
+  __device__ __forceinline__ void tile(const int (&acc)[32], const int (&z)[16],
+                                       int s) {
+    int tb[2] = {INT_MIN, INT_MIN};
 #pragma unroll
-  for (int s = 0; s < S_STAGES - 1; ++s) {
-    if (s < nt) {
-      issue_tile(ring + s * sbytes, db, zc, (long)(t_begin + s) * S_BN, EP,
-                 stride);
-    }
-    cp_async_commit();
-  }
-
-  Min2State st;
-  st.init();
-  // ldmatrix.x4 row addresses (split_tile.cuh).
-  const int b_off = b_frag_offset(lane, stride);
-  const int8_t* a_row = a_frag_row(sA, warp, lane, stride);
-
-  for (int it = 0; it < nt; ++it) {
-    cp_async_wait<S_STAGES - 2>();
-    __syncthreads();  // tile it visible; stage (it - 1) % S_STAGES free
-    {
-      const int nx = it + S_STAGES - 1;
-      if (nx < nt) {
-        issue_tile(ring + (nx % S_STAGES) * sbytes, db, zc,
-                   (long)(t_begin + nx) * S_BN, EP, stride);
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          tb[h] = __viaddmax_s32(acc[4 * j + 2 * h + c], z[2 * j + c], tb[h]);
+        }
       }
-      cp_async_commit();
     }
-    const int8_t* sD = ring + (it % S_STAGES) * sbytes;
-    const int* sZ = reinterpret_cast<const int*>(sD + S_BN * stride);
-    const int w0 = (t_begin + it) * S_BN;
-    // acc[m][n][2h + c]: row i = 2m + h, tile column 8n + 2t + c.
-    int acc[2][8][4];
-    zero_acc(acc);
-    tile_mma(acc, a_row, sD + b_off, stride, nks);
-    st.tile(acc, sZ, t, w0, W, seq_len, shift);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      tb[h] = max(tb[h], __shfl_xor_sync(0xffffffffu, tb[h], 1));
+      tb[h] = max(tb[h], __shfl_xor_sync(0xffffffffu, tb[h], 2));
+    }
+    if ((tb[0] >= best[2 * M]) | (tb[1] >= best[2 * M + 1])) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 2 * M + h;
+        if (tb[h] < best[i]) continue;
+        if (tb[h] > best[i]) {
+          best[i] = tb[h];
+          cnt[i] = 0;
+          lo[i] = hi[i] = BIG_KEY;
+        }
+        // bit 2j + c: the lane's column 8j + 2t + c scores the best
+        unsigned m = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            set_if_eq(m, acc[4 * j + 2 * h + c] + z[2 * j + c], tb[h],
+                      1u << (2 * j + c));
+          }
+        }
+        if (m) {
+          // one key a side: the lowest and the highest column hit
+          const int kd = (seq_len - tb[h]) << shift;
+          const int bl = __ffs(m) - 1, bh = 31 - __clz(m);
+          const int w0 = s * wg_scan::N + 2 * t;
+          cnt[i] += __popc(m);
+          lo[i] = min(lo[i], kd | (w0 + 8 * (bl >> 1) + (bl & 1)));
+          hi[i] = min(hi[i], kd | (W - 1 - (w0 + 8 * (bh >> 1) + (bh & 1))));
+        }
+      }
+    }
   }
-  cp_async_wait<0>();
 
-  st.store(lo_out, hi_out, cnt_out, (long)blockIdx.y * B, q0, g, t, B,
-           with_count);
+  // Merge the 4 lanes that share each row; lane t writes row i = t if
+  // below B, into split y's partials (or the outputs when S == 1).
+  __device__ __forceinline__ void end(const wg_scan::Item& im) {
+    const long out0 = (long)im.y * B;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      merge_quad(i);
+      const long row = r0 + 64 * (i >> 1) + 8 * (i & 1);
+      if (t == i && row < B) {
+        lo_out[out0 + row] = lo[i];
+        hi_out[out0 + row] = hi[i];
+        if (with_count) cnt_out[out0 + row] = cnt[i];
+      }
+    }
+  }
+};
+
+// lo/hi/cnt_out hold [S, B] partials (split y at y * B), or the final
+// outputs when S == 1.
+template <int NKP>
+__global__ void __launch_bounds__(wg_scan::THREADS, 1)
+    min2_wg_kernel(const __grid_constant__ CUtensorMap tm_db,
+                   const __grid_constant__ CUtensorMap tm_zc,
+                   const int8_t* __restrict__ q, int* __restrict__ lo_out,
+                   int* __restrict__ hi_out, int* __restrict__ cnt_out, int B,
+                   int W, int EP, int seq_len, int shift, int with_count,
+                   int S) {
+  Min2Wg epi;
+  epi.lo_out = lo_out;
+  epi.hi_out = hi_out;
+  epi.cnt_out = cnt_out;
+  epi.B = B;
+  epi.W = W;
+  epi.seq_len = seq_len;
+  epi.shift = shift;
+  epi.with_count = with_count;
+  epi.t = threadIdx.x & 3;
+  wg_scan::run<NKP>(&tm_db, &tm_zc, q, B, W / wg_scan::N, EP, S, epi);
 }
 
 // part: int32 [3, S, B] (lo, hi, cnt partials of the S splits).
@@ -260,8 +322,8 @@ __global__ void min2_merge_kernel(const int* __restrict__ part,
 
 // Long windows (EP > S_KS * 32): the K-chunked split tile
 // (split_tile.cuh kchunk_scan), form (a) with the query rows resident
-// (QRES) or (b) streamed, on the split kernel's grid and epilogue;
-// outputs as min2_split_kernel's.
+// (QRES) or (b) streamed, with Min2State's epilogue; outputs as
+// min2_wg_kernel's.
 template <bool QRES>
 __global__ void __launch_bounds__(S_THREADS, K_BLOCKS_PER_SM)
     min2_chunk_kernel(const int8_t* __restrict__ q,
@@ -308,8 +370,8 @@ cudaError_t launch_chunked(const int8_t* q, const int8_t* db, const int* zc,
 }
 
 // With splits > 1 the kernel writes part = [lo, hi, cnt] x [splits, B]:
-// the short route's kernel up to EP = S_KS * 32, the K-chunked one past
-// it, in form (a) up to RESIDENT_EP_MAX.
+// the short route's kernel (wg_scan.cuh) up to EP = wg_scan::EP_MAX, the
+// K-chunked one past it, in form (a) up to RESIDENT_EP_MAX.
 cudaError_t launch_split(const int8_t* q, const int8_t* db, const int* zc,
                          int* lo, int* hi, int* cnt, int* part, int B, int W,
                          int EP, int seq_len, int shift, int with_count,
@@ -319,21 +381,21 @@ cudaError_t launch_split(const int8_t* q, const int8_t* db, const int* zc,
   int* lo_o = direct ? lo : part;
   int* hi_o = direct ? hi : part + sb;
   int* cnt_o = direct ? cnt : part + 2 * sb;
-  const dim3 grid((B + S_BM - 1) / S_BM, splits);
-  if (EP > S_KS * 32) {
-    return EP <= RESIDENT_EP_MAX
-               ? launch_chunked<true>(q, db, zc, lo_o, hi_o, cnt_o, B, W, EP,
-                                      seq_len, shift, with_count, grid, s)
-               : launch_chunked<false>(q, db, zc, lo_o, hi_o, cnt_o, B, W, EP,
-                                       seq_len, shift, with_count, grid, s);
+  if (EP <= wg_scan::EP_MAX) {
+    return EP <= PANEL
+               ? wg_scan::launch<1>(min2_wg_kernel<1>, db, zc, B, W, EP,
+                                    splits, s, q, lo_o, hi_o, cnt_o, B, W,
+                                    EP, seq_len, shift, with_count, splits)
+               : wg_scan::launch<2>(min2_wg_kernel<2>, db, zc, B, W, EP,
+                                    splits, s, q, lo_o, hi_o, cnt_o, B, W,
+                                    EP, seq_len, shift, with_count, splits);
   }
-  const int smem = split_smem(EP);
-  const cudaError_t err = cudaFuncSetAttribute(
-      min2_split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  min2_split_kernel<<<grid, S_THREADS, smem, s>>>(
-      q, db, zc, lo_o, hi_o, cnt_o, B, W, EP, seq_len, shift, with_count);
-  return cudaGetLastError();
+  const dim3 grid((B + S_BM - 1) / S_BM, splits);
+  return EP <= RESIDENT_EP_MAX
+             ? launch_chunked<true>(q, db, zc, lo_o, hi_o, cnt_o, B, W, EP,
+                                    seq_len, shift, with_count, grid, s)
+             : launch_chunked<false>(q, db, zc, lo_o, hi_o, cnt_o, B, W, EP,
+                                     seq_len, shift, with_count, grid, s);
 }
 
 }  // namespace
@@ -341,7 +403,7 @@ cudaError_t launch_split(const int8_t* q, const int8_t* db, const int* zc,
 // Launch on `stream`. q: int8 [B, EP], db: int8 [W, EP], zc: int32 [W],
 // outputs int32 [B]; part: int32 [3, splits, B] scratch when splits > 1
 // (else unused). Requires EP % 32 == 0, W % 64 == 0, W >= 64,
-// 1 <= splits <= W / 64 and 16-byte aligned q and db. Returns the
+// 1 <= splits <= W / 64 and 16-byte aligned q, db and zc. Returns the
 // cudaError_t of the launches.
 extern "C" int smafa_min2(const void* q, const void* db, const void* zc,
                           void* lo, void* hi, void* cnt, void* part, int B,

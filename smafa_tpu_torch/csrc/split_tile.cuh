@@ -3,24 +3,25 @@
 // warp) and walks a contiguous run of whole S_BN-row db tiles (one db
 // split of a ceil(B / S_BM) x S grid); mma.sync fragments come from
 // ldmatrix.x4 on shared rows padded by S_PAD bytes, so each B fragment
-// feeds two products and each A fragment eight. Two forms, and every
-// kernel runs both:
+// feeds two products and each A fragment eight. Two forms:
 //
-// - The short route (EP <= S_KS * 32 bytes, L <= 64): the block's query
-//   rows, whole, stay in shared memory and whole db tiles arrive with
-//   their zc by cp.async in an S_STAGES ring (issue_tile, issue_queries,
-//   tile_mma, split_smem).
-// - The K-chunked route (EP > 256, L > 64): a row is walked in chunks of
-//   K_CHUNK = 256 bytes (the last one may be partial: EP = 608 at 150 bp
-//   gives 8, 8 and 3 k-steps), the accumulators live across the chunks
-//   of one db tile and the caller's epilogue runs after its last chunk
-//   (kchunk_scan). What bounded the first versions' loops there:
-//   ceil(B / 128) blocks with one db split (32 blocks on 132 SMs at B =
-//   4096), 32-bit shared fragment loads, and load-then-sync copies that
-//   never overlapped the products. A whole row no longer fits beside a
-//   ring of whole tiles (256 x 624 B of queries plus 2 x 40 KB at 150 bp
-//   is past the 227 KB a block can use), hence the chunks, in two forms,
-//   both one block an SM (K_BLOCKS_PER_SM):
+// - The short route (EP <= S_KS * 32 bytes, L <= 64) of kstats.cu and
+//   min_count.cu (min2 and compact_mask run theirs on wg_scan.cuh's
+//   wgmma tile): the block's query rows, whole, stay in shared memory
+//   and whole db tiles arrive with their zc by cp.async in an S_STAGES
+//   ring (issue_tile, issue_queries, tile_mma, split_smem).
+// - The K-chunked route (EP > 256, L > 64) of all four: a row is walked
+//   in chunks of K_CHUNK = 256 bytes (the last one may be partial: EP =
+//   608 at 150 bp gives 8, 8 and 3 k-steps), the accumulators live
+//   across the chunks of one db tile and the caller's epilogue runs
+//   after its last chunk (kchunk_scan). What bounded the first
+//   versions' loops there: ceil(B / 128) blocks with one db split (32
+//   blocks on 132 SMs at B = 4096), 32-bit shared fragment loads, and
+//   load-then-sync copies that never overlapped the products. A whole
+//   row no longer fits beside a ring of whole tiles (256 x 624 B of
+//   queries plus 2 x 40 KB at 150 bp is past the 227 KB a block can
+//   use), hence the chunks, in two forms, both one block an SM
+//   (K_BLOCKS_PER_SM):
 //   (a) the query rows stay resident (S_BM x (EP + 16) B) and db
 //       chunks stream through a KQ_STAGES ring; each db byte copied
 //       feeds 512 operations, as on the short route. It serves

@@ -1,11 +1,14 @@
-// Hopper building blocks of the port's warpgroup kernels (hist.cu):
-// TMA tile loads into shared memory that complete on an mbarrier, the
-// mbarrier ring's waits and arrivals, the int8 warpgroup product
-// wgmma.mma_async m64n128k32 s8.s8 -> s32 with B (and A, or A from
-// registers) K-major in shared memory under the 128-byte swizzle,
-// setmaxnreg for a producer warpgroup, and shared-memory reductions by
-// 32-bit address. Proven exact by csrc/hist.cu against its plain
-// version (tests/test_torch_gpu_hist*.py, chip_smoke.py).
+// Hopper building blocks of the port's warpgroup kernels (hist.cu, and
+// the short route of min2.cu and compact.cu through wg_scan.cuh): TMA
+// tile loads into shared memory that complete on an mbarrier, the
+// mbarrier ring's waits and arrivals, the int8 warpgroup products
+// wgmma.mma_async m64n128k32 and m64n64k32 s8.s8 -> s32 with B (and A,
+// or A from registers) K-major in shared memory under the 128-byte
+// swizzle, setmaxnreg for a producer warpgroup, shared-memory
+// reductions by 32-bit address, and the host side: tensor maps encoded
+// through the runtime and the card's SM count. Proven exact by their
+// kernels against the plain versions (tests/test_torch_gpu_hist*.py,
+// tests/test_torch_gpu_*_wg.py, chip_smoke.py).
 //
 // The shared layout every helper assumes: a tile of R rows x 128 bytes,
 // as a TMA box {128 bytes, R rows} with CU_TENSOR_MAP_SWIZZLE_128B
@@ -147,11 +150,23 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 }
 
 // Keep the compiler from moving reads or writes of accumulator
-// registers across a wgmma issue or wait.
+// registers (or A fragments) across a wgmma issue or wait.
 template <int K>
 __device__ __forceinline__ void fence_regs(int (&d)[K]) {
 #pragma unroll
   for (int i = 0; i < K; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+template <int M, int K, int I>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[M][K][I]) {
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int i = 0; i < I; ++i) asm volatile("" : "+r"(d[m][k][i])::"memory");
+    }
+  }
 }
 
 // d[0..63] (+)= A . B^T over one k-step of 32 bytes: m64n128k32 s8,
@@ -208,6 +223,95 @@ __device__ __forceinline__ void wgmma_rs_n128(int (&d)[64],
         "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
         "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d[0..31] (+)= A . B^T over one k-step of 32 bytes: m64n64k32 s8, A
+// from registers (the fragment of wgmma_rs_n128), B from shared memory
+// (descriptor); d[4j + 2h + c] is row g + 8h of the warp's 16, column
+// 8j + 2t + c. scale_d == 0 overwrites d.
+__device__ __forceinline__ void wgmma_rs_n64(int (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// ---- host: tensor maps and the card ----
+
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    if (err != cudaSuccess || res != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A row-major int8 [rows, cols] tensor in boxes of {128 bytes, box_rows}
+// under the 128-byte swizzle, zero past its edges.
+inline bool map_rows(EncodeTiled enc, CUtensorMap* m, const void* p, int cols,
+                     int rows, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols};
+  const cuuint32_t box[2] = {(cuuint32_t)PANEL, (cuuint32_t)box_rows};
+  const cuuint32_t es[2] = {1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(p), dims,
+             strides, box, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// int32 [n] in boxes of `box` entries, zero past n.
+inline bool map_ints(EncodeTiled enc, CUtensorMap* m, const void* p, int n,
+                     int box) {
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {4};
+  const cuuint32_t boxd[1] = {(cuuint32_t)box};
+  const cuuint32_t es[1] = {1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_INT32, 1, const_cast<void*>(p), dims,
+             strides, boxd, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The current device's SMs, 0 if the query fails.
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    return 0;
+  }
+  return sms;
 }
 
 }  // namespace wg_tile

@@ -12,9 +12,16 @@ import torch
 
 from smafa_tpu_torch.ops import _build
 from smafa_tpu_torch.ops import distance as D
-from smafa_tpu_torch.ops.min2 import check_operands, launch_plan, sm_count
+from smafa_tpu_torch.ops.min2 import (COMPACT_ITEM_STEPS, SPLIT_EP_MAX,
+                                      check_operands, check_tma_zc,
+                                      scan_plan, sm_count)
 
 launches = 0
+
+
+def kernel_plan(b: int, wp: int, ep: int, sms: int) -> tuple[str, int]:
+    """(route, db splits) of a launch of the compact_mask wrapper."""
+    return scan_plan(b, wp, ep, sms, COMPACT_ITEM_STEPS)
 
 
 def compact_mask(q_emb: torch.Tensor, db_emb: torch.Tensor,
@@ -36,7 +43,9 @@ def compact_mask(q_emb: torch.Tensor, db_emb: torch.Tensor,
     if b == 0:
         return mask
     ep = q_emb.shape[1]
-    _, splits = launch_plan(b, wp, ep, sm_count(q_emb.device))
+    if ep <= SPLIT_EP_MAX:
+        check_tma_zc(zc)
+    _, splits = kernel_plan(b, wp, ep, sm_count(q_emb.device))
     lib = _build.load()
     stream = torch.cuda.current_stream(q_emb.device).cuda_stream
     rc = lib.smafa_compact_mask(q_emb.data_ptr(), db_emb.data_ptr(),

@@ -103,26 +103,13 @@ def increments_per_step(r: Route) -> int:
     return N // r.copies if r.copies else r.step
 
 
-def splits_for(qtiles: int, steps: int, sms: int) -> int:
-    """db splits S: the least time in steps of the busiest block,
-    ceil(qtiles S / sms) items of steps / S + ITEM_STEPS steps each, over
-    1 <= S <= min(steps, sms); the fewest splits on a tie (costs compared
-    as fractions num / S, exactly)."""
-    best, best_num = 1, None
-    for s in range(1, min(steps, sms) + 1):
-        num = -(-qtiles * s // sms) * (steps + ITEM_STEPS * s)
-        if best_num is None or num * best < best_num * s:
-            best, best_num = s, num
-    return best
-
-
 @functools.lru_cache(maxsize=None)
 def launch_plan(b: int, n_valid: int, seq_len: int, sms: int) -> Plan:
     """The hist kernel's launch on a card with ``sms`` SMs: its route by
     the embedding width, its ring and shared bytes, and db splits S:
     items = ceil(b / rows a block) query tiles x S, walked by min(items,
-    sms) persistent blocks (``splits_for``). ("none", 0, ...) when there
-    is nothing to scan (b == 0 or n_valid == 0), which launches
+    sms) persistent blocks (``min2.splits_for``). ("none", 0, ...) when
+    there is nothing to scan (b == 0 or n_valid == 0), which launches
     nothing. Cached: the search is host work every launch of a shape
     would repeat."""
     ep = D.embed_width(seq_len)
@@ -135,7 +122,7 @@ def launch_plan(b: int, n_valid: int, seq_len: int, sms: int) -> Plan:
     if b == 0 or n_valid == 0:
         return Plan("none", 0, *args, 0)
     qtiles, steps = -(-b // r.rows), -(-n_valid // r.step)
-    splits = splits_for(qtiles, steps, sms)
+    splits = M.splits_for(qtiles, steps, sms, ITEM_STEPS)
     return Plan(r.name, splits, *args, min(qtiles * splits, sms))
 
 

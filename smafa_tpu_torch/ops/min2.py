@@ -17,17 +17,68 @@ from smafa_tpu_torch.ops import distance as D
 
 launches = 0
 
-# The split tile (csrc/split_tile.cuh), which the plan mirrors: query
-# rows per block, blocks resident on one SM and the widest embedding of
-# the short route (L <= 64). Past it all four kernels run the K-chunked
-# tile, one block an SM, with the query rows resident up to
-# RESIDENT_EP_MAX (L <= 168, route "kchunk") and streamed past it
-# ("kchunk_stream").
+# The split tile (csrc/split_tile.cuh), which ``launch_plan`` mirrors:
+# query rows per block, blocks resident on one SM and the widest
+# embedding of the short route (L <= 64), where kstats and min_count run
+# it. Past it all four kernels run the K-chunked tile, one block an SM,
+# with the query rows resident up to RESIDENT_EP_MAX (L <= 168, route
+# "kchunk") and streamed past it ("kchunk_stream").
 BM = 256
 BLOCKS_PER_SM = 2
 SPLIT_EP_MAX = 256
 CHUNK_BLOCKS_PER_SM = 1
 RESIDENT_EP_MAX = 672
+
+# min2's and compact_mask's short route (EP <= SPLIT_EP_MAX), the
+# warp-specialised wgmma tile (csrc/wg_scan.cuh), which ``short_plan``
+# mirrors: query rows a block, db rows a step, one persistent block an
+# SM. An item's fixed cost in steps: its A fragments and the drain
+# (compact_mask), and for min2 also the exact updates of its split,
+# whose every row restarts its running best and meets again the records
+# and ties of a running maximum (tools/torch_wg_probe.py --splits times
+# min2 at other splits; PERF.md section 6).
+WG_ROUTE = "wgmma"
+WG_ROWS = 256
+WG_STEP = 64
+MIN2_ITEM_STEPS = 32
+COMPACT_ITEM_STEPS = 4
+
+
+def splits_for(qtiles: int, steps: int, sms: int, item_steps: int) -> int:
+    """db splits S of a persistent grid over qtiles x S items (min(items,
+    sms) blocks): the least time in steps of the busiest block,
+    ceil(qtiles S / sms) items of steps / S + item_steps steps each, over
+    1 <= S <= min(steps, sms); the fewest splits on a tie (costs compared
+    as fractions num / S, exactly)."""
+    best, best_num = 1, None
+    for s in range(1, min(steps, sms) + 1):
+        num = -(-qtiles * s // sms) * (steps + item_steps * s)
+        if best_num is None or num * best < best_num * s:
+            best, best_num = s, num
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def short_plan(b: int, wp: int, sms: int, item_steps: int) -> int:
+    """db splits S of the short route's launch of min2 (item_steps
+    MIN2_ITEM_STEPS) or compact_mask (COMPACT_ITEM_STEPS) with b >= 1
+    query rows and wp db rows, a multiple of WG_STEP, on a card with
+    ``sms`` SMs: items = ceil(b / WG_ROWS) query tiles x S db splits
+    (``splits_for``; split i of S walks steps steps * i // S up to steps
+    * (i + 1) // S), which the kernel walks with min(items, sms)
+    persistent blocks. Cached: the search is host work every launch of a
+    shape would repeat."""
+    return splits_for(-(-b // WG_ROWS), wp // WG_STEP, sms, item_steps)
+
+
+def scan_plan(b: int, wp: int, ep: int, sms: int,
+              item_steps: int) -> tuple[str, int]:
+    """(route, db splits) of a min2 or compact_mask launch (item_steps:
+    the kernel's, see ``short_plan``): the short route (``WG_ROUTE``) up
+    to SPLIT_EP_MAX, else ``launch_plan``'s K-chunked route."""
+    if ep <= SPLIT_EP_MAX:
+        return WG_ROUTE, short_plan(b, wp, sms, item_steps)
+    return launch_plan(b, wp, ep, sms)
 
 
 def split_count(b: int, wp: int, slots: int) -> int:
@@ -53,16 +104,22 @@ def sm_count(device: torch.device) -> int:
 
 
 def launch_plan(b: int, wp: int, ep: int, sms: int) -> tuple[str, int]:
-    """(route, db splits) of a launch of any of the four kernels on a
+    """(route, db splits) of a launch of the split tile's kernels on a
     card with ``sms`` SMs: windows up to 64 bp (EP <= SPLIT_EP_MAX) take
-    the split tile ("split") with ``split_count`` splits over the card's
-    resident block slots; longer ones the K-chunked tile, "kchunk" up to
+    the split tile ("split", kstats' and min_count's short route) with
+    ``split_count`` splits over the card's resident block slots; longer
+    ones the K-chunked tile (all four kernels), "kchunk" up to
     RESIDENT_EP_MAX and "kchunk_stream" past it, with ``split_count``
     splits over one block an SM."""
     if ep <= SPLIT_EP_MAX:
         return "split", split_count(b, wp, sms * BLOCKS_PER_SM)
     route = "kchunk" if ep <= RESIDENT_EP_MAX else "kchunk_stream"
     return route, split_count(b, wp, sms * CHUNK_BLOCKS_PER_SM)
+
+
+def kernel_plan(b: int, wp: int, ep: int, sms: int) -> tuple[str, int]:
+    """(route, db splits) of a launch of the min2 wrapper."""
+    return scan_plan(b, wp, ep, sms, MIN2_ITEM_STEPS)
 
 
 def live_plan(b: int, n_valid: int, ep: int,
@@ -107,6 +164,13 @@ def check_operands(q_emb: torch.Tensor, db_emb: torch.Tensor,
         raise ValueError("operands exceed the kernels' int32 sizes")
 
 
+def check_tma_zc(zc: torch.Tensor) -> None:
+    """Raise unless zc may be a TMA source (16-byte aligned), as the
+    short route of min2 and compact_mask copies it."""
+    if zc.data_ptr() % 16:
+        raise ValueError("zc must be 16-byte aligned (a TMA source)")
+
+
 def min2(q_emb: torch.Tensor, db_emb: torch.Tensor, zc: torch.Tensor,
          seq_len: int, shift: int,
          with_count: bool = True) -> tuple[torch.Tensor, ...]:
@@ -127,7 +191,9 @@ def min2(q_emb: torch.Tensor, db_emb: torch.Tensor, zc: torch.Tensor,
     if b == 0:
         return (lo, hi, cnt) if with_count else (lo, hi)
     ep = q_emb.shape[1]
-    _, s = launch_plan(b, wp, ep, sm_count(q_emb.device))
+    if ep <= SPLIT_EP_MAX:
+        check_tma_zc(zc)
+    _, s = kernel_plan(b, wp, ep, sm_count(q_emb.device))
     # the splits' partials; the caching allocator ties it to this stream
     part = torch.empty((3, s, b), dtype=torch.int32,
                        device=q_emb.device) if s > 1 else None

@@ -1,7 +1,8 @@
-"""compact_mask's launch plan (``ops/min2.py:launch_plan``, which the
-wrapper calls), on the CPU: the route and db splits by window width and
-batch, and how the splits cover the db's 64-row tiles. Split off
-test_torch_compact.py, which keeps the mask's parity tests.
+"""compact_mask's launch plan (``compact.kernel_plan``, which the wrapper
+calls: ``ops/min2.py:short_plan`` up to 64 bp, ``launch_plan`` past it),
+on the CPU: the route and db splits by window width and batch, and how
+the splits cover the db's 64-row steps. Split off test_torch_compact.py,
+which keeps the mask's parity tests.
 
 torch is imported by the ``port`` fixture, not at collection (see
 test_torch_min2.py)."""
@@ -25,21 +26,22 @@ def port():
     return types.SimpleNamespace(torch=torch, D=distance, C=compact, M=min2)
 
 
-@pytest.mark.parametrize("b,wp,want", [(4096, 1 << 20, 16), (8192, 1 << 20, 8),
-                                       (1, 70016, 264), (77, 70016, 264)])
+@pytest.mark.parametrize("b,wp,want", [(4096, 1 << 20, 33), (8192, 1 << 20, 33),
+                                       (1, 70016, 132), (77, 70016, 132)])
 def test_compact_plan_covers_the_db(port, b, wp, want):
-    """The split route's db splits at the compaction's shapes (the query
-    smoke's 4096 tie rows and K-mode's 8192 rows x 2^20 windows: 16 x 16
-    and 32 x 8 blocks; B = 1 and 77 x 70,001 rows) on an H100's 132 SMs:
-    1 <= S <= tiles, and the kernel's cut (split i of S walks tiles
-    tiles * i // S up to tiles * (i + 1) // S) gives every split a tile
-    and every 64-row tile one split."""
-    route, s = port.C.launch_plan(b, wp, 256, 132)
-    tiles = wp // WP_MULTIPLE
-    assert route == "split" and s == want and 1 <= s <= tiles
-    cover = np.zeros(tiles, np.int64)
+    """The short route's db splits at the compaction's shapes (the query
+    smoke's 4096 tie rows and K-mode's 8192 rows x 2^20 windows: 16 x 33
+    and 32 x 33 items on 132 persistent blocks; B = 1 and 77 x 70,001
+    rows) on an H100's 132 SMs: 1 <= S <= steps, and the kernel's cut
+    (split i of S walks steps steps * i // S up to steps * (i + 1) // S
+    of 64 rows) gives every split a step and every 64-row step one
+    split."""
+    route, s = port.C.kernel_plan(b, wp, 256, 132)
+    steps = wp // WP_MULTIPLE
+    assert route == port.M.WG_ROUTE and s == want and 1 <= s <= steps
+    cover = np.zeros(steps, np.int64)
     for i in range(s):
-        t0, t1 = tiles * i // s, tiles * (i + 1) // s
+        t0, t1 = steps * i // s, steps * (i + 1) // s
         assert t1 > t0
         cover[t0:t1] += 1
     assert (cover == 1).all()
@@ -49,12 +51,12 @@ def test_compact_plan_routes_by_width(port):
     """Windows past 64 bp (EP > 256) take the K-chunked route, query rows
     resident up to 168 bp ("kchunk") and streamed past it
     ("kchunk_stream"), with splits over one block an SM (one once the
-    query tiles fill the 132 slots); up to 64 bp the split route, at any
-    batch."""
+    query tiles fill the 132 slots); up to 64 bp the short route, the
+    wgmma tile, at any batch, with ``short_plan``'s splits."""
     for seq_len in (3, 60, 64, 65, 150, 168, 169, 300):
         ep = port.D.embed_width(seq_len)
         for b in (1, 77, 4096, 65535 * 32):
-            route, s = port.C.launch_plan(b, 70016, ep, 132)
+            route, s = port.C.kernel_plan(b, 70016, ep, 132)
             assert 1 <= s <= 70016 // WP_MULTIPLE
             if seq_len > 64:
                 assert route == ("kchunk" if seq_len <= 168
@@ -62,4 +64,6 @@ def test_compact_plan_routes_by_width(port):
                 assert s == port.M.split_count(b, 70016, 132)
                 assert (s == 1) == (-(-b // 256) >= 132)
             else:
-                assert route == "split"
+                assert route == port.M.WG_ROUTE
+                assert s == port.M.short_plan(b, 70016, 132,
+                                              port.M.COMPACT_ITEM_STEPS)

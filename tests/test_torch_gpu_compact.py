@@ -1,11 +1,12 @@
 """The compact_mask kernel against its plain PyTorch version on the card:
 exact equality and one launch per call, on both routes.
 
-The split route (L <= 64, min2's tensor-core tile) at B = 1, 77 and 300
-against 70,001 rows (S > 1 splits, which do not divide the 1,094 tiles;
-B = 300 leaves the last query tile mostly past B) and B = 1 against 5
-tiles (one tile per split), with thresholds that set many bits; then
-every row off, every real window on, and a db of one repeated row. The
+The short route (L <= 64, the wgmma tile of csrc/wg_scan.cuh) at B = 1,
+77 and 300 against 70,001 rows (S > 1 splits, which do not divide the
+1,094 steps; B = 300 leaves the last query tile mostly past B) and B =
+1 against 5 steps (one step per split), with thresholds that set many
+bits; then every row off, every real window on, and a db of one
+repeated row; tests/test_torch_gpu_compact_wg.py holds it in depth. The
 K-chunked route (past 64 bp) at L = 150 and 300, at the plan's splits;
 tests/test_torch_gpu_compact_long.py holds it in depth.
 
@@ -38,7 +39,7 @@ def _mask(g, q_emb, emb, zc, th, seq_len):
 
 def _plan(g, b, wp, ep):
     sms = g.torch.cuda.get_device_properties(g.dev).multi_processor_count
-    return g.C.launch_plan(b, wp, ep, sms)
+    return g.C.kernel_plan(b, wp, ep, sms)
 
 
 def _row_bits(mask):
@@ -64,7 +65,7 @@ def test_compact_split_kernel_equals_plain(cuda, nw, b):
     rng = np.random.default_rng(nw + b)
     emb, zc, q_emb, _ = operands(cuda, seq_len, nw, b, nw + b)
     route, splits = _plan(cuda, b, emb.shape[0], q_emb.shape[1])
-    assert route == "split" and splits > 1
+    assert route == cuda.M.WG_ROUTE and splits > 1
     th = rng.integers(-1, seq_len + 1, b)
     th[0] = seq_len - 10  # ~3/4 of the bits
     th[1:2] = -1

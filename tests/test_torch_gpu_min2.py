@@ -35,11 +35,11 @@ def test_min2_kernel_equals_plain(cuda, seq_len, nw, b, with_count):
                                        ("identical", 77), ("last_row", 77)])
 @pytest.mark.parametrize("with_count", [True, False])
 def test_min2_split_kernel_equals_plain(cuda, db_kind, b, with_count):
-    """The split-W grid (B = 1 and 77 give 264 splits of 70,001 rows, a
-    tile count S does not divide) and the exact path of the max-first
-    epilogue: a db of one repeated row (every tile reaches the running
-    best; cnt = 70,001), and one whose only exact match of the queries
-    is its last real row."""
+    """The short route's db splits (B = 1 and 77 give 132 splits of
+    70,001 rows, a step count S does not divide) and the exact path of
+    the max-first epilogue: a db of one repeated row (every step reaches
+    the running best; cnt = 70,001), and one whose only exact match of
+    the queries is its last real row."""
     torch = cuda.torch
     seq_len, nw = 60, 70001
     rng = np.random.default_rng(b)
@@ -56,7 +56,7 @@ def test_min2_split_kernel_equals_plain(cuda, db_kind, b, with_count):
     q_emb = cuda.D.expand_embed_query(torch.from_numpy(q).to(cuda.dev), seq_len)
     shift = cuda.K.packing_shift(seq_len, wp)
     sms = torch.cuda.get_device_properties(cuda.dev).multi_processor_count
-    assert cuda.M.split_count(b, wp, sms * cuda.M.BLOCKS_PER_SM) > 1
+    assert cuda.M.kernel_plan(b, wp, q_emb.shape[1], sms)[1] > 1
     got = cuda.M.min2(q_emb, emb, zc, seq_len, shift, with_count)
     want = cuda.D.min2_reference(q_emb, emb, zc, seq_len, shift, with_count)
     torch.cuda.synchronize()

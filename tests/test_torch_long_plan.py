@@ -2,13 +2,16 @@
 splits each kernel gets, and the constants the plan mirrors from the
 CUDA sources.
 
-``ops/min2.py``'s ``launch_plan`` and ``live_plan`` are the one plan of
-every wrapper. Up to EP = 256 bytes (L <= 64) every kernel takes the
-split tile at two blocks an SM. Past it every kernel takes the
-K-chunked tile at one block an SM: "kchunk", query rows resident, up to
-EP = 672 (the widest whose rows and a 3-stage ring of db chunks fit the
-232,448 bytes a block can use), and "kchunk_stream" past it, with
-``split_count`` splits over the live 64-row tiles.
+``ops/min2.py``'s ``launch_plan`` and ``live_plan`` are the plan of
+every wrapper past 64 bp, and of kstats and min_count up to it. Up to
+EP = 256 bytes (L <= 64) kstats and min_count take the split tile at
+two blocks an SM, min2 and compact_mask the wgmma tile
+(``kernel_plan``, ``short_plan``; tests/test_torch_wg_plan.py). Past it
+every kernel takes the K-chunked tile at one block an SM: "kchunk",
+query rows resident, up to EP = 672 (the widest whose rows and a
+3-stage ring of db chunks fit the 232,448 bytes a block can use), and
+"kchunk_stream" past it, with ``split_count`` splits over the live
+64-row tiles.
 
 torch is imported by the ``port`` fixture, not at collection (see
 test_torch_min2.py)."""
@@ -49,9 +52,9 @@ def _plans(port, b, rows, ep):
     """(route, splits) of each kernel at b reads x rows (rows live, a
     multiple of 64 for min2 and compact_mask)."""
     M = port.M
-    return {"min2": M.launch_plan(b, rows, ep, H100_SMS),
+    return {"min2": M.kernel_plan(b, rows, ep, H100_SMS),
             "kstats": M.live_plan(b, rows, ep, H100_SMS),
-            "compact_mask": M.launch_plan(b, rows, ep, H100_SMS),
+            "compact_mask": port.C.kernel_plan(b, rows, ep, H100_SMS),
             "min_count": M.live_plan(b, rows, ep, H100_SMS)}
 
 
@@ -62,14 +65,19 @@ def test_routes_at_the_boundaries(port, ep, want):
     """EP 256 (64 bp), 288 (the first K-chunked width, 65-72 bp), 672
     (168 bp, form (a)'s last), 704 (the 32-byte step past it) and 119,616
     (29,903 bp): all four kernels take the route named, past 64 bp with
-    splits over one block an SM."""
+    splits over one block an SM; at 64 bp kstats and min_count the split
+    tile, min2 and compact_mask the wgmma tile."""
     M = port.M
+    short = {"min2": M.MIN2_ITEM_STEPS, "compact_mask": M.COMPACT_ITEM_STEPS}
     for b, rows in ((1, 64), (77, 32768), (1024, 32768), (4096, 2621440),
                     (32768, 2621440), (65536, 64)):
         plans = _plans(port, b, rows, ep)
         tiles = rows // WP_MULTIPLE
         for kernel, (route, s) in plans.items():
-            if ep <= M.SPLIT_EP_MAX:
+            if ep <= M.SPLIT_EP_MAX and kernel in short:
+                assert route == M.WG_ROUTE, kernel
+                assert s == M.short_plan(b, rows, H100_SMS, short[kernel])
+            elif ep <= M.SPLIT_EP_MAX:
                 assert route == "split", kernel
                 assert s == M.split_count(b, rows, H100_SMS * M.BLOCKS_PER_SM)
             else:

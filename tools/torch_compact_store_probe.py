@@ -1,11 +1,13 @@
-"""What the mask store costs compact_mask's split-route kernel on a card.
+"""What the mask store costs compact_mask's short-route kernel on a card.
 
 Builds libraries from smafa_tpu_torch/csrc/compact.cu with the port's
-nvcc flags: the source as it is ("kept"), and a copy whose mask store is
-guarded by a condition that is never true at run time (``seq_len < 0``),
-so the compiler keeps the whole epilogue but nothing is written
+nvcc flags: the source as it is ("kept"), and a copy whose mask stores
+are guarded by a condition that is never true at run time (``seq_len <
+0``), so the compiler keeps the whole epilogue but nothing is written
 ("skipped"). With ``--baseline PATH`` it builds another version of
-compact.cu the same two ways, to compare two store schemes in one call.
+compact.cu the same two ways (the wgmma tile's stores, or the split
+tile's one store of earlier versions), to compare two store schemes in
+one call; every version runs at this checkout's plan's db splits.
 Times every library on the same operands (L = 60, B query rows x 2^20 db
 rows, thresholds 0-6) with CUDA events, in turns (the list, then the
 list reversed), and checks that the kept libraries write the same mask.
@@ -32,7 +34,13 @@ import numpy as np
 _ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(_ROOT))
 
-STORE = "*reinterpret_cast<uint2*>(out + "
+# The store guard of each version of compact.cu, the first found once:
+# the wgmma tile's (its stores of a step), the split tile's (its one
+# store of a tile).
+STORES = (("if (M == 1 && out != nullptr) {",
+           "if (M == 1 && out != nullptr && seq_len < 0) {"),
+          ("*reinterpret_cast<uint2*>(out + ",
+           "if (seq_len < 0) *reinterpret_cast<uint2*>(out + "))
 
 
 def build(tmp: pathlib.Path, name: str, source: str) -> ctypes.CDLL:
@@ -51,12 +59,13 @@ def build(tmp: pathlib.Path, name: str, source: str) -> ctypes.CDLL:
 
 
 def variants(name: str, path: pathlib.Path) -> dict[str, str]:
-    """The source as it is, and with its one mask store never taken."""
+    """The source as it is, and with its mask stores never taken."""
     source = path.read_text()
-    if source.count(STORE) != 1:
-        raise SystemExit(f"{path}: the mask store is not found once")
-    return {f"{name}_kept": source,
-            f"{name}_skipped": source.replace(STORE, f"if (seq_len < 0) {STORE}")}
+    for guard, never in STORES:
+        if source.count(guard) == 1:
+            return {f"{name}_kept": source,
+                    f"{name}_skipped": source.replace(guard, never)}
+    raise SystemExit(f"{path}: the mask store is not found once")
 
 
 def main() -> int:
@@ -95,7 +104,7 @@ def main() -> int:
             q_emb = D.expand_embed_query(q, L)
             thresh = torch.from_numpy(rng.integers(0, 7, b).astype(np.int32)).to(dev)
             mask = torch.empty((b, n // 32), dtype=torch.int32, device=dev)
-            _, splits = compact.launch_plan(b, n, q_emb.shape[1], sms)
+            _, splits = compact.kernel_plan(b, n, q_emb.shape[1], sms)
             stream = torch.cuda.current_stream(dev).cuda_stream
 
             def launch(lib):
