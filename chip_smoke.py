@@ -8,9 +8,10 @@ Phases, one line each:
 1. build: compiles the CUDA kernels from smafa_tpu_torch/csrc with nvcc;
    logs each source's ``ptxas -v`` (registers, spills) and, where the
    toolkit has cuobjdump, the warpgroup MMA and TMA load instructions
-   of the hist kernels and of min2's and compact_mask's short route
-   (fails if one of them has none of either, or if a short-route kernel
-   has an mma.sync, ldmatrix or cp.async instruction).
+   of the hist kernels and of min2's and compact_mask's kernels on both
+   their routes (fails if one of them has none of either, or if a min2
+   or compact_mask kernel has an mma.sync, ldmatrix or cp.async
+   instruction).
 2. kernel parity: each kernel against its plain PyTorch version on the
    card, exact equality (all values are integers), with both times and
    the kernel's bound (the larger of its int8 operations over 1,979
@@ -32,7 +33,7 @@ Phases, one line each:
    and at B = 512 and 4096. compact_mask, each line with its route and
    db splits, timed at B = 512 and 4096 x 2^20; also at its split shapes
    (B = 1, 77 x 2^20 + 37), at thresh = L (every real window set) and on
-   its K-chunked route at L = 150 (timed at 4096 x 2^20).
+   its long route at L = 150 (timed at 4096 x 2^20).
 3. end to end through the CLI: makedb --format native over a seeded
    2^20-window 60 bp db, then best-hit query of 65,536 reads at
    --max-divergence 5; checks the exit codes, that both kernels launched
@@ -119,13 +120,15 @@ Phases, one line each:
    against the brute force. Then min2, kstats and compact_mask on their
    long routes at this phase's shapes (one slab each), exact against
    their plain versions, timed by CUDA events beside their bounds, each
-   line with its route and db splits (the K-chunked split tile, form
-   (a), "kchunk"), and hist at the K-mode batch x one slab beside the
+   line with its route and db splits (form (a): min2 and compact_mask
+   "wg_kchunk", the K-chunked wgmma tile; kstats "kchunk", the K-chunked
+   split tile), and hist at the K-mode batch x one slab beside the
    whole 4-pass kstats search there. Then, exact and timed (``cell:
    long_routes``), on 32,768 random rows: min2 at 4,096 reads, kstats at
    1,024 and compact_mask at 4,096 (300 bp) and 1,024 (29,903 bp) reads
-   at their K = 99 cutoffs, at 300 bp and at 29,903 bp (form (b), route
-   "kchunk_stream"); min_count at 32,768 reads at 150 bp (form (a)); and
+   at their K = 99 cutoffs, at 300 bp and at 29,903 bp (form (b), routes
+   "wg_kchunk_stream" and "kchunk_stream"); min_count at 32,768 reads at
+   150 bp (form (a), "kchunk"); and
    hist at 1,024 reads at 300 and 1023 bp (the widest window the switch
    takes), beside the kstats search (5 passes) there. The K = 99 run
    also runs with SMAFA_TPU_KMODE_HIST=1: bytes equal, hist once per
@@ -350,21 +353,23 @@ def nvidia_smi() -> str:
 # SASS opcodes of the Hopper machinery the warpgroup kernels must use
 SASS_WGMMA = ("HGMMA", "IGMMA", "WGMMA")  # warpgroup MMA (int8: IGMMA)
 SASS_TMA = ("UTMALDG",)                   # TMA tensor loads
-# and what the short route of min2 and compact_mask must not use: the
-# split tile's mma.sync (IMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
+# and what min2's and compact_mask's kernels must not use: the split
+# tile's mma.sync (IMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
 SASS_OLD_TILE = ("IMMA", "LDSM", "LDGSTS")
 # the warpgroup kernels, by a part of their names: each must be built
-WG_KERNELS = ("hist_kernel", "min2_wg_kernel", "compact_wg_kernel")
+# (min2's and compact_mask's short route, then their long routes)
+WG_KERNELS = ("hist_kernel", "min2_wg_kernel", "compact_wg_kernel",
+              "min2_wgchunk_kernel", "compact_wgchunk_kernel")
 
 
 def warpgroup_sass(build_mod) -> dict:
-    """The warpgroup kernels' (hist, and min2's and compact_mask's short
-    route) warpgroup MMA and TMA load instructions in the built library
-    (``cuobjdump -sass``): per kernel their counts and first lines, and
-    the short route's count of split-tile instructions; fails if a kind
-    of kernel is missing, if one has none of either, or if a short-route
-    kernel has any split-tile instruction. "not measured" where the
-    toolkit has no cuobjdump."""
+    """The warpgroup kernels' (hist, and min2's and compact_mask's on
+    both routes) warpgroup MMA and TMA load instructions in the built
+    library (``cuobjdump -sass``): per kernel their counts and first
+    lines, and min2's and compact_mask's count of split-tile
+    instructions; fails if a kind of kernel is missing, if one has none
+    of either, or if a min2 or compact_mask kernel has any split-tile
+    instruction. "not measured" where the toolkit has no cuobjdump."""
     tool = os.path.join(os.path.dirname(build_mod._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         return {"wg_sass": "not measured (no cuobjdump)"}
@@ -579,7 +584,7 @@ def compact_parity(sizes, dev, D, compact_mod, rng, rng_c) -> dict:
     thresholds 0-6 and a tenth of the rows off; then the split shapes
     B = 1 and 77 x (2^20 + 37) at thresholds in [-1, 60], B = 77 at
     thresh = L (every real window set, no padding bit), and the long
-    route (dp4a) at L = 150, timed at 4096 x 2^20."""
+    route (form (a)) at L = 150, timed at 4096 x 2^20."""
     timings = {}
     codes = random_db(rng, sizes.parity_rows_compact, L_SMOKE)
     n = codes.shape[0]
@@ -2052,8 +2057,10 @@ def long_route_kernels(sizes, D, K, mods: dict, min2_mod, dev,
         emb, zc = D.embed_db(codes, L, rows)
         q_emb = D.expand_embed_query(q, L)
         del codes, q
-        plan = dict(zip(("route", "splits"), min2_mod.launch_plan(
-            b, rows, ep, sms)))
+        plan = dict(zip(("route", "splits"), (
+            mods[name].kernel_plan(b, rows, ep, sms)
+            if name in ("min2", "compact_mask")
+            else min2_mod.live_plan(b, rows, ep, sms))))
         extra = {}
         if name == "min2":
             shift = K.packing_shift(L, rows)

@@ -36,23 +36,21 @@
 // steps where rows are 16-byte aligned (Wp % 128 == 0), else 8 bytes a
 // step; no word past Wp / 32 and no row past B is written.
 //
-// Longer windows (EP > 256, L > 64) take compact_chunk_kernel: ceil(B /
-// 256) query tiles x S db splits (ops/min2.py launch_plan), the same
-// compare and OR (MaskRows, accumulators started at the columns' zc,
-// one 8-byte store a row and tile) on the K-chunked split tile
-// (split_tile.cuh kchunk_scan), one block an SM, form (a) with the
-// query rows resident up to EP = 672 (168 bp) and form (b) past it. It
-// replaces the first version's loop there (__dp4a on the CUDA cores,
-// one split; 2.5% of the bound at 150 bp).
+// Longer windows (EP > 256, L > 64) take compact_wgchunk_kernel, the
+// same epilogue on the long routes of wg_long.cuh (K chunks of 128 bytes,
+// A and B from shared memory): form (a) up to EP = 640 (160 bp) with the
+// block's 256 query rows resident and 64-row db steps; form (b) past it
+// with query and db chunks streamed together, 256 x 128 a step. They
+// replace the K-chunked split tile (split_tile.cuh kchunk_scan; 23.3% of
+// the bound at 150 bp, 14.2% at 29,903 bp), which replaced the first
+// version's loop there (__dp4a on the CUDA cores, one split; 2.5%).
 
 #include <climits>
 
-#include "split_tile.cuh"
+#include "wg_long.cuh"
 #include "wg_scan.cuh"
 
 namespace {
-
-using namespace split_tile;
 
 // w |= bit where s >= bound: a compare and a predicated OR.
 __device__ __forceinline__ void set_if_ge(unsigned& w, int s, int bound,
@@ -61,65 +59,6 @@ __device__ __forceinline__ void set_if_ge(unsigned& w, int s, int bound,
       : "+r"(w)
       : "r"(s), "r"(bound), "r"(bit));
 }
-
-// A lane's rows i = 2m + h (row q0 + 16m + g + 8h = q0 + g + 8i) of the
-// mask: their bounds and where their words start.
-struct MaskRows {
-  int bound[4];
-  unsigned* out;  // row i's words at out + 8 * i * words
-  long words;
-
-  // dist <= thresh iff score >= seq_len - thresh (no int overflow: the
-  // bound is clamped to INT_MAX, above every score; rows at or past B
-  // get INT_MAX).
-  __device__ __forceinline__ void init(const int* thresh, unsigned* mask,
-                                       long q0, int g, int B, int W,
-                                       int seq_len) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const long row = q0 + g + 8 * i;
-      bound[i] = row < B ? (int)min((long long)INT_MAX,
-                                    (long long)seq_len - thresh[row])
-                         : INT_MAX;
-    }
-    words = W >> 5;
-    out = mask + (q0 + g) * words;
-  }
-
-  // The epilogue of db tile `tile` (acc[m][n][2h + c]: row i = 2m + h,
-  // tile column 8n + 2t + c, started at the column's zc, so it holds the
-  // window's score). Column 8n + 2t + c is bit 8(n % 4) + 2t + c of the
-  // row's word lo (n < 4) or hi (n >= 4): set at 8(n % 4) + c here,
-  // shifted by 2t below, then ORed over the four lanes t of the row, and
-  // one 8-byte store a row.
-  __device__ __forceinline__ void tile(const int (&acc)[2][8][4], int t,
-                                       long tile, long q0g, int B) {
-    unsigned lo[4] = {0u, 0u, 0u, 0u}, hi[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          set_if_ge(n < 4 ? lo[i] : hi[i], acc[i >> 1][n][2 * (i & 1) + c],
-                    bound[i], 1u << (8 * (n & 3) + c));
-        }
-      }
-    }
-    const long w32 = tile * (S_BN / 32);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      unsigned a = lo[i] << (2 * t), b = hi[i] << (2 * t);
-      a |= __shfl_xor_sync(0xffffffffu, a, 1);
-      b |= __shfl_xor_sync(0xffffffffu, b, 1);
-      a |= __shfl_xor_sync(0xffffffffu, a, 2);
-      b |= __shfl_xor_sync(0xffffffffu, b, 2);
-      if (t == 0 && q0g + 8 * i < B) {
-        *reinterpret_cast<uint2*>(out + 8 * i * words + w32) = make_uint2(a, b);
-      }
-    }
-  }
-};
 
 // The short route's epilogue (wg_scan.cuh): a lane's rows i = 2M + h
 // (row r0 + 64 M + 8 h) of the mask, and their bounds. Lane t stores
@@ -136,7 +75,9 @@ struct MaskWg {
   unsigned* out;  // the words of the row lane t stores (null past B)
   uint2 cur, prev;
 
-  // dist <= thresh iff score >= seq_len - thresh, as MaskRows::init.
+  // dist <= thresh iff score >= seq_len - thresh (no int overflow: the
+  // bound is clamped to INT_MAX, above every score; rows at or past B
+  // get INT_MAX).
   __device__ __forceinline__ void begin(long r0, const wg_scan::Item& im) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -220,51 +161,26 @@ __global__ void __launch_bounds__(wg_scan::THREADS, 1)
   wg_scan::run<NKP>(&tm_db, &tm_zc, q, B, W / wg_scan::N, EP, S, epi);
 }
 
-// Long windows (EP > S_KS * 32): the K-chunked split tile, form (a) with
-// the query rows resident (QRES) or (b) streamed, with MaskRows' init
-// and epilogue. Every warp copies and syncs inside
-// kchunk_scan; only warps with a row below B run the products.
-template <bool QRES>
-__global__ void __launch_bounds__(S_THREADS, K_BLOCKS_PER_SM)
-    compact_chunk_kernel(const int8_t* __restrict__ q,
-                         const int8_t* __restrict__ db,
-                         const int* __restrict__ zc,
-                         const int* __restrict__ thresh,
-                         unsigned* __restrict__ mask, int B, int W, int EP,
-                         int seq_len) {
-  extern __shared__ __align__(16) int8_t smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // mma groupID: fragment row / db column
-  const int t = lane & 3;   // mma threadID_in_group
-  const long q0 = (long)blockIdx.x * S_BM + warp * 32;
-  const int tiles = W / S_BN;
-  const int t_begin = (int)((long)tiles * blockIdx.y / gridDim.y);
-  const int nt = (int)((long)tiles * (blockIdx.y + 1) / gridDim.y) - t_begin;
-
-  MaskRows rows;
-  rows.init(thresh, mask, q0, g, B, W, seq_len);
-  kchunk_scan<QRES>(
-      smem, q, db, zc, (long)blockIdx.x * S_BM, B, EP, t_begin, nt, q0 < B,
-      [&](int (&acc)[2][8][4], const int* sZ) { acc_from_zc(acc, sZ, t); },
-      [&](const int (&acc)[2][8][4], const int*, int it) {
-        rows.tile(acc, t, t_begin + it, q0 + g, B);
-      });
-}
-
-template <class Kernel>
-cudaError_t launch(Kernel kernel, int smem, dim3 grid, const void* q,
-                   const void* db, const void* zc, const void* thresh,
-                   void* mask, int B, int W, int EP, int seq_len,
-                   cudaStream_t s) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, S_THREADS, smem, s>>>(
-      static_cast<const int8_t*>(q), static_cast<const int8_t*>(db),
-      static_cast<const int*>(zc), static_cast<const int*>(thresh),
-      static_cast<unsigned*>(mask), B, W, EP, seq_len);
-  return cudaGetLastError();
+// The long routes (wg_long.cuh), NKP panels a row in form (a), 0 in
+// form (b); mask as compact_wg_kernel's.
+template <int NKP>
+__global__ void __launch_bounds__(wg_long::THREADS, 1)
+    compact_wgchunk_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_db,
+                           const __grid_constant__ CUtensorMap tm_zc, int T,
+                           int S, int R, int nkp,
+                           const int* __restrict__ thresh,
+                           unsigned* __restrict__ mask, int B, int W,
+                           int seq_len) {
+  MaskWg epi;
+  epi.thresh = thresh;
+  epi.mask = mask;
+  epi.B = B;
+  epi.seq_len = seq_len;
+  epi.t = threadIdx.x & 3;
+  epi.words = W >> 5;
+  epi.wide = (W & 127) == 0 && (reinterpret_cast<uintptr_t>(mask) & 15) == 0;
+  wg_long::run<NKP>(&tm_q, &tm_db, &tm_zc, B, W, T, S, R, nkp, epi);
 }
 
 }  // namespace
@@ -272,14 +188,14 @@ cudaError_t launch(Kernel kernel, int smem, dim3 grid, const void* q,
 // Launch on `stream`. q: int8 [B, EP], db: int8 [W, EP], zc: int32 [W],
 // thresh: int32 [B], mask: int32 [B, W / 32]. Requires EP % 32 == 0,
 // W % 64 == 0, 16-byte aligned q, db and zc and 1 <= splits <= W / 64:
-// the wgmma kernel up to EP = wg_scan::EP_MAX, the K-chunked one past
-// it, in form (a) up to RESIDENT_EP_MAX. Returns the cudaError_t of the
-// launch.
+// the short route's kernel (wg_scan.cuh) up to EP = wg_scan::EP_MAX, the
+// long route's (wg_long.cuh) past it, in form (a) up to
+// wg_long::EP_A_MAX. Returns the cudaError_t of the launch.
 extern "C" int smafa_compact_mask(const void* q, const void* db,
                                   const void* zc, const void* thresh,
                                   void* mask, int B, int W, int EP,
                                   int seq_len, int splits, void* stream) {
-  if (W % S_BN || splits < 1 || splits > W / S_BN) {
+  if (W % wg_scan::N || splits < 1 || splits > W / wg_scan::N) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -295,12 +211,9 @@ extern "C" int smafa_compact_mask(const void* q, const void* db,
                                           EP, splits, s, qp, tp, mp, B, W, EP,
                                           seq_len, splits));
   }
-  const dim3 grid((B + S_BM - 1) / S_BM, splits);
-  return (int)(EP <= RESIDENT_EP_MAX
-                   ? launch(compact_chunk_kernel<true>, kchunk_smem<true>(EP),
-                            grid, q, db, zc, thresh, mask, B, W, EP, seq_len,
-                            s)
-                   : launch(compact_chunk_kernel<false>,
-                            kchunk_smem<false>(EP), grid, q, db, zc, thresh,
-                            mask, B, W, EP, seq_len, s));
+  return (int)wg_long::by_form(EP, [&](auto form) {
+    constexpr int NKP = decltype(form)::value;
+    return wg_long::launch<NKP>(compact_wgchunk_kernel<NKP>, q, db, zc, B, W,
+                                EP, splits, s, tp, mp, B, W, seq_len);
+  });
 }

@@ -23,116 +23,79 @@
 // tensor-core work, and B / 128 blocks with one db split left most SMs
 // idle at small batches. The levers:
 //
-// 1. Max-first epilogue (both routes). A row's score in a column is
-//    acc + zc, its distance seq_len - score. Each lane folds its 16
-//    scores per row in a 64-row tile into the tile's best with
-//    __viaddmax_s32 (add and max in one DPX instruction on sm_90); one
-//    branch per tile then runs the exact key and count update for the
-//    rows whose tile best reaches their running best, ties included. No
-//    other tile can change lo, hi or cnt, because a key's distance sits
-//    above its index bits. On the short route (Min2Wg) the quad's four
-//    lanes share a row's running best (two xor shuffles a row a tile),
-//    so the branch runs at the row's records and ties, not at each
-//    lane's, and the update takes the lane's hits as a bit mask: their
-//    count by popc, lo and hi from its lowest and highest bit.
-// 2. Db splits (both routes): query tiles x S db splits, each split a
-//    contiguous run of whole 64-row tiles. With S > 1 the splits write
-//    lo, hi and cnt partials to int32 scratch [3, S, B] (the wrapper
-//    allocates it) and min2_merge_kernel, launched right after on the
-//    same stream, takes the min of lo and hi and sums the counts of the
-//    splits whose partial distance (lo >> shift) is the row's minimum.
-// 3. Feeding the tensor cores.
-//    - Up to 64 bp (EP <= 256, min2_wg_kernel): the warp-specialised
-//      wgmma tile of wg_scan.cuh: TMA copies into an mbarrier ring, two
-//      consumer warpgroups of 128 query rows (A fragments in registers)
-//      running wgmma m64n64k32 s8 against each 64-row db step and the
-//      epilogue in turn, persistent blocks over query tiles x splits
-//      (ops/min2.py short_plan: every split restarts its rows' running
-//      best, so min2 takes the fewest splits that fill the card).
-//    - Past 64 bp (min2_chunk_kernel): the K-chunked split tile
-//      (split_tile.cuh), one block an SM, ceil(B / 256) x S blocks (S
-//      from ops/min2.py's launch_plan); each warp owns 32 query rows
-//      against a 64-row db tile's columns, mma.sync.m16n8k32 s8 fed by
-//      ldmatrix.x4, cp.async copies; each db tile's products run over
-//      chunks of 256 bytes of the row, the accumulators held across
-//      them, and the epilogue runs after the last. Form (a), query rows
-//      resident and a 3-stage ring of db chunks, up to EP = 672 (168
-//      bp); form (b), query and db chunks streamed together in a 2-stage
-//      ring, past it. Measured (chip_smoke.py, phase 9, against the
-//      first loop in one call; NVIDIA H100 80GB HBM3, 700 W): 32768 x
-//      2,621,440 at 150 bp, form (a), 189 ms against 593 ms (27.5% of
-//      the bound); 4096 x 32,768 at 300 bp, form (b), 1.34 ms (12.1%;
-//      the first loop 10.0 ms, tools/torch_long_route_probe.py), at
-//      29,903 bp 108 ms (15.0%; 1,192 ms).
+// 1. Max-first epilogue (Min2Wg, every route). A row's score in a
+//    column is acc + zc, its distance seq_len - score. Each lane folds
+//    its 16 scores per row in a 64-row block into the block's best with
+//    __viaddmax_s32 (add and max in one DPX instruction on sm_90), the
+//    quad's four lanes share a row's running best (two xor shuffles a
+//    row a block), and one branch a block runs the exact key and count
+//    update for the rows whose block best reaches their running best,
+//    ties included, at the row's records and ties only; the update
+//    takes the lane's hits as a bit mask: their count by popc, lo and hi
+//    from its lowest and highest bit. No other block can change lo, hi
+//    or cnt, because a key's distance sits above its index bits.
+// 2. Db splits: query tiles x S db splits, each split a contiguous run
+//    of whole db steps. With S > 1 the splits write lo, hi and cnt
+//    partials to int32 scratch [3, S, B] (the wrapper allocates it) and
+//    min2_merge_kernel, launched right after on the same stream, takes
+//    the min of lo and hi and sums the counts of the splits whose
+//    partial distance (lo >> shift) is the row's minimum. Every split
+//    restarts its rows' running best, so min2 takes the fewest splits
+//    that fill the card (ops/min2.py short_plan, long_plan).
+// 3. Feeding the tensor cores: persistent warp-specialised blocks, one
+//    producer thread issuing TMA copies into an mbarrier ring, two
+//    consumer warpgroups of 128 query rows running wgmma s8 and the
+//    epilogue, one m64 tile's epilogue beside the other's product.
+//    - Up to 64 bp (EP <= 256, min2_wg_kernel): wg_scan.cuh, the rows'
+//      A fragments in registers, m64n64k32 against each 64-row db step.
+//    - Past 64 bp (min2_wgchunk_kernel): wg_long.cuh, K chunks of 128
+//      bytes with A and B from shared memory: form (a) up to EP = 640
+//      (160 bp) with the block's 256 query rows resident and 64-row db
+//      steps; form (b) past it with query and db chunks streamed
+//      together, 256 x 128 a step. They replace the K-chunked split
+//      tile (split_tile.cuh kchunk_scan: mma.sync fed by ldmatrix,
+//      cp.async; 27.3% of the bound at 150 bp, 14.9% at 29,903 bp).
 //
 #include <climits>
 
-#include "split_tile.cuh"
+#include "wg_long.cuh"
 #include "wg_scan.cuh"
 
 namespace {
 
-using namespace split_tile;  // the tile's constants and copy helpers
 using wg_tile::PANEL;
 
 constexpr int MERGE_THREADS = 256;
+constexpr int BIG_KEY = 0x7fffffff;  // the empty packed key
 
-// A lane's running state of its rows i = 2m + h (row q0 + 16m + g + 8h)
-// over the db columns it owns (2t, 2t + 1 of every n-tile): the best
-// score, lo, hi and the count at the best.
-struct Min2State {
+// w |= bit where s == v: a compare and a predicated OR.
+__device__ __forceinline__ void set_if_eq(unsigned& w, int s, int v,
+                                          unsigned bit) {
+  asm("{\n\t.reg .pred p;\n\tsetp.eq.s32 p, %1, %2;\n\t@p or.b32 %0, %0, %3;\n\t}"
+      : "+r"(w)
+      : "r"(s), "r"(v), "r"(bit));
+}
+
+// The epilogue of every route (wg_scan.cuh, wg_long.cuh): a lane's
+// running state of its rows i = 2M + h (row r0 + 64 M + 8 h): the row's
+// best score, the same in the 4 lanes of the quad, and lo, hi and the
+// count at it over the db columns the lane owns (8j + 2t + c of every
+// 64-row block).
+struct Min2Wg {
   int best[4], lo[4], hi[4], cnt[4];
-  __device__ __forceinline__ void init() {
+  int* lo_out;
+  int* hi_out;
+  int* cnt_out;
+  int B, W, seq_len, shift, with_count, t;
+  long r0;
+
+  __device__ __forceinline__ void begin(long r, const wg_scan::Item&) {
+    r0 = r;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       best[i] = INT_MIN;
       lo[i] = hi[i] = BIG_KEY;
       cnt[i] = 0;
-    }
-  }
-
-  // Max-first epilogue of the 64-row tile from db row w0 (acc[m][n][2h +
-  // c]: row i = 2m + h, tile column 8n + 2t + c; sZ the tile's zc): the
-  // tile's best score per row, then one branch per tile into the exact
-  // update of the rows that reach their best.
-  __device__ __forceinline__ void tile(const int (&acc)[2][8][4],
-                                       const int* sZ, int t, int w0, int W,
-                                       int seq_len, int shift) {
-    int tb[4] = {INT_MIN, INT_MIN, INT_MIN, INT_MIN};
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int2 z = *reinterpret_cast<const int2*>(sZ + n * 8 + 2 * t);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        tb[i] = __viaddmax_s32(acc[i >> 1][n][2 * (i & 1)], z.x, tb[i]);
-        tb[i] = __viaddmax_s32(acc[i >> 1][n][2 * (i & 1) + 1], z.y, tb[i]);
-      }
-    }
-    if ((tb[0] >= best[0]) | (tb[1] >= best[1]) | (tb[2] >= best[2]) |
-        (tb[3] >= best[3])) {  // rare after the first tiles
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (tb[i] < best[i]) continue;
-        if (tb[i] > best[i]) {
-          best[i] = tb[i];
-          cnt[i] = 0;
-          lo[i] = hi[i] = BIG_KEY;
-        }
-        const int kd = (seq_len - tb[i]) << shift;
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int col = n * 8 + 2 * t + c;
-            if (acc[i >> 1][n][2 * (i & 1) + c] + sZ[col] == tb[i]) {
-              const int w = w0 + col;
-              ++cnt[i];
-              lo[i] = min(lo[i], kd | w);
-              hi[i] = min(hi[i], kd | (W - 1 - w));
-            }
-          }
-        }
-      }
     }
   }
 
@@ -151,50 +114,6 @@ struct Min2State {
       lo[i] = min(lo[i], olo);
       hi[i] = min(hi[i], ohi);
     }
-  }
-
-  // Merge the 4 lanes (t = 0..3) that share each row and write the rows
-  // below B of the warp from q0 at out0 (split y's partials, or the
-  // outputs).
-  __device__ __forceinline__ void store(int* lo_out, int* hi_out,
-                                        int* cnt_out, long out0, long q0,
-                                        int g, int t, int B,
-                                        int with_count) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      merge_quad(i);
-      const long row = q0 + (i >> 1) * 16 + g + 8 * (i & 1);
-      if (t == 0 && row < B) {
-        lo_out[out0 + row] = lo[i];
-        hi_out[out0 + row] = hi[i];
-        if (with_count) cnt_out[out0 + row] = cnt[i];
-      }
-    }
-  }
-};
-
-// w |= bit where s == v: a compare and a predicated OR.
-__device__ __forceinline__ void set_if_eq(unsigned& w, int s, int v,
-                                          unsigned bit) {
-  asm("{\n\t.reg .pred p;\n\tsetp.eq.s32 p, %1, %2;\n\t@p or.b32 %0, %0, %3;\n\t}"
-      : "+r"(w)
-      : "r"(s), "r"(v), "r"(bit));
-}
-
-// The short route's epilogue (wg_scan.cuh): a lane's running state of
-// its rows i = 2M + h (row r0 + 64 M + 8 h): the row's best score, the
-// same in the 4 lanes of the quad, and lo, hi and the count at it over
-// the db columns the lane owns (8j + 2t + c of every step).
-struct Min2Wg : Min2State {
-  int* lo_out;
-  int* hi_out;
-  int* cnt_out;
-  int B, W, seq_len, shift, with_count, t;
-  long r0;
-
-  __device__ __forceinline__ void begin(long r, const wg_scan::Item&) {
-    r0 = r;
-    init();
   }
 
   // Max-first: the step's best score of each of the tile's two rows
@@ -295,6 +214,30 @@ __global__ void __launch_bounds__(wg_scan::THREADS, 1)
   wg_scan::run<NKP>(&tm_db, &tm_zc, q, B, W / wg_scan::N, EP, S, epi);
 }
 
+// The long routes (wg_long.cuh), NKP panels a row in form (a), 0 in
+// form (b); outputs as min2_wg_kernel's.
+template <int NKP>
+__global__ void __launch_bounds__(wg_long::THREADS, 1)
+    min2_wgchunk_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_db,
+                        const __grid_constant__ CUtensorMap tm_zc, int T,
+                        int S, int R, int nkp, int* __restrict__ lo_out,
+                        int* __restrict__ hi_out, int* __restrict__ cnt_out,
+                        int B, int W, int seq_len, int shift,
+                        int with_count) {
+  Min2Wg epi;
+  epi.lo_out = lo_out;
+  epi.hi_out = hi_out;
+  epi.cnt_out = cnt_out;
+  epi.B = B;
+  epi.W = W;
+  epi.seq_len = seq_len;
+  epi.shift = shift;
+  epi.with_count = with_count;
+  epi.t = threadIdx.x & 3;
+  wg_long::run<NKP>(&tm_q, &tm_db, &tm_zc, B, W, T, S, R, nkp, epi);
+}
+
 // part: int32 [3, S, B] (lo, hi, cnt partials of the S splits).
 __global__ void min2_merge_kernel(const int* __restrict__ part,
                                   int* __restrict__ lo, int* __restrict__ hi,
@@ -320,58 +263,10 @@ __global__ void min2_merge_kernel(const int* __restrict__ part,
   }
 }
 
-// Long windows (EP > S_KS * 32): the K-chunked split tile
-// (split_tile.cuh kchunk_scan), form (a) with the query rows resident
-// (QRES) or (b) streamed, with Min2State's epilogue; outputs as
-// min2_wg_kernel's.
-template <bool QRES>
-__global__ void __launch_bounds__(S_THREADS, K_BLOCKS_PER_SM)
-    min2_chunk_kernel(const int8_t* __restrict__ q,
-                      const int8_t* __restrict__ db,
-                      const int* __restrict__ zc, int* __restrict__ lo_out,
-                      int* __restrict__ hi_out, int* __restrict__ cnt_out,
-                      int B, int W, int EP, int seq_len, int shift,
-                      int with_count) {
-  extern __shared__ __align__(16) int8_t smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // mma groupID: fragment row / db column
-  const int t = lane & 3;   // mma threadID_in_group
-  const long q0 = (long)blockIdx.x * S_BM + warp * 32;
-  const int tiles = W / S_BN;
-  const int t_begin = (int)((long)tiles * blockIdx.y / gridDim.y);
-  const int nt = (int)((long)tiles * (blockIdx.y + 1) / gridDim.y) - t_begin;
-
-  Min2State m2;
-  m2.init();
-  kchunk_scan<QRES>(
-      smem, q, db, zc, (long)blockIdx.x * S_BM, B, EP, t_begin, nt, q0 < B,
-      [](int (&acc)[2][8][4], const int*) { zero_acc(acc); },
-      [&](const int (&acc)[2][8][4], const int* sZ, int it) {
-        m2.tile(acc, sZ, t, (t_begin + it) * S_BN, W, seq_len, shift);
-      });
-  m2.store(lo_out, hi_out, cnt_out, (long)blockIdx.y * B, q0, g, t, B,
-           with_count);
-}
-
-template <bool QRES>
-cudaError_t launch_chunked(const int8_t* q, const int8_t* db, const int* zc,
-                           int* lo, int* hi, int* cnt, int B, int W, int EP,
-                           int seq_len, int shift, int with_count,
-                           dim3 grid, cudaStream_t s) {
-  const int smem = kchunk_smem<QRES>(EP);
-  const cudaError_t err = cudaFuncSetAttribute(
-      min2_chunk_kernel<QRES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  min2_chunk_kernel<QRES><<<grid, S_THREADS, smem, s>>>(
-      q, db, zc, lo, hi, cnt, B, W, EP, seq_len, shift, with_count);
-  return cudaGetLastError();
-}
-
 // With splits > 1 the kernel writes part = [lo, hi, cnt] x [splits, B]:
 // the short route's kernel (wg_scan.cuh) up to EP = wg_scan::EP_MAX, the
-// K-chunked one past it, in form (a) up to RESIDENT_EP_MAX.
+// long route's (wg_long.cuh) past it, in form (a) up to
+// wg_long::EP_A_MAX.
 cudaError_t launch_split(const int8_t* q, const int8_t* db, const int* zc,
                          int* lo, int* hi, int* cnt, int* part, int B, int W,
                          int EP, int seq_len, int shift, int with_count,
@@ -390,12 +285,12 @@ cudaError_t launch_split(const int8_t* q, const int8_t* db, const int* zc,
                                     splits, s, q, lo_o, hi_o, cnt_o, B, W,
                                     EP, seq_len, shift, with_count, splits);
   }
-  const dim3 grid((B + S_BM - 1) / S_BM, splits);
-  return EP <= RESIDENT_EP_MAX
-             ? launch_chunked<true>(q, db, zc, lo_o, hi_o, cnt_o, B, W, EP,
-                                    seq_len, shift, with_count, grid, s)
-             : launch_chunked<false>(q, db, zc, lo_o, hi_o, cnt_o, B, W, EP,
-                                     seq_len, shift, with_count, grid, s);
+  return wg_long::by_form(EP, [&](auto form) {
+    constexpr int NKP = decltype(form)::value;
+    return wg_long::launch<NKP>(min2_wgchunk_kernel<NKP>, q, db, zc, B, W, EP,
+                                splits, s, lo_o, hi_o, cnt_o, B, W, seq_len,
+                                shift, with_count);
+  });
 }
 
 }  // namespace
@@ -413,7 +308,7 @@ extern "C" int smafa_min2(const void* q, const void* db, const void* zc,
   int* lp = static_cast<int*>(lo);
   int* hp = static_cast<int*>(hi);
   int* cp = static_cast<int*>(cnt);
-  if (splits < 1 || splits > W / S_BN) return (int)cudaErrorInvalidValue;
+  if (splits < 1 || splits > W / wg_scan::N) return (int)cudaErrorInvalidValue;
   int* pp = static_cast<int*>(part);
   const cudaError_t err = launch_split(
       static_cast<const int8_t*>(q), static_cast<const int8_t*>(db),

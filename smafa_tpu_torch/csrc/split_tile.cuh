@@ -1,16 +1,17 @@
-// The split-W tile shared by min2.cu, compact.cu, kstats.cu and
-// min_count.cu: a block of S_WARPS warps owns S_BM query rows (32 per
-// warp) and walks a contiguous run of whole S_BN-row db tiles (one db
-// split of a ceil(B / S_BM) x S grid); mma.sync fragments come from
-// ldmatrix.x4 on shared rows padded by S_PAD bytes, so each B fragment
-// feeds two products and each A fragment eight. Two forms:
+// The split-W tile of kstats.cu and min_count.cu (min2.cu and compact.cu
+// run theirs on the wgmma tiles of wg_scan.cuh and wg_long.cuh; dist_block.cu
+// borrows its copy and mma helpers): a block of S_WARPS warps owns S_BM
+// query rows (32 per warp) and walks a contiguous run of whole S_BN-row
+// db tiles (one db split of a ceil(B / S_BM) x S grid); mma.sync
+// fragments come from ldmatrix.x4 on shared rows padded by S_PAD bytes,
+// so each B fragment feeds two products and each A fragment eight. Two
+// forms:
 //
-// - The short route (EP <= S_KS * 32 bytes, L <= 64) of kstats.cu and
-//   min_count.cu (min2 and compact_mask run theirs on wg_scan.cuh's
-//   wgmma tile): the block's query rows, whole, stay in shared memory
-//   and whole db tiles arrive with their zc by cp.async in an S_STAGES
-//   ring (issue_tile, issue_queries, tile_mma, split_smem).
-// - The K-chunked route (EP > 256, L > 64) of all four: a row is walked
+// - The short route (EP <= S_KS * 32 bytes, L <= 64): the block's query
+//   rows, whole, stay in shared memory and whole db tiles arrive with
+//   their zc by cp.async in an S_STAGES ring (issue_tile,
+//   issue_queries, tile_mma, split_smem).
+// - The K-chunked route (EP > 256, L > 64): a row is walked
 //   in chunks of K_CHUNK = 256 bytes (the last one may be partial: EP =
 //   608 at 150 bp gives 8, 8 and 3 k-steps), the accumulators live
 //   across the chunks of one db tile and the caller's epilogue runs

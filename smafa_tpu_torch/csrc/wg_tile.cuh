@@ -1,14 +1,15 @@
 // Hopper building blocks of the port's warpgroup kernels (hist.cu, and
-// the short route of min2.cu and compact.cu through wg_scan.cuh): TMA
-// tile loads into shared memory that complete on an mbarrier, the
-// mbarrier ring's waits and arrivals, the int8 warpgroup products
+// min2.cu and compact.cu through wg_scan.cuh and wg_long.cuh): TMA tile
+// loads into shared memory that complete on an mbarrier, the mbarrier
+// ring's waits and arrivals, the int8 warpgroup products
 // wgmma.mma_async m64n128k32 and m64n64k32 s8.s8 -> s32 with B (and A,
 // or A from registers) K-major in shared memory under the 128-byte
 // swizzle, setmaxnreg for a producer warpgroup, shared-memory
 // reductions by 32-bit address, and the host side: tensor maps encoded
 // through the runtime and the card's SM count. Proven exact by their
 // kernels against the plain versions (tests/test_torch_gpu_hist*.py,
-// tests/test_torch_gpu_*_wg.py, chip_smoke.py).
+// tests/test_torch_gpu_*_wg.py, tests/test_torch_gpu_long_wg.py,
+// chip_smoke.py).
 //
 // The shared layout every helper assumes: a tile of R rows x 128 bytes,
 // as a TMA box {128 bytes, R rows} with CU_TENSOR_MAP_SWIZZLE_128B
@@ -193,6 +194,26 @@ __device__ __forceinline__ void wgmma_ss_n128(int (&d)[64], uint64_t da,
         "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
         "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
         "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[0..31] (+)= A . B^T over one k-step of 32 bytes: m64n64k32 s8, A
+// and B from shared memory (descriptors); d's layout as wgmma_rs_n64's.
+__device__ __forceinline__ void wgmma_ss_n64(int (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

@@ -12,9 +12,8 @@ import torch
 
 from smafa_tpu_torch.ops import _build
 from smafa_tpu_torch.ops import distance as D
-from smafa_tpu_torch.ops.min2 import (COMPACT_ITEM_STEPS, SPLIT_EP_MAX,
-                                      check_operands, check_tma_zc,
-                                      scan_plan, sm_count)
+from smafa_tpu_torch.ops.min2 import (COMPACT_ITEM_STEPS, check_operands,
+                                      check_tma_zc, scan_plan, sm_count)
 
 launches = 0
 
@@ -43,8 +42,7 @@ def compact_mask(q_emb: torch.Tensor, db_emb: torch.Tensor,
     if b == 0:
         return mask
     ep = q_emb.shape[1]
-    if ep <= SPLIT_EP_MAX:
-        check_tma_zc(zc)
+    check_tma_zc(zc)
     _, splits = kernel_plan(b, wp, ep, sm_count(q_emb.device))
     lib = _build.load()
     stream = torch.cuda.current_stream(q_emb.device).cuda_stream

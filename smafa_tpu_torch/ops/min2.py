@@ -17,12 +17,12 @@ from smafa_tpu_torch.ops import distance as D
 
 launches = 0
 
-# The split tile (csrc/split_tile.cuh), which ``launch_plan`` mirrors:
-# query rows per block, blocks resident on one SM and the widest
-# embedding of the short route (L <= 64), where kstats and min_count run
-# it. Past it all four kernels run the K-chunked tile, one block an SM,
-# with the query rows resident up to RESIDENT_EP_MAX (L <= 168, route
-# "kchunk") and streamed past it ("kchunk_stream").
+# The split tile (csrc/split_tile.cuh), kstats' and min_count's, which
+# ``launch_plan`` mirrors: query rows per block, blocks resident on one
+# SM and the widest embedding of the short route (L <= 64). Past it they
+# run the K-chunked split tile, one block an SM, with the query rows
+# resident up to RESIDENT_EP_MAX (L <= 168, route "kchunk") and streamed
+# past it ("kchunk_stream").
 BM = 256
 BLOCKS_PER_SM = 2
 SPLIT_EP_MAX = 256
@@ -42,6 +42,19 @@ WG_ROWS = 256
 WG_STEP = 64
 MIN2_ITEM_STEPS = 32
 COMPACT_ITEM_STEPS = 4
+
+
+# min2's and compact_mask's long routes (EP > SPLIT_EP_MAX), the
+# K-chunked wgmma tile (csrc/wg_long.cuh), which ``long_plan`` mirrors:
+# WG_ROWS query rows a block, form (a) ("wg_kchunk") with the rows
+# resident up to WG_RESIDENT_EP_MAX (L <= 160) in db steps of
+# WG_KCHUNK_STEP rows, form (b) ("wg_kchunk_stream") past it in steps of
+# WG_STREAM_STEP rows; each kernel's item cost as on the short route.
+WG_KCHUNK_ROUTE = "wg_kchunk"
+WG_STREAM_ROUTE = "wg_kchunk_stream"
+WG_RESIDENT_EP_MAX = 640
+WG_KCHUNK_STEP = 64
+WG_STREAM_STEP = 128
 
 
 def splits_for(qtiles: int, steps: int, sms: int, item_steps: int) -> int:
@@ -71,14 +84,31 @@ def short_plan(b: int, wp: int, sms: int, item_steps: int) -> int:
     return splits_for(-(-b // WG_ROWS), wp // WG_STEP, sms, item_steps)
 
 
+@functools.lru_cache(maxsize=None)
+def long_plan(b: int, wp: int, ep: int, sms: int,
+              item_steps: int) -> tuple[str, int]:
+    """(route, db splits) of the long route's launch of min2 or
+    compact_mask (EP > SPLIT_EP_MAX; item_steps as in ``short_plan``):
+    "wg_kchunk" up to WG_RESIDENT_EP_MAX with db steps of WG_KCHUNK_STEP
+    rows, else "wg_kchunk_stream" with steps of WG_STREAM_STEP rows (the
+    last may pass wp, a multiple of 64); ``splits_for`` over ceil(b /
+    WG_ROWS) query tiles and the steps. Cached, as ``short_plan``."""
+    if ep <= WG_RESIDENT_EP_MAX:
+        route, step = WG_KCHUNK_ROUTE, WG_KCHUNK_STEP
+    else:
+        route, step = WG_STREAM_ROUTE, WG_STREAM_STEP
+    return route, splits_for(-(-b // WG_ROWS), -(-wp // step), sms,
+                             item_steps)
+
+
 def scan_plan(b: int, wp: int, ep: int, sms: int,
               item_steps: int) -> tuple[str, int]:
     """(route, db splits) of a min2 or compact_mask launch (item_steps:
     the kernel's, see ``short_plan``): the short route (``WG_ROUTE``) up
-    to SPLIT_EP_MAX, else ``launch_plan``'s K-chunked route."""
+    to SPLIT_EP_MAX, else ``long_plan``'s."""
     if ep <= SPLIT_EP_MAX:
         return WG_ROUTE, short_plan(b, wp, sms, item_steps)
-    return launch_plan(b, wp, ep, sms)
+    return long_plan(b, wp, ep, sms, item_steps)
 
 
 def split_count(b: int, wp: int, slots: int) -> int:
@@ -104,13 +134,13 @@ def sm_count(device: torch.device) -> int:
 
 
 def launch_plan(b: int, wp: int, ep: int, sms: int) -> tuple[str, int]:
-    """(route, db splits) of a launch of the split tile's kernels on a
-    card with ``sms`` SMs: windows up to 64 bp (EP <= SPLIT_EP_MAX) take
-    the split tile ("split", kstats' and min_count's short route) with
-    ``split_count`` splits over the card's resident block slots; longer
-    ones the K-chunked tile (all four kernels), "kchunk" up to
-    RESIDENT_EP_MAX and "kchunk_stream" past it, with ``split_count``
-    splits over one block an SM."""
+    """(route, db splits) of a launch of the split tile's kernels (kstats
+    and min_count) on a card with ``sms`` SMs: windows up to 64 bp (EP <=
+    SPLIT_EP_MAX) take the split tile ("split") with ``split_count``
+    splits over the card's resident block slots; longer ones the
+    K-chunked split tile, "kchunk" up to RESIDENT_EP_MAX and
+    "kchunk_stream" past it, with ``split_count`` splits over one block
+    an SM."""
     if ep <= SPLIT_EP_MAX:
         return "split", split_count(b, wp, sms * BLOCKS_PER_SM)
     route = "kchunk" if ep <= RESIDENT_EP_MAX else "kchunk_stream"
@@ -165,8 +195,8 @@ def check_operands(q_emb: torch.Tensor, db_emb: torch.Tensor,
 
 
 def check_tma_zc(zc: torch.Tensor) -> None:
-    """Raise unless zc may be a TMA source (16-byte aligned), as the
-    short route of min2 and compact_mask copies it."""
+    """Raise unless zc may be a TMA source (16-byte aligned), as every
+    route of min2 and compact_mask copies it."""
     if zc.data_ptr() % 16:
         raise ValueError("zc must be 16-byte aligned (a TMA source)")
 
@@ -191,8 +221,7 @@ def min2(q_emb: torch.Tensor, db_emb: torch.Tensor, zc: torch.Tensor,
     if b == 0:
         return (lo, hi, cnt) if with_count else (lo, hi)
     ep = q_emb.shape[1]
-    if ep <= SPLIT_EP_MAX:
-        check_tma_zc(zc)
+    check_tma_zc(zc)
     _, s = kernel_plan(b, wp, ep, sm_count(q_emb.device))
     # the splits' partials; the caching allocator ties it to this stream
     part = torch.empty((3, s, b), dtype=torch.int32,

@@ -1,5 +1,5 @@
 """compact_mask's launch plan (``compact.kernel_plan``, which the wrapper
-calls: ``ops/min2.py:short_plan`` up to 64 bp, ``launch_plan`` past it),
+calls: ``ops/min2.py:short_plan`` up to 64 bp, ``long_plan`` past it),
 on the CPU: the route and db splits by window width and batch, and how
 the splits cover the db's 64-row steps. Split off test_torch_compact.py,
 which keeps the mask's parity tests.
@@ -48,21 +48,24 @@ def test_compact_plan_covers_the_db(port, b, wp, want):
 
 
 def test_compact_plan_routes_by_width(port):
-    """Windows past 64 bp (EP > 256) take the K-chunked route, query rows
-    resident up to 168 bp ("kchunk") and streamed past it
-    ("kchunk_stream"), with splits over one block an SM (one once the
-    query tiles fill the 132 slots); up to 64 bp the short route, the
-    wgmma tile, at any batch, with ``short_plan``'s splits."""
+    """Windows past 64 bp (EP > 256) take the long routes, query rows
+    resident up to 160 bp ("wg_kchunk") and streamed past it
+    ("wg_kchunk_stream"), with ``long_plan``'s splits, whose items cover
+    at least 95% of the 132 SMs; up to 64 bp the short
+    route, the wgmma tile, at any batch, with ``short_plan``'s splits."""
     for seq_len in (3, 60, 64, 65, 150, 168, 169, 300):
         ep = port.D.embed_width(seq_len)
         for b in (1, 77, 4096, 65535 * 32):
             route, s = port.C.kernel_plan(b, 70016, ep, 132)
             assert 1 <= s <= 70016 // WP_MULTIPLE
             if seq_len > 64:
-                assert route == ("kchunk" if seq_len <= 168
-                                 else "kchunk_stream")
-                assert s == port.M.split_count(b, 70016, 132)
-                assert (s == 1) == (-(-b // 256) >= 132)
+                assert route == ("wg_kchunk" if seq_len <= 160
+                                 else "wg_kchunk_stream")
+                assert s == port.M.long_plan(b, 70016, ep, 132,
+                                             port.M.COMPACT_ITEM_STEPS)[1]
+                step = 64 if seq_len <= 160 else 128
+                qt, steps = -(-b // 256), -(-70016 // step)
+                assert min(qt * s, 132) >= 0.95 * min(132, qt * steps)
             else:
                 assert route == port.M.WG_ROUTE
                 assert s == port.M.short_plan(b, 70016, 132,

@@ -102,16 +102,16 @@ def test_compact_kernel_extreme_thresholds(cuda, kind):
 
 @pytest.mark.parametrize("seq_len", [150, 300])
 def test_compact_long_route_equals_plain(cuda, seq_len):
-    """Windows past 64 bp take the K-chunked route (form (a) at 150 bp,
-    (b) at 300), with the plan's splits over one block an SM;
-    thresholds mix -1 and 0..L."""
+    """Windows past 64 bp take the long routes (form (a) at 150 bp, (b)
+    at 300), with the plan's splits; thresholds mix -1 and 0..L."""
     nw, b = 4000, 77
     rng = np.random.default_rng(seq_len)
     emb, zc, q_emb, _ = operands(cuda, seq_len, nw, b, seq_len)
     route, s = _plan(cuda, b, emb.shape[0], q_emb.shape[1])
-    assert route == ("kchunk" if seq_len <= 168 else "kchunk_stream")
-    assert s == cuda.M.split_count(b, emb.shape[0],
-                                   cuda.M.sm_count(cuda.dev)) > 1
+    assert route == ("wg_kchunk" if seq_len <= 160 else "wg_kchunk_stream")
+    assert s == cuda.M.long_plan(b, emb.shape[0], q_emb.shape[1],
+                                 cuda.M.sm_count(cuda.dev),
+                                 cuda.M.COMPACT_ITEM_STEPS)[1] > 1
     got = _mask(cuda, q_emb, emb, zc, rng.integers(-1, seq_len + 1, b),
                 seq_len)
     assert _row_bits(got).max() > nw // 2

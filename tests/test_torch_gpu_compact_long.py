@@ -1,15 +1,16 @@
-"""compact_mask's K-chunked route (windows past 64 bp) against its plain
-PyTorch version on the card, exact.
+"""compact_mask's long route (windows past 64 bp, csrc/wg_long.cuh)
+against its plain PyTorch version on the card, exact.
 
-Form (a), the query rows resident, serves EP <= 672 (L <= 168); form
-(b), query and db chunks streamed, serves longer windows. Each case runs
+Form (a), "wg_kchunk", the query rows resident, serves EP <= 640 (L <=
+160); form (b), "wg_kchunk_stream", query and db chunks streamed, serves
+longer windows. Each case runs
 at one split, at the wrapper's plan and at 7 splits (a count that
 divides no tile run evenly), through the library's C entry into a mask
 filled with a sentinel (so a word no block writes shows), and once
 through the wrapper, which must launch once and take the plan's route.
-Cases: L = 65 (two chunks, the second of one k-step), 127, 150 (8, 8 and
-3 k-steps), 168 and 169 (the forms' boundary) and 300 (8, 8, 8, 8 and 6)
-with thresholds in [-1, L]; thresh = -1 everywhere (no bit) and thresh =
+Cases: L = 65 (three chunks of 128 bytes, the last of 32), 127, 150 (five,
+the last of 96), 168 and 169 (past form (a)'s 160) and 300 (ten, the last
+of 64) with thresholds in [-1, L]; thresh = -1 everywhere (no bit) and thresh =
 L everywhere (every real window, no padding row); batches of 1, 33 and
 257 rows (below 256 and not a multiple of it); a db of one repeated row;
 29,903 bp on a small db.
@@ -50,15 +51,15 @@ def _launch(g, q_emb, emb, zc, thresh, seq_len, splits):
 
 def _held(g, q_emb, emb, zc, th, seq_len):
     """The C entry at 1 and 7 splits and at the plan's, and the wrapper,
-    equal the plain version; the plan is the K-chunked route of this
-    width. Returns the set bits per row, as numpy."""
+    equal the plain version; the plan is the long route of this width.
+    Returns the set bits per row, as numpy."""
     torch = g.torch
     thresh = torch.from_numpy(np.asarray(th, np.int32)).to(g.dev)
     want = g.D.compact_mask_reference(q_emb, emb, zc, thresh, seq_len)
     b, wp, ep = q_emb.shape[0], emb.shape[0], q_emb.shape[1]
-    route, s = g.M.launch_plan(b, wp, ep, g.M.sm_count(g.dev))
+    route, s = g.C.kernel_plan(b, wp, ep, g.M.sm_count(g.dev))
     tiles = wp // WP_MULTIPLE
-    assert route == ("kchunk" if ep <= 672 else "kchunk_stream")
+    assert route == ("wg_kchunk" if ep <= 640 else "wg_kchunk_stream")
     assert 1 <= s <= tiles
     for n in sorted({min(x, tiles) for x in (1, 7, s)}):
         got = _launch(g, q_emb, emb, zc, thresh, seq_len, n)
@@ -125,9 +126,9 @@ def test_compact_kchunk_extreme_thresholds(cuda, kind):
 
 @pytest.mark.parametrize("b", [1, 33, 257])
 def test_compact_kchunk_small_batches(cuda, b):
-    """Batches below the 256-row query block or one row past it: warps
-    with no row below B copy and sync but set nothing; the plan splits
-    the 6,000-row db over the card's one-block slots; in both forms."""
+    """Batches below the 256-row query block or one row past it: rows
+    past B (zero-filled by the boxes) set nothing; the plan splits the
+    6,000-row db so its items fill the card; in both forms."""
     for seq_len in (150, 300):
         rng, buf, q = _case(seq_len, 6000, b, b + seq_len)
         emb, zc, q_emb = _operands(cuda, buf, q, seq_len)
@@ -155,7 +156,7 @@ def test_compact_kchunk_repeated_row_db(cuda):
 
 
 def test_compact_kchunk_29903bp(cuda):
-    """A SARS-CoV-2 genome's width, form (b), 468 chunks a row: 637 rows
+    """A SARS-CoV-2 genome's width, form (b), 935 chunks a row: 637 rows
     (padded to 640) and 40 reads with ~1% substitutions, thresholds up to
     400 and L."""
     seq_len, nw, b = 29903, 637, 40

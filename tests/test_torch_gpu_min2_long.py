@@ -1,14 +1,16 @@
-"""min2's K-chunked route (windows past 64 bp) against its plain PyTorch
-version on the card, exact.
+"""min2's long route (windows past 64 bp, csrc/wg_long.cuh) against its
+plain PyTorch version on the card, exact.
 
-Form (a), the query rows resident, serves EP <= 672 (L <= 168); form
-(b), query and db chunks streamed, serves longer windows. Each case runs
+Form (a), "wg_kchunk", the query rows resident, serves EP <= 640 (L <=
+160); form (b), "wg_kchunk_stream", query and db chunks streamed, serves
+longer windows. Each case runs
 at one split (no merge), at the wrapper's plan and at 7 splits (a count
 that divides no tile run evenly), through the library's C entry, and
 once through the wrapper, which must launch once and take the plan's
-route. Cases: L = 65 (two chunks, the second of one k-step), 127, 150,
-168 and 169 (the forms' boundary) and 300, with and without the count;
-a db of one repeated row, whose ties cross every split; 29,903 bp (468
+route. Cases: L = 65 (three chunks of 128 bytes, the last of 32), 127,
+150, 168 and 169 (past form (a)'s 160) and 300, with and without the
+count;
+a db of one repeated row, whose ties cross every split; 29,903 bp (935
 chunks a row) on a small db (offsets past 2^31 bytes are held in
 chip_smoke.py's 29,903 bp lines).
 
@@ -28,7 +30,7 @@ pytestmark = pytest.mark.gpu
 
 
 def _route(ep):
-    return "kchunk" if ep <= 672 else "kchunk_stream"
+    return "wg_kchunk" if ep <= 640 else "wg_kchunk_stream"
 
 
 def _launch(g, q_emb, emb, zc, seq_len, shift, with_count, splits):
@@ -51,11 +53,11 @@ def _launch(g, q_emb, emb, zc, seq_len, shift, with_count, splits):
 
 def _held(g, q_emb, emb, zc, seq_len, shift, with_count):
     """Every split count and the wrapper equal the plain version; the
-    wrapper's plan is the K-chunked route of this width."""
+    wrapper's plan is the long route of this width."""
     torch = g.torch
     want = g.D.min2_reference(q_emb, emb, zc, seq_len, shift, with_count)
     b, wp, ep = q_emb.shape[0], emb.shape[0], q_emb.shape[1]
-    route, s = g.M.launch_plan(b, wp, ep, g.M.sm_count(g.dev))
+    route, s = g.M.kernel_plan(b, wp, ep, g.M.sm_count(g.dev))
     assert route == _route(ep) and 1 <= s <= wp // WP_MULTIPLE
     for splits in sorted({1, s, min(7, wp // WP_MULTIPLE)}):
         got = _launch(g, q_emb, emb, zc, seq_len, shift, with_count, splits)

@@ -2,16 +2,16 @@
 splits each kernel gets, and the constants the plan mirrors from the
 CUDA sources.
 
-``ops/min2.py``'s ``launch_plan`` and ``live_plan`` are the plan of
-every wrapper past 64 bp, and of kstats and min_count up to it. Up to
-EP = 256 bytes (L <= 64) kstats and min_count take the split tile at
-two blocks an SM, min2 and compact_mask the wgmma tile
-(``kernel_plan``, ``short_plan``; tests/test_torch_wg_plan.py). Past it
-every kernel takes the K-chunked tile at one block an SM: "kchunk",
-query rows resident, up to EP = 672 (the widest whose rows and a
-3-stage ring of db chunks fit the 232,448 bytes a block can use), and
-"kchunk_stream" past it, with ``split_count`` splits over the live
-64-row tiles.
+``ops/min2.py``'s ``launch_plan`` and ``live_plan`` are kstats' and
+min_count's plan. Up to EP = 256 bytes (L <= 64) they take the split
+tile at two blocks an SM; past it the K-chunked split tile at one block
+an SM: "kchunk", query rows resident, up to EP = 672 (the widest whose
+rows and a 3-stage ring of db chunks fit the 232,448 bytes a block can
+use), and "kchunk_stream" past it, with ``split_count`` splits over the
+live 64-row tiles. min2 and compact_mask take the wgmma tiles
+(``kernel_plan``: ``short_plan`` up to 64 bp,
+tests/test_torch_wg_plan.py; ``long_plan`` past it,
+tests/test_torch_wg_long_plan.py).
 
 torch is imported by the ``port`` fixture, not at collection (see
 test_torch_min2.py)."""
@@ -64,9 +64,10 @@ def _plans(port, b, rows, ep):
 def test_routes_at_the_boundaries(port, ep, want):
     """EP 256 (64 bp), 288 (the first K-chunked width, 65-72 bp), 672
     (168 bp, form (a)'s last), 704 (the 32-byte step past it) and 119,616
-    (29,903 bp): all four kernels take the route named, past 64 bp with
-    splits over one block an SM; at 64 bp kstats and min_count the split
-    tile, min2 and compact_mask the wgmma tile."""
+    (29,903 bp): kstats and min_count take the route named, past 64 bp
+    with splits over one block an SM, at 64 bp the split tile; min2 and
+    compact_mask the wgmma tiles: the short route at 64 bp, past it
+    ``long_plan``'s routes (their own form (a) ends at 640)."""
     M = port.M
     short = {"min2": M.MIN2_ITEM_STEPS, "compact_mask": M.COMPACT_ITEM_STEPS}
     for b, rows in ((1, 64), (77, 32768), (1024, 32768), (4096, 2621440),
@@ -77,6 +78,11 @@ def test_routes_at_the_boundaries(port, ep, want):
             if ep <= M.SPLIT_EP_MAX and kernel in short:
                 assert route == M.WG_ROUTE, kernel
                 assert s == M.short_plan(b, rows, H100_SMS, short[kernel])
+            elif kernel in short:
+                assert route == ("wg_kchunk" if ep <= M.WG_RESIDENT_EP_MAX
+                                 else "wg_kchunk_stream"), kernel
+                assert (route, s) == M.long_plan(b, rows, ep, H100_SMS,
+                                                 short[kernel])
             elif ep <= M.SPLIT_EP_MAX:
                 assert route == "split", kernel
                 assert s == M.split_count(b, rows, H100_SMS * M.BLOCKS_PER_SM)
@@ -116,9 +122,10 @@ def test_mirrored_constants_equal_the_sources(port):
     """ops/min2.py's BM, BLOCKS_PER_SM, SPLIT_EP_MAX, CHUNK_BLOCKS_PER_SM
     and RESIDENT_EP_MAX are split_tile.cuh's S_WARPS * 32,
     S_BLOCKS_PER_SM, S_KS * 32, K_BLOCKS_PER_SM and RESIDENT_EP_MAX; the
-    chunk kernels of all four sources launch with K_BLOCKS_PER_SM and
-    switch forms at RESIDENT_EP_MAX, and no first-version loop is left
-    (scan_tile.cuh is gone)."""
+    chunk kernels of kstats and min_count launch with K_BLOCKS_PER_SM
+    and switch forms at RESIDENT_EP_MAX, min2 and compact_mask run no
+    split tile any more, and no first-version loop is left (scan_tile.cuh
+    is gone)."""
     M = port.M
     c = _constants("split_tile.cuh")
     assert M.BM == c["S_WARPS"] * 32
@@ -129,8 +136,10 @@ def test_mirrored_constants_equal_the_sources(port):
     assert M.RESIDENT_EP_MAX == c["RESIDENT_EP_MAX"]
     for src in ("min2.cu", "kstats.cu", "compact.cu", "min_count.cu"):
         text = (CSRC / src).read_text()
-        assert "__launch_bounds__(S_THREADS, K_BLOCKS_PER_SM)" in text
-        assert "EP <= RESIDENT_EP_MAX" in text
+        split = src in ("kstats.cu", "min_count.cu")
+        assert ("__launch_bounds__(S_THREADS, K_BLOCKS_PER_SM)" in text) == split
+        assert ("EP <= RESIDENT_EP_MAX" in text) == split
+        assert ('#include "split_tile.cuh"' in text) == split
         assert "launch_long" not in text and "scan_tile" not in text
     assert "min2_long_kernel" not in (CSRC / "min2.cu").read_text()
     assert "kstats_kernel(" not in (CSRC / "kstats.cu").read_text()

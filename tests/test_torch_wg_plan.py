@@ -107,18 +107,19 @@ def test_splits_at_the_main_shapes(port, b, min2_s, compact_s):
 
 def test_routes_by_width(port):
     """min2 and compact_mask take the short route up to EP = 256 (64 bp)
-    and launch_plan's K-chunked routes past it."""
+    and long_plan's routes past it."""
     M, C = port.M, port.C
     for seq_len in (1, 3, 31, 60, 64, 65, 150, 168, 169, 300):
         ep = port.D.embed_width(seq_len)
         for b in (1, 77, 4096, 32768):
-            for plan in (M.kernel_plan, C.kernel_plan):
+            for plan, steps in ((M.kernel_plan, M.MIN2_ITEM_STEPS),
+                                (C.kernel_plan, M.COMPACT_ITEM_STEPS)):
                 route, s = plan(b, 70016, ep, H100_SMS)
                 if seq_len <= 64:
                     assert route == M.WG_ROUTE
                 else:
-                    assert (route, s) == M.launch_plan(b, 70016, ep,
-                                                       H100_SMS)
+                    assert (route, s) == M.long_plan(b, 70016, ep, H100_SMS,
+                                                     steps)
 
 
 def test_plan_is_cached(port):
@@ -164,8 +165,7 @@ def test_zc_must_be_a_tma_source(port):
 
 
 # launch_plan and live_plan as they were before min2 and compact_mask
-# took the wgmma tile (the parent's values): kstats and min_count keep
-# them, and every kernel's long routes.
+# took the wgmma tiles: kstats and min_count keep them, short and long.
 LAUNCH = {(1, 70016, 256): ("split", 264), (1, 70016, 608): ("kchunk", 132),
           (77, 1 << 20, 256): ("split", 264), (512, 1 << 20, 256): ("split", 132),
           (512, 1 << 20, 608): ("kchunk", 66), (4096, 1 << 20, 256): ("split", 16),
