@@ -8,10 +8,10 @@ Phases, one line each:
 1. build: compiles the CUDA kernels from smafa_tpu_torch/csrc with nvcc;
    logs each source's ``ptxas -v`` (registers, spills) and, where the
    toolkit has cuobjdump, the warpgroup MMA and TMA load instructions
-   of the hist kernels and of min2's and compact_mask's kernels on both
-   their routes (fails if one of them has none of either, or if a min2
-   or compact_mask kernel has an mma.sync, ldmatrix or cp.async
-   instruction).
+   of the hist kernels, of min2's and compact_mask's kernels on both
+   their routes and of kstats' and min_count's long routes (fails if one
+   of them has none of either, or if one of those but hist's has an
+   mma.sync, ldmatrix or cp.async instruction).
 2. kernel parity: each kernel against its plain PyTorch version on the
    card, exact equality (all values are integers), with both times and
    the kernel's bound (the larger of its int8 operations over 1,979
@@ -120,15 +120,14 @@ Phases, one line each:
    against the brute force. Then min2, kstats and compact_mask on their
    long routes at this phase's shapes (one slab each), exact against
    their plain versions, timed by CUDA events beside their bounds, each
-   line with its route and db splits (form (a): min2 and compact_mask
-   "wg_kchunk", the K-chunked wgmma tile; kstats "kchunk", the K-chunked
-   split tile), and hist at the K-mode batch x one slab beside the
+   line with its route and db splits (form (a), "wg_kchunk", the
+   K-chunked wgmma tile), and hist at the K-mode batch x one slab beside the
    whole 4-pass kstats search there. Then, exact and timed (``cell:
    long_routes``), on 32,768 random rows: min2 at 4,096 reads, kstats at
    1,024 and compact_mask at 4,096 (300 bp) and 1,024 (29,903 bp) reads
-   at their K = 99 cutoffs, at 300 bp and at 29,903 bp (form (b), routes
-   "wg_kchunk_stream" and "kchunk_stream"); min_count at 32,768 reads at
-   150 bp (form (a), "kchunk"); and
+   at their K = 99 cutoffs, at 300 bp and at 29,903 bp (form (b), route
+   "wg_kchunk_stream"); min_count at 32,768 reads at 150 bp (form (a),
+   "wg_kchunk"); and
    hist at 1,024 reads at 300 and 1023 bp (the widest window the switch
    takes), beside the kstats search (5 passes) there. The K = 99 run
    also runs with SMAFA_TPU_KMODE_HIST=1: bytes equal, hist once per
@@ -144,7 +143,7 @@ Phases, one line each:
    / ``scan_fetch``, timed, 256 sampled rows (64 of them exact copies of
    rows duplicated across the spans) against a brute force on the card,
    and min_count on its first span exact against its plain version and
-   timed (the K-chunked tile, form (b)). A whole cluster run past the real budget is O(n^2), so (b)
+   timed (the K-chunked wgmma tile, form (b)). A whole cluster run past the real budget is O(n^2), so (b)
    drives the engine's store, not the CLI.
 11. multiprocess: ``query`` and ``cluster`` through the CLI as 2 ranks
    (subprocesses of this script, ``--rank``, each with its kernels'
@@ -357,19 +356,21 @@ SASS_TMA = ("UTMALDG",)                   # TMA tensor loads
 # tile's mma.sync (IMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
 SASS_OLD_TILE = ("IMMA", "LDSM", "LDGSTS")
 # the warpgroup kernels, by a part of their names: each must be built
-# (min2's and compact_mask's short route, then their long routes)
+# (min2's and compact_mask's short route, then the long routes of min2,
+# compact_mask, kstats and min_count)
 WG_KERNELS = ("hist_kernel", "min2_wg_kernel", "compact_wg_kernel",
-              "min2_wgchunk_kernel", "compact_wgchunk_kernel")
+              "min2_wgchunk_kernel", "compact_wgchunk_kernel",
+              "kstats_wgchunk_kernel", "min_count_wgchunk_kernel")
 
 
 def warpgroup_sass(build_mod) -> dict:
-    """The warpgroup kernels' (hist, and min2's and compact_mask's on
-    both routes) warpgroup MMA and TMA load instructions in the built
-    library (``cuobjdump -sass``): per kernel their counts and first
-    lines, and min2's and compact_mask's count of split-tile
+    """The warpgroup kernels' (hist, min2's and compact_mask's on both
+    routes, kstats' and min_count's long routes) warpgroup MMA and TMA
+    load instructions in the built library (``cuobjdump -sass``): per
+    kernel their counts and first lines, and their count of split-tile
     instructions; fails if a kind of kernel is missing, if one has none
-    of either, or if a min2 or compact_mask kernel has any split-tile
-    instruction. "not measured" where the toolkit has no cuobjdump."""
+    of either, or if one but hist's has any split-tile instruction.
+    "not measured" where the toolkit has no cuobjdump."""
     tool = os.path.join(os.path.dirname(build_mod._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         return {"wg_sass": "not measured (no cuobjdump)"}
@@ -662,10 +663,15 @@ def min_count_check(mc_mod, D, q_emb, emb, zc, n_valid: int, L: int,
     return want
 
 
-def live_plan(min2_mod, b: int, n_valid: int, ep: int, dev) -> dict:
-    """The route and db splits the min_count and kstats wrappers launch
-    with (``ops/min2.py:live_plan``, over the first n_valid rows)."""
-    route, splits = min2_mod.live_plan(b, n_valid, ep, min2_mod.sm_count(dev))
+def live_plan(min2_mod, b: int, n_valid: int, ep: int, dev,
+              kernel: str) -> dict:
+    """The route and db splits the ``kernel`` ("min_count" or "kstats")
+    wrapper launches with (``ops/min2.py:live_plan``, over the first
+    n_valid rows, at the kernel's item cost)."""
+    item = {"min_count": min2_mod.MIN_COUNT_ITEM_STEPS,
+            "kstats": min2_mod.KSTATS_ITEM_STEPS}[kernel]
+    route, splits = min2_mod.live_plan(b, n_valid, ep, min2_mod.sm_count(dev),
+                                       item)
     return {"route": route, "splits": splits}
 
 
@@ -722,7 +728,7 @@ def min_count_parity(sizes, dev, D, K, mc_mod, min2_mod, rng,
             min_count_check(mc_mod, D, q_emb, emb, zc, n_valid, L, shift,
                             f"L={L} n_valid={n_valid}")
             plans.append(live_plan(min2_mod, 1000, n_valid, q_emb.shape[1],
-                                   dev))
+                                   dev, "min_count"))
         log("kernel_parity", kernel="min_count", L=L, B=1000, W=wp,
             n_valid=[sizes.min_count_below, wp],
             route=[p["route"] for p in plans],
@@ -737,7 +743,8 @@ def min_count_parity(sizes, dev, D, K, mc_mod, min2_mod, rng,
                                    shift, f"{what} L={L} B={b} n_valid={n_valid}")
         log("kernel_parity", kernel="min_count", case=what, L=L, B=b,
             W=buf.shape[0], n_valid=n_valid,
-            **live_plan(min2_mod, b, n_valid, q_emb.shape[1], dev),
+            **live_plan(min2_mod, b, n_valid, q_emb.shape[1], dev,
+                        "min_count"),
             min_dist=int(key.min()) >> shift, max_count=int(cnt.max()),
             exact=True)
         del emb, zc, q_emb
@@ -763,7 +770,7 @@ def min_count_parity(sizes, dev, D, K, mc_mod, min2_mod, rng,
         timings[which] = {"max_abs_err": err, **log_time(
             "min_count", L_SMOKE, b, w, ms, plain_ms,
             bound(b, w, L_SMOKE, D.embed_width(L_SMOKE), out_bytes=4 * b),
-            **live_plan(min2_mod, b, w, q_emb.shape[1], dev),
+            **live_plan(min2_mod, b, w, q_emb.shape[1], dev, "min_count"),
             device_ms=dev_ms)}
     return timings["main"]
 
@@ -816,7 +823,7 @@ def kstats_parity(sizes, dev, D, K, ks_mod, min2_mod, rng, rng_s) -> dict:
     db_emb, zc = D.embed_db(torch.from_numpy(codes).to(dev), L_SMOKE, wp)
 
     def plan(b: int, n_valid: int) -> dict:
-        return live_plan(min2_mod, b, n_valid, ep, dev)
+        return live_plan(min2_mod, b, n_valid, ep, dev, "kstats")
 
     def operands(r, b: int):
         q = mutate(r, codes[r.integers(0, n, b)], 6)
@@ -1980,7 +1987,7 @@ def long_window_kernels(sizes, D, K, mods: dict, min2_mod, hitops, codes,
          lambda: D.stats_reference(q_emb, emb, zc, ts, n0, L), b, n0,
          bound(b, n0, L, ep, out_bytes=4 * (P + 1) * b,
                extra_in_bytes=4 * P * b),
-         **live_plan(min2_mod, b, n0, ep, dev))
+         **live_plan(min2_mod, b, n0, ep, dev, "kstats"))
 
     def stats(t):
         cnt = mx = None
@@ -2057,10 +2064,11 @@ def long_route_kernels(sizes, D, K, mods: dict, min2_mod, dev,
         emb, zc = D.embed_db(codes, L, rows)
         q_emb = D.expand_embed_query(q, L)
         del codes, q
-        plan = dict(zip(("route", "splits"), (
-            mods[name].kernel_plan(b, rows, ep, sms)
-            if name in ("min2", "compact_mask")
-            else min2_mod.live_plan(b, rows, ep, sms))))
+        plan = (dict(zip(("route", "splits"),
+                         mods[name].kernel_plan(b, rows, ep, sms)))
+                if name in ("min2", "compact_mask")
+                else live_plan(min2_mod, b, rows, ep, dev, name)
+                if name in ("kstats", "min_count") else {})
         extra = {}
         if name == "min2":
             shift = K.packing_shift(L, rows)
@@ -2326,7 +2334,7 @@ def cluster_spans(sizes, cli, cluster_mod, mc_mod, D, K, min2_mod, clu: dict,
     timing = log_time("min_count", L, b, half, ms, plain_ms,
                       bound(b, half, L, ep, out_bytes=4 * b),
                       cell="cluster_spans", exact=True,
-                      **live_plan(min2_mod, b, half, ep, dev))
+                      **live_plan(min2_mod, b, half, ep, dev, "min_count"))
     res_b = {"part": "b", "centroids": n, "L": L, "cap": store.cap,
              "span": store.span, "shift": store.shift, "reads": b,
              "build_s": build_s, "scan_ms": scan_ms,

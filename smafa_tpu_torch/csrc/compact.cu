@@ -41,8 +41,8 @@
 // A and B from shared memory): form (a) up to EP = 640 (160 bp) with the
 // block's 256 query rows resident and 64-row db steps; form (b) past it
 // with query and db chunks streamed together, 256 x 128 a step. They
-// replace the K-chunked split tile (split_tile.cuh kchunk_scan; 23.3% of
-// the bound at 150 bp, 14.2% at 29,903 bp), which replaced the first
+// replace the K-chunked split tile (mma.sync; 23.3% of the bound at 150
+// bp, 14.2% at 29,903 bp; since gone), which replaced the first
 // version's loop there (__dp4a on the CUDA cores, one split; 2.5%).
 
 #include <climits>

@@ -24,48 +24,52 @@
 // re-derived each distance and branched on n_valid in every tile.
 //
 // What the design does about it:
-// 1. The split-W tensor-core tile of split_tile.cuh (see min2.cu,
-//    lever 3) over the live tiles only: ceil(B / 256) query tiles x S
-//    db splits, S from ops/min2.py's live_plan over tiles =
-//    ceil(n_valid / 64) and the route's resident block slots, split y
-//    walking tiles tiles * y / S up to tiles * (y + 1) / S. With S > 1
-//    the splits write int32 partials [5, S, B] (4 counts, then mx) to
-//    scratch the wrapper allocates, and kstats_merge_kernel, launched
-//    right after on the same stream, sums the counts and takes the max
-//    of mx; no atomics. Up to 64 bp (EP <= 256) kstats_split_kernel
-//    keeps the whole query rows in shared memory, two blocks an SM;
-//    past it kstats_chunk_kernel runs the K-chunked tile, one block an
-//    SM: form (a), query rows resident, up to EP = 672 (168 bp), form
-//    (b), query and db chunks streamed, past it. Measured
-//    (chip_smoke.py, phase 9, against the first loop in one call;
-//    NVIDIA H100 80GB HBM3, 700 W): 4096 x 2,621,440 at 150 bp, form
-//    (a), S = 8, 29.4 ms against 352 ms (22.1% of the bound); 1024 x
-//    32,768 at 300 bp, form (b), S = 33, 0.356 ms (11.4%; the first
-//    loop 12.9 ms, tools/torch_long_route_probe.py), at 29,903 bp 29.6
-//    ms (13.7%; 1,628 ms).
-// 2. An epilogue in scores: the mma.sync accumulators start at the
-//    columns' zc, so each ends as the window's score (matches, in
-//    [0, L] for the port's operands), and dist <= ts iff score >=
-//    seq_len - ts, a per-row bound. The max distance is seq_len minus
-//    the min score, folded two accumulators per DPX __vimin3_s32. Only
-//    the last live tile can be partial: the split that owns it masks its
-//    columns >= n_valid in a separate epilogue, and every other tile runs
-//    branch-free. The four lanes that share a row merge by xor shuffles.
+// 1. Db splits over the live rows only: ceil(B / 256) query tiles x S
+//    db splits, S from ops/min2.py's live_plan over the ceil(n_valid /
+//    64) live 64-row blocks. With S > 1 the splits write int32 partials
+//    [5, S, B] (4 counts, then mx) to scratch the wrapper allocates, and
+//    kstats_merge_kernel, launched right after on the same stream, sums
+//    the counts and takes the max of mx; no atomics. Up to 64 bp (EP <=
+//    256) kstats_split_kernel runs the split-W tile of split_tile.cuh
+//    (mma.sync; the whole query rows in shared memory, two blocks an
+//    SM), split y walking tiles tiles * y / S up to tiles * (y + 1) / S.
+//    Past it kstats_wgchunk_kernel runs the warp-specialised wgmma tile
+//    of wg_long.cuh (see min2.cu, lever 3; persistent blocks over query
+//    tiles x splits, TMA copies into an mbarrier ring) over the live
+//    blocks (its W is their rows): form (a), the block's 256 query rows
+//    resident, up to EP = 640 (160 bp), form (b), query and db chunks
+//    streamed, 256 x 128 a step, past it. They replace the K-chunked
+//    split tile (mma.sync fed by ldmatrix, cp.async; 22.1% of the bound
+//    at 4096 x 2,621,440, 150 bp, 11.7% at 1024 x 32,768, 300 bp, and
+//    13.6% there at 29,903 bp; chip_smoke.py, NVIDIA H100 80GB HBM3,
+//    700 W), which replaced the first loop (1.8% at 150 bp).
+// 2. An epilogue in scores: each accumulator plus its column's zc (on
+//    the split tile the mma.sync accumulators start at it) is the
+//    window's score (matches, in [0, L] for the port's operands), and
+//    dist <= ts iff score >= seq_len - ts, a per-row bound. The max
+//    distance is seq_len minus the min score, folded two accumulators
+//    per DPX __vimin3_s32. Only
+//    the last live tile (64-row block) can be partial: its owner masks
+//    its columns >= n_valid in a separate epilogue, and every other tile
+//    runs branch-free. The four lanes that share a row merge by xor
+//    shuffles.
 // 3. Counting four probes at once below 64 bp (tally_bytes): the four
 //    bounds of a row sit in the bytes of one register, one IMAD compares
 //    a score with all four, and masked sums count three scores a step,
 //    ~2.7 instructions an accumulator where a compare and a predicated
 //    add per probe (tally_pairs, which windows of 64 bp and more take:
-//    their scores reach past 63) take 8. The counts live as 16-bit
-//    pairs flushed every PAIR_TILES tiles. The epilogue's instruction
-//    count, not the pipe it runs on nor where its state lives, set the
-//    time: tools/torch_kstats_variant_probe.py builds patched copies of
-//    this file (int counts, one block per SM, bounds in shared memory)
-//    and times them beside it (PERF.md, section 6).
+//    their scores reach past 63, and every long route) take 8. The
+//    counts live as 16-bit pairs flushed every PAIR_TILES tiles. The
+//    epilogue's instruction count, not the pipe it runs on nor where its
+//    state lives, set the split tile's time at 60 bp:
+//    tools/torch_kstats_variant_probe.py builds patched copies of this
+//    file (int counts, one block per SM, bounds in shared memory) and
+//    times them beside it (PERF.md, section 6).
 //
 #include <climits>
 
 #include "split_tile.cuh"
+#include "wg_long.cuh"
 
 namespace {
 
@@ -336,78 +340,154 @@ __global__ void kstats_merge_kernel(const int* __restrict__ part,
   mx[r] = m;
 }
 
-// Long windows (EP > S_KS * 32, so scores reach past 63: counts in
-// 16-bit pairs): the K-chunked split tile (split_tile.cuh kchunk_scan),
-// form (a) with the query rows resident (QRES) or (b) streamed, on the
-// split kernel's grid over the live tiles, outputs and masked last tile.
-template <bool QRES>
-__global__ void __launch_bounds__(S_THREADS, K_BLOCKS_PER_SM)
-    kstats_chunk_kernel(const int8_t* __restrict__ q,
-                        const int8_t* __restrict__ db,
-                        const int* __restrict__ zc, const int* __restrict__ ts,
-                        int* __restrict__ cnt_out, int* __restrict__ mx_out,
-                        int B, int n_valid, int EP, int seq_len) {
-  extern __shared__ __align__(16) int8_t smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // mma groupID: fragment row / db column
-  const int t = lane & 3;   // mma threadID_in_group
-  const long q0 = (long)blockIdx.x * S_BM + warp * 32;
-  const int tiles = (n_valid + S_BN - 1) / S_BN;
-  const int S = gridDim.y, y = blockIdx.y;
-  const int t_begin = (int)((long)tiles * y / S);
-  const int nt = (int)((long)tiles * (y + 1) / S) - t_begin;
-  const int rem = n_valid - (tiles - 1) * S_BN;
-  const int masked_it = (y == S - 1 && rem < S_BN) ? nt - 1 : -1;
-
-  // This lane's rows i = 2m + h are q0 + g + 8i.
+// Long windows (EP > S_KS * 32; scores reach past 63, so counts in
+// 16-bit pairs): the epilogue of wg_long.cuh's tile (its interface:
+// begin, tile<M> a 64 x 64 block, end). A lane's rows i = 2M + h (row r0
+// + 64 M + 8 h) keep their four bounds, their counts as pairs and their
+// least score over the lane's columns (8j + 2t + c of every 64-row
+// block). Only the last live block can be partial: its tile runs
+// masked, columns at or past n_valid scored below every bound and above
+// every minimum; every other block is branch-free. The pairs flush
+// every PAIR_TILES blocks of an item (form (b)'s steps are two blocks)
+// and at its end: the item's first flush writes split y's partials,
+// later ones add; the last writes mx.
+struct KstatsWg {
   int bound[4][PROBES];
+  // 16-bit pairs: count p of row i is half p % 2 of cnt[i][p / 2]
+  int cnt[4][2];
+  int mn[4];
+  const int* ts;
+  int* cnt_out;
+  int* mx_out;
+  int B, S, seq_len, t, last, rem, blocks, y;
+  bool flushed;
+  long r0;
+
+  __device__ __forceinline__ void begin(long r, const wg_scan::Item& im) {
+    r0 = r;
+    y = im.y;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < 4; ++i) {
+      const long row = r0 + 64 * (i >> 1) + 8 * (i & 1);
 #pragma unroll
-    for (int p = 0; p < PROBES; ++p) {
-      bound[i][p] = row_bound<false>(ts, q0 + g + 8 * i, B, p, seq_len);
+      for (int p = 0; p < PROBES; ++p) {
+        bound[i][p] = row_bound<false>(ts, row, B, p, seq_len);
+      }
+      cnt[i][0] = cnt[i][1] = 0;
+      mn[i] = INT_MAX;
+    }
+    blocks = 0;
+    flushed = false;
+  }
+
+  // Tile M's scores (acc[4j + 2h + c] + z[2j + c]: row 2M + h, column 8j
+  // + 2t + c) into the counts and minima of its two rows, a compare and
+  // a predicated add a probe; MASKED: only columns below rem count.
+  template <int M, bool MASKED>
+  __device__ __forceinline__ void tally(const int (&acc)[32],
+                                        const int (&z)[16]) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 2 * M + h;
+        int s[2], sm[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          s[c] = sm[c] = acc[4 * j + 2 * h + c] + z[2 * j + c];
+          if (MASKED && 8 * j + 2 * t + c >= rem) {
+            s[c] = INT_MIN;  // below every bound: no count
+            sm[c] = INT_MAX;
+          }
+#pragma unroll
+          for (int p = 0; p < PROBES; ++p) {
+            add_if_ge(cnt[i][p / 2], s[c], bound[i][p], p % 2 ? 0x10000 : 1);
+          }
+        }
+        mn[i] = __vimin3_s32(mn[i], sm[0], sm[1]);
+      }
     }
   }
-  Pairs cnt = {};
-  int mn[4] = {INT_MAX, INT_MAX, INT_MAX, INT_MAX};
 
-  kchunk_scan<QRES>(
-      smem, q, db, zc, (long)blockIdx.x * S_BM, B, EP, t_begin, nt, q0 < B,
-      [&](int (&acc)[2][8][4], const int* sZ) { acc_from_zc(acc, sZ, t); },
-      [&](const int (&acc)[2][8][4], const int*, int it) {
-        if (it == masked_it) {
-          tally_pairs<true>(acc, bound, cnt, mn, t, rem);
-        } else {
-          tally_pairs<false>(acc, bound, cnt, mn, t, rem);
+  // Merge the 4 lanes that share each row; lane t writes row i = t if
+  // below B: split y's counts (written by the item's first flush, added
+  // by later ones) and, with `final`, its mx. The pairs restart at 0.
+  __device__ __forceinline__ void flush(bool final) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int c[PROBES];
+#pragma unroll
+      for (int p = 0; p < PROBES; ++p) {
+        c[p] = (cnt[i][p / 2] >> (p % 2 * 16)) & 0xffff;
+      }
+      int m = mn[i];
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+#pragma unroll
+        for (int p = 0; p < PROBES; ++p) c[p] += __shfl_xor_sync(0xffffffffu, c[p], off);
+        m = min(m, __shfl_xor_sync(0xffffffffu, m, off));
+      }
+      cnt[i][0] = cnt[i][1] = 0;
+      const long row = r0 + 64 * (i >> 1) + 8 * (i & 1);
+      if (t == i && row < B) {
+#pragma unroll
+        for (int p = 0; p < PROBES; ++p) {
+          int* o = cnt_out + ((long)p * S + y) * B + row;
+          *o = flushed ? *o + c[p] : c[p];
         }
-        // Every PAIR_TILES tiles and after the last: the first flush
-        // writes the split's partials, later ones add.
-        if ((it + 1) % PAIR_TILES == 0 || it == nt - 1) {
-          flush_counts(cnt, mn, cnt_out, mx_out, q0, g, t, B, S, y, seq_len,
-                       it < PAIR_TILES);
-        }
-      });
+        if (final) mx_out[(long)y * B + row] = seq_len - m;
+      }
+    }
+    flushed = true;
+  }
+
+  template <int M>
+  __device__ __forceinline__ void tile(const int (&acc)[32], const int (&z)[16],
+                                       int s) {
+    if (s == last) {
+      tally<M, true>(acc, z);
+    } else {
+      tally<M, false>(acc, z);
+    }
+    if (M == 1 && ++blocks == PAIR_TILES) {
+      flush(false);
+      blocks = 0;
+    }
+  }
+
+  __device__ __forceinline__ void end(const wg_scan::Item&) { flush(true); }
+};
+
+// The long routes (wg_long.cuh), NKP panels a row in form (a), 0 in
+// form (b), over the live 64-row blocks: outputs as
+// kstats_split_kernel's, split y's partials at y.
+template <int NKP>
+__global__ void __launch_bounds__(wg_long::THREADS, 1)
+    kstats_wgchunk_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_db,
+                          const __grid_constant__ CUtensorMap tm_zc, int T,
+                          int S, int R, int nkp, const int* __restrict__ ts,
+                          int* __restrict__ cnt_out, int* __restrict__ mx_out,
+                          int B, int n_valid, int seq_len) {
+  KstatsWg epi;
+  epi.ts = ts;
+  epi.cnt_out = cnt_out;
+  epi.mx_out = mx_out;
+  epi.B = B;
+  epi.S = S;
+  epi.seq_len = seq_len;
+  epi.t = threadIdx.x & 3;
+  const int live = (n_valid + wg_scan::N - 1) / wg_scan::N;
+  epi.rem = n_valid - (live - 1) * wg_scan::N;
+  epi.last = epi.rem < wg_scan::N ? live - 1 : -1;
+  wg_long::run<NKP>(&tm_q, &tm_db, &tm_zc, B, live * wg_scan::N, T, S, R,
+                    nkp, epi);
 }
 
-template <bool QRES>
-cudaError_t launch_chunked(const int8_t* q, const int8_t* db, const int* zc,
-                           const int* ts, int* cnt, int* mx, int B,
-                           int n_valid, int EP, int seq_len, dim3 grid,
-                           cudaStream_t s) {
-  const int smem = kchunk_smem<QRES>(EP);
-  const cudaError_t err = cudaFuncSetAttribute(
-      kstats_chunk_kernel<QRES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  kstats_chunk_kernel<QRES><<<grid, S_THREADS, smem, s>>>(
-      q, db, zc, ts, cnt, mx, B, n_valid, EP, seq_len);
-  return cudaGetLastError();
-}
-
-// The split kernel (EP <= S_KS * 32) or the K-chunked one, in form (a)
-// up to RESIDENT_EP_MAX; with splits > 1 it writes part = [cnt x 4, mx]
-// x [splits, B] and the merge follows.
+// The split kernel (EP <= S_KS * 32) or the long route's (wg_long.cuh)
+// over the live rows, in form (a) up to wg_long::EP_A_MAX; with splits
+// > 1 it writes part = [cnt x 4, mx] x [splits, B] and the merge
+// follows.
 cudaError_t launch_split(const int8_t* q, const int8_t* db, const int* zc,
                          const int* ts, int* cnt, int* mx, int* part, int B,
                          int n_valid, int EP, int seq_len, int splits,
@@ -415,15 +495,17 @@ cudaError_t launch_split(const int8_t* q, const int8_t* db, const int* zc,
   const bool direct = splits == 1;
   int* cnt_o = direct ? cnt : part;
   int* mx_o = direct ? mx : part + (long)PROBES * splits * B;
-  const dim3 grid((B + S_BM - 1) / S_BM, splits);
   cudaError_t err;
   if (EP > S_KS * 32) {
-    err = EP <= RESIDENT_EP_MAX
-              ? launch_chunked<true>(q, db, zc, ts, cnt_o, mx_o, B, n_valid,
-                                     EP, seq_len, grid, s)
-              : launch_chunked<false>(q, db, zc, ts, cnt_o, mx_o, B, n_valid,
-                                      EP, seq_len, grid, s);
+    const int live = (n_valid + S_BN - 1) / S_BN * S_BN;
+    err = wg_long::by_form(EP, [&](auto form) {
+      constexpr int NKP = decltype(form)::value;
+      return wg_long::launch<NKP>(kstats_wgchunk_kernel<NKP>, q, db, zc, B,
+                                  live, EP, splits, s, ts, cnt_o, mx_o, B,
+                                  n_valid, seq_len);
+    });
   } else {
+    const dim3 grid((B + S_BM - 1) / S_BM, splits);
     const bool bytes = seq_len < 64;  // byte lanes need scores below 64
     const auto kernel = bytes ? &kstats_split_kernel<true> : &kstats_split_kernel<false>;
     const int smem = split_smem(EP);
@@ -445,7 +527,8 @@ cudaError_t launch_split(const int8_t* q, const int8_t* db, const int* zc,
 // Launch on `stream`. q: int8 [B, EP], db: int8 [W, EP], zc: int32 [W],
 // ts and cnt: int32 [4, B], mx: int32 [B]; part: int32 [5, splits, B]
 // scratch when splits > 1 (else unused). Requires EP % 32 == 0,
-// W % 64 == 0, 1 <= n_valid <= W, B >= 1, 16-byte aligned q and db,
+// W % 64 == 0, 1 <= n_valid <= W, B >= 1, 16-byte aligned q and db
+// (and zc past EP = 256, a TMA source),
 // 1 <= splits <= ceil(n_valid / 64), and the port's operands
 // (ops/distance.py), whose score q . db + zc of a db row below n_valid
 // lies in [0, seq_len]. Returns the cudaError_t of the launches.

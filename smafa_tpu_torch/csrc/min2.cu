@@ -53,8 +53,8 @@
 //      (160 bp) with the block's 256 query rows resident and 64-row db
 //      steps; form (b) past it with query and db chunks streamed
 //      together, 256 x 128 a step. They replace the K-chunked split
-//      tile (split_tile.cuh kchunk_scan: mma.sync fed by ldmatrix,
-//      cp.async; 27.3% of the bound at 150 bp, 14.9% at 29,903 bp).
+//      tile (mma.sync fed by ldmatrix, cp.async; 27.3% of the bound at
+//      150 bp, 14.9% at 29,903 bp; since gone).
 //
 #include <climits>
 
@@ -64,17 +64,10 @@
 namespace {
 
 using wg_tile::PANEL;
+using wg_tile::set_if_eq;
 
 constexpr int MERGE_THREADS = 256;
 constexpr int BIG_KEY = 0x7fffffff;  // the empty packed key
-
-// w |= bit where s == v: a compare and a predicated OR.
-__device__ __forceinline__ void set_if_eq(unsigned& w, int s, int v,
-                                          unsigned bit) {
-  asm("{\n\t.reg .pred p;\n\tsetp.eq.s32 p, %1, %2;\n\t@p or.b32 %0, %0, %3;\n\t}"
-      : "+r"(w)
-      : "r"(s), "r"(v), "r"(bit));
-}
 
 // The epilogue of every route (wg_scan.cuh, wg_long.cuh): a lane's
 // running state of its rows i = 2M + h (row r0 + 64 M + 8 h): the row's

@@ -51,20 +51,26 @@
 //    scored INT_MIN (below every real score); every other tile runs
 //    without the branch.
 //
-// Longer windows (EP > 256, L > 64) take min_count_chunk_kernel: the
-// same grid, epilogue (MinCountState), masked last tile and merge on the
-// K-chunked split tile (split_tile.cuh kchunk_scan), one block an SM,
-// form (a) with the query rows resident up to EP = 672 (168 bp) and form
-// (b) past it. It replaces the first version's loop there (one split;
-// 8.3% of the bound at 300 bp).
+// Longer windows (EP > 256, L > 64) take min_count_wgchunk_kernel: the
+// same splits over the live rows, masked last tile and merge, and
+// min2.cu's max-first epilogue with one key (MinCountWg), on the
+// warp-specialised wgmma tile of wg_long.cuh (see min2.cu, lever 3):
+// form (a), the block's 256 query rows resident, up to EP = 640 (160
+// bp), form (b), query and db chunks streamed, 256 x 128 a step, past
+// it. They replace the K-chunked split tile (mma.sync fed by ldmatrix,
+// cp.async; 25.8% of the bound at 32768 x 32768, 150 bp, 13.8% at 32768
+// x 2^22, 300 bp; chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W), which
+// replaced the first version's loop there (one split; 8.3% at 300 bp).
 
 #include <climits>
 
 #include "split_tile.cuh"
+#include "wg_long.cuh"
 
 namespace {
 
 using namespace split_tile;  // the tile's constants and helpers
+using wg_tile::set_if_eq;
 
 constexpr int MERGE_THREADS = 256;
 
@@ -256,39 +262,166 @@ __global__ void __launch_bounds__(S_THREADS, S_BLOCKS_PER_SM)
   st.store(key_out, cnt_out, (long)blockIdx.y * B, q0, g, t, B);
 }
 
-// Long windows (EP > S_KS * 32): the K-chunked split tile, form (a) with
-// the query rows resident (QRES) or (b) streamed, on the split kernel's
-// grid over the live tiles, epilogue, masked last tile and outputs.
-// Every warp copies and syncs inside kchunk_scan; only warps with a row
-// below B run the products.
-template <bool QRES, bool WITH_COUNT>
-__global__ void __launch_bounds__(S_THREADS, K_BLOCKS_PER_SM)
-    min_count_chunk_kernel(const int8_t* __restrict__ q,
-                           const int8_t* __restrict__ db,
-                           const int* __restrict__ zc,
-                           int* __restrict__ key_out,
-                           int* __restrict__ cnt_out, int B, int n_valid,
-                           int EP, int seq_len, int shift) {
-  extern __shared__ __align__(16) int8_t smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // mma groupID: fragment row / db column
-  const int t = lane & 3;   // mma threadID_in_group
-  const long q0 = (long)blockIdx.x * S_BM + warp * 32;
-  const bool live = q0 < B;  // the warp has a row below B
-  const LiveRun run(n_valid);
+// Long windows (EP > S_KS * 32): the epilogue of wg_long.cuh's tile
+// (its interface: begin, tile<M> a 64 x 64 block, end), min2.cu's
+// max-first fold with one key. A lane's rows i = 2M + h (row r0 + 64 M
+// + 8 h) keep the row's best score (the same in the 4 lanes of the
+// quad), the key and (WITH_COUNT) the count at it over the columns the
+// lane owns (8j + 2t + c of every 64-row block). Without the count only
+// a strictly better best enters the update: an item walks its blocks in
+// index order, so an equal distance cannot lower the key. Only the last
+// live block can be partial: its tile runs masked, columns at or past
+// n_valid (live rows, which may match better) neither fold nor hit;
+// every other block is branch-free.
+template <bool WITH_COUNT>
+struct MinCountWg {
+  int best[4], key[4], cnt[4];
+  int* key_out;
+  int* cnt_out;
+  int B, seq_len, shift, t, last, rem, y;
+  long r0;
 
-  MinCountState<WITH_COUNT> st;
-  st.init();
-  kchunk_scan<QRES>(
-      smem, q, db, zc, (long)blockIdx.x * S_BM, B, EP, run.t_begin, run.nt,
-      live, [](int (&acc)[2][8][4], const int*) { zero_acc(acc); },
-      [&](const int (&acc)[2][8][4], const int* sZ, int it) {
-        st.tile(acc, sZ, (run.t_begin + it) * S_BN, t, it == run.masked_it,
-                run.rem, seq_len, shift);
-      });
-  if (!live) return;
-  st.store(key_out, cnt_out, (long)blockIdx.y * B, q0, g, t, B);
+  __device__ __forceinline__ void begin(long r, const wg_scan::Item& im) {
+    r0 = r;
+    y = im.y;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      best[i] = INT_MIN;
+      key[i] = BIG_KEY;
+      cnt[i] = 0;
+    }
+  }
+
+  // Block s of tile M (acc[4j + 2h + c] + z[2j + c]: the score of row 2M
+  // + h and db row 64 s + 8j + 2t + c): each row's best over the lane's
+  // columns (add and max in one DPX instruction), then over the quad's;
+  // one branch into the exact update of the rows whose best it reaches.
+  // MASKED: only columns below rem are live.
+  template <int M, bool MASKED>
+  __device__ __forceinline__ void fold(const int (&acc)[32], const int (&z)[16],
+                                       int s) {
+    unsigned live = 0xffffu;  // bit 2j + c: column 8j + 2t + c
+    if (MASKED) {
+      live = 0;
+#pragma unroll
+      for (int b = 0; b < 16; ++b) {
+        if (8 * (b >> 1) + 2 * t + (b & 1) < rem) live |= 1u << b;
+      }
+    }
+    int tb[2] = {INT_MIN, INT_MIN};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          if (!MASKED || ((live >> (2 * j + c)) & 1)) {
+            tb[h] = __viaddmax_s32(acc[4 * j + 2 * h + c], z[2 * j + c], tb[h]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      tb[h] = max(tb[h], __shfl_xor_sync(0xffffffffu, tb[h], 1));
+      tb[h] = max(tb[h], __shfl_xor_sync(0xffffffffu, tb[h], 2));
+    }
+    // (column 0 of every block is live, so a quad's best is a score)
+    bool up[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      up[h] = WITH_COUNT ? tb[h] >= best[2 * M + h] : tb[h] > best[2 * M + h];
+    }
+    if (up[0] | up[1]) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 2 * M + h;
+        if (!up[h]) continue;
+        if (tb[h] > best[i]) {
+          best[i] = tb[h];
+          key[i] = BIG_KEY;
+          cnt[i] = 0;
+        }
+        unsigned m = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            set_if_eq(m, acc[4 * j + 2 * h + c] + z[2 * j + c], tb[h],
+                      1u << (2 * j + c));
+          }
+        }
+        if (MASKED) m &= live;
+        if (m) {  // the lowest column hit: the lane's least index
+          const int bl = __ffs(m) - 1;
+          const int w = s * wg_scan::N + 8 * (bl >> 1) + 2 * t + (bl & 1);
+          key[i] = min(key[i], ((seq_len - tb[h]) << shift) | w);
+          if (WITH_COUNT) cnt[i] += __popc(m);
+        }
+      }
+    }
+  }
+
+  template <int M>
+  __device__ __forceinline__ void tile(const int (&acc)[32], const int (&z)[16],
+                                       int s) {
+    if (s == last) {
+      fold<M, true>(acc, z, s);
+    } else {
+      fold<M, false>(acc, z, s);
+    }
+  }
+
+  // Merge the 4 lanes that share each row (a better best takes its
+  // count, an equal one adds it); lane t writes row i = t if below B,
+  // into split y's partials (or the outputs when S == 1).
+  __device__ __forceinline__ void end(const wg_scan::Item&) {
+    const long out0 = (long)y * B;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const int okey = __shfl_xor_sync(0xffffffffu, key[i], off);
+        if (WITH_COUNT) {
+          const int ob = __shfl_xor_sync(0xffffffffu, best[i], off);
+          const int ocnt = __shfl_xor_sync(0xffffffffu, cnt[i], off);
+          cnt[i] = ob > best[i] ? ocnt : (ob == best[i] ? cnt[i] + ocnt : cnt[i]);
+          best[i] = max(best[i], ob);
+        }
+        key[i] = min(key[i], okey);
+      }
+      const long row = r0 + 64 * (i >> 1) + 8 * (i & 1);
+      if (t == i && row < B) {
+        key_out[out0 + row] = key[i];
+        if (WITH_COUNT) cnt_out[out0 + row] = cnt[i];
+      }
+    }
+  }
+};
+
+// The long routes (wg_long.cuh), NKP panels a row in form (a), 0 in
+// form (b), over the live 64-row blocks: outputs as
+// min_count_split_kernel's, split y's partials at y * B.
+template <int NKP, bool WITH_COUNT>
+__global__ void __launch_bounds__(wg_long::THREADS, 1)
+    min_count_wgchunk_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_db,
+                             const __grid_constant__ CUtensorMap tm_zc, int T,
+                             int S, int R, int nkp, int* __restrict__ key_out,
+                             int* __restrict__ cnt_out, int B, int n_valid,
+                             int seq_len, int shift) {
+  MinCountWg<WITH_COUNT> epi;
+  epi.key_out = key_out;
+  epi.cnt_out = cnt_out;
+  epi.B = B;
+  epi.seq_len = seq_len;
+  epi.shift = shift;
+  epi.t = threadIdx.x & 3;
+  const int live = (n_valid + wg_scan::N - 1) / wg_scan::N;
+  epi.rem = n_valid - (live - 1) * wg_scan::N;
+  epi.last = epi.rem < wg_scan::N ? live - 1 : -1;
+  wg_long::run<NKP>(&tm_q, &tm_db, &tm_zc, B, live * wg_scan::N, T, S, R,
+                    nkp, epi);
 }
 
 // part: int32 [S, B] key partials of the S splits, then, with the
@@ -326,9 +459,10 @@ cudaError_t launch(Kernel kernel, int smem, dim3 grid, const int8_t* q,
   return cudaGetLastError();
 }
 
-// The split kernel up to EP = S_KS * 32, the K-chunked one past it, in
-// form (a) up to RESIDENT_EP_MAX; with splits > 1 it writes part = key
-// [, cnt] x [splits, B] and the merge follows.
+// The split kernel up to EP = S_KS * 32, the long route's (wg_long.cuh)
+// over the live rows past it, in form (a) up to wg_long::EP_A_MAX; with
+// splits > 1 it writes part = key [, cnt] x [splits, B] and the merge
+// follows.
 template <bool WITH_COUNT>
 cudaError_t launch_split(const int8_t* q, const int8_t* db, const int* zc,
                          int* key, int* cnt, int* part, int B, int n_valid,
@@ -337,18 +471,19 @@ cudaError_t launch_split(const int8_t* q, const int8_t* db, const int* zc,
   const bool direct = splits == 1;
   int* key_o = direct ? key : part;
   int* cnt_o = direct ? cnt : part + (long)splits * B;
-  const dim3 grid((B + S_BM - 1) / S_BM, splits);
+  const int live = (n_valid + S_BN - 1) / S_BN * S_BN;
   const cudaError_t err =
       EP <= S_KS * 32
-          ? launch(min_count_split_kernel<WITH_COUNT>, split_smem(EP), grid, q,
-                   db, zc, key_o, cnt_o, B, n_valid, EP, seq_len, shift, s)
-      : EP <= RESIDENT_EP_MAX
-          ? launch(min_count_chunk_kernel<true, WITH_COUNT>,
-                   kchunk_smem<true>(EP), grid, q, db, zc, key_o, cnt_o, B,
-                   n_valid, EP, seq_len, shift, s)
-          : launch(min_count_chunk_kernel<false, WITH_COUNT>,
-                   kchunk_smem<false>(EP), grid, q, db, zc, key_o, cnt_o, B,
-                   n_valid, EP, seq_len, shift, s);
+          ? launch(min_count_split_kernel<WITH_COUNT>, split_smem(EP),
+                   dim3((B + S_BM - 1) / S_BM, splits), q, db, zc, key_o,
+                   cnt_o, B, n_valid, EP, seq_len, shift, s)
+          : wg_long::by_form(EP, [&](auto form) {
+              constexpr int NKP = decltype(form)::value;
+              return wg_long::launch<NKP>(
+                  min_count_wgchunk_kernel<NKP, WITH_COUNT>, q, db, zc, B,
+                  live, EP, splits, s, key_o, cnt_o, B, n_valid, seq_len,
+                  shift);
+            });
   if (err != cudaSuccess || direct) return err;
   min_count_merge_kernel<<<(B + MERGE_THREADS - 1) / MERGE_THREADS,
                            MERGE_THREADS, 0, s>>>(part, key, cnt, B, splits,
@@ -362,7 +497,8 @@ cudaError_t launch_split(const int8_t* q, const int8_t* db, const int* zc,
 // key and cnt: int32 [B], cnt written (and read as a pointer) only when
 // with_count; part: int32 [with_count ? 2 : 1, splits, B] scratch when
 // splits > 1 (else unused). Requires EP % 32 == 0, W % 64 == 0,
-// B >= 1, 1 <= n_valid <= W, 16-byte aligned q and db and
+// B >= 1, 1 <= n_valid <= W, 16-byte aligned q and db (and zc past EP =
+// 256, a TMA source) and
 // 1 <= splits <= ceil(n_valid / 64). Returns the cudaError_t of the
 // launches.
 extern "C" int smafa_min_count(const void* q, const void* db, const void* zc,

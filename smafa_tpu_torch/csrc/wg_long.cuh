@@ -1,17 +1,18 @@
-// The long routes (EP > 256 bytes, L > 64) of min2.cu and compact.cu on
-// Hopper: a warp-specialised, persistent scan of query tiles against the
-// db in K chunks of 128 bytes, whose caller supplies the epilogue of each
-// 64 x 64 block of scores (wg_scan.cuh's interface). Built from
-// wg_tile.cuh.
+// The long routes (EP > 256 bytes, L > 64) of min2.cu, compact.cu,
+// kstats.cu and min_count.cu on Hopper: a warp-specialised, persistent
+// scan of query tiles against the db in K chunks of 128 bytes, whose
+// caller supplies the epilogue of each 64 x 64 block of scores
+// (wg_scan.cuh's interface). Built from wg_tile.cuh.
 //
-// What bounds both kernels: the int8 contraction, 2 * B * W * 4L
+// What bounds the kernels: the int8 contraction, 2 * B * W * 4L
 // operations over 1,979 TOP/s (52.1 ms for min2 at 32768 x 2,621,440,
 // L = 150; 16.2 ms at 4096 x 32,768, L = 29,903). What held back the
-// K-chunked split tile they ran before (split_tile.cuh kchunk_scan, now
-// kstats' and min_count's only): mma.sync fed by ldmatrix, cp.async
-// copies issued and waited for by every warp, one __syncthreads a chunk,
-// and in form (b) ~87 KB copied through the SM's L2 port for every
-// 8.4 M operations.
+// K-chunked split tile they ran before (mma.sync fed by ldmatrix,
+// cp.async; gone): the copies issued and waited for by every warp, one
+// __syncthreads a chunk, and in form (b) ~87 KB copied through the SM's
+// L2 port for every 8.4 M operations. kstats and min_count scan only
+// the first n_valid db rows: their W is the live 64-row blocks' rows,
+// and their epilogues mask the last block past n_valid.
 //
 // The design (one producer thread issues every copy by TMA into
 // 128-byte swizzled boxes on an mbarrier ring; two consumer warpgroups
@@ -50,6 +51,17 @@
 // 64 M + 8 h and db row 64 s + 8 j + 2 t + c; z[2j + c] that db row's
 // zc), and end(item), as on the short route; the item's steps s0, s1
 // it gets are in 64-row blocks.
+//
+// A step's zc is read by plain loads and its slot then refilled by TMA
+// (the async proxy): each consumer fences the two proxies before it
+// releases the slot. Without the fence, form (a) at 3 panels (65-96 bp,
+// whose 16-stage ring runs 5 steps ahead of the 4 zc slots) read a later
+// step's zc now and then: min_count's distances came out a few off in
+// a different few rows each run on an H100
+// (tests/test_torch_gpu_min_count_long.py runs that shape 40 times). The
+// fence also waits for the thread's stores in flight, so it comes
+// before an epilogue, not after one: after compact_mask's mask stores
+// it cost 4% at 300 bp (chip_smoke.py).
 //
 // Probe builds (tools/torch_long_route_probe.py --probes; the library
 // never sets them): WG_LONG_PROBE_COPIES_ONLY keeps the copies and the
@@ -131,21 +143,30 @@ __device__ __forceinline__ Item item_of(int it, int qtiles, int T, int S,
           (int)((long)T * (y + 1) / S), y};
 }
 
-// Form (b)'s order: db split fastest when every item runs at once
-// (query tiles x S within the grid) and S <= 2 x the query tiles, else
-// query tile fastest (with more items than blocks, the blocks in flight
-// then walk few db splits, each db chunk read from DRAM about once).
-// Measured on an H100 with both
-// orders built (tools/torch_long_route_probe.py; ms split fastest vs
-// query tile fastest; tiles x splits): at 29,903 bp x 32,768 rows, min2
-// 19.3-19.6 vs 40.9-42.2 (16 x 8), 17.3-18.3 vs 28.4-29.5 (12 x 11),
-// 17.2-18.7 vs 24.4-25.2 (10 x 13), 11.9-12.1 vs 13.7-15.1 (8 x 16);
-// compact_mask 11.9-12.1 vs 13.5 (8 x 16), 7.2-7.3 vs 6.0-6.2 (4 x 33);
-// at 164 bp x 2,621,440 rows, min2 13.3-13.6 vs 13.8-14.2 (16 x 8),
-// compact_mask (more items than the grid) 8.2 vs 7.4 (8 x 33),
-// 16.9-17.6 vs 15.3 (16 x 33), 34.4-34.8 vs 30.9-31.1 (32 x 33).
-__device__ __forceinline__ bool split_fastest_b(int qtiles, int S) {
-  return qtiles * S <= (int)gridDim.x && S <= 2 * qtiles;
+// Form (b)'s order. When every item runs at once (query tiles x S
+// within the grid): db split fastest if S <= 2 x the query tiles, else
+// query tile fastest. With more items than blocks: query tile fastest
+// (the blocks in flight then walk few db splits, each db chunk read
+// from DRAM about once), unless the query rows of the tiles in flight,
+// which every step reads again, outgrow L2_QUERY_MB: then db split
+// fastest, which keeps few query tiles in flight. Measured on an H100
+// with both orders built (tools/torch_long_route_probe.py; ms split
+// fastest vs query tile fastest; tiles x splits): at 29,903 bp x 32,768
+// rows, min2 19.3-19.6 vs 40.9-42.2 (16 x 8), 17.3-18.3 vs 28.4-29.5
+// (12 x 11), 17.2-18.7 vs 24.4-25.2 (10 x 13), 11.9-12.1 vs 13.7-15.1
+// (8 x 16); compact_mask 11.9-12.1 vs 13.5 (8 x 16), 7.2-7.3 vs 6.0-6.2
+// (4 x 33), kstats 6.87-7.08 vs 5.98-6.27 (4 x 33); kstats at 300 bp
+// 0.086-0.087 vs 0.084 (4 x 33); at 164 bp x 2,621,440 rows, min2
+// 13.3-13.6 vs 13.8-14.2 (16 x 8), compact_mask (more items than the
+// grid; 1.4 to 5.5 MB of query rows) 8.2 vs 7.4 (8 x 33), 16.9-17.6 vs
+// 15.3 (16 x 33), 34.4-34.8 vs 30.9-31.1 (32 x 33); min_count at 300 bp
+// x 2^22 rows (40 MB of query rows) 283-295 vs 414-418 (128 x 33).
+constexpr int L2_QUERY_MB = 32;  // of an H100's 50 MB L2
+
+__device__ __forceinline__ bool split_fastest_b(int qtiles, int S, int nkp) {
+  if (qtiles * S <= (int)gridDim.x) return S <= 2 * qtiles;
+  return (long)min(qtiles, (int)gridDim.x) * ROWS * nkp * PANEL >
+         ((long)L2_QUERY_MB << 20);
 }
 
 struct Ring {
@@ -169,7 +190,7 @@ __device__ void produce(const CUtensorMap* tq, const CUtensorMap* tdb,
                         int S, int nkp) {
   constexpr int step = NKP ? NA : NB;
   constexpr int stage = NKP ? NA * PANEL : stage_b();
-  const bool order = !NKP && split_fastest_b(qtiles, S);
+  const bool order = !NKP && split_fastest_b(qtiles, S, nkp);
   uint32_t J = 0, Z = 0, n = 0;
   for (int it = blockIdx.x; it < qtiles * S; it += gridDim.x, ++n) {
     const Item im = item_of(it, qtiles, T, S, order);
@@ -292,6 +313,7 @@ __device__ void consume_a(Ring rg, int qtiles, int T, int S, Epi& epi) {
       fence_regs(acc0);
       fence_regs(acc1);
       zload(z, rg.zc + zs * NA, t);
+      fence_proxy_async();  // the zc read before TMA may refill the slot
       warp_arrive(rg.zempty + zs, lane);
 #ifndef WG_LONG_PROBE_NO_EPILOGUE
       epi.template tile<0>(acc0, z, s);
@@ -317,11 +339,11 @@ __device__ void consume_b(Ring rg, int qtiles, int T, int S, int nkp,
   const int t = lane & 3, u = warp >> 2;
   const int rloc = 128 * u + 16 * (warp & 3) + (lane >> 2);
   uint32_t J = 0, Z = 0;
-  int acc0[NB / 2] = {}, acc1[NB / 2] = {}, z[16], h[32];
+  int acc0[NB / 2] = {}, acc1[NB / 2] = {}, z[2][16], h[32];
 #ifdef WG_LONG_PROBE_NO_EPILOGUE
   int sink = 0;
 #endif
-  const bool order = split_fastest_b(qtiles, S);
+  const bool order = split_fastest_b(qtiles, S, nkp);
   for (int it = blockIdx.x; it < qtiles * S; it += gridDim.x) {
     const Item im = item_of(it, qtiles, T, S, order);
     // the item's steps in 64-row blocks, as the epilogue counts them
@@ -357,24 +379,27 @@ __device__ void consume_b(Ring rg, int qtiles, int T, int S, int nkp,
       fence_regs(acc0);
       fence_regs(acc1);
       warp_arrive(rg.empty + prev, lane);
+      // both halves' zc (zero past W), released before the epilogue
+      zload(z[0], rg.zc + zs * NB, t);
+      zload(z[1], rg.zc + zs * NB + 64, t);
+      fence_proxy_async();
+      warp_arrive(rg.zempty + zs, lane);
 #ifndef WG_LONG_PROBE_NO_EPILOGUE
       // each 64-column half below W: tile 0's rows, then tile 1's
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         if (q == 0 || 2 * s + 1 < W64) {
-          zload(z, rg.zc + zs * NB + 64 * q, t);
 #pragma unroll
           for (int i = 0; i < 32; ++i) h[i] = acc0[32 * q + i];
-          epi.template tile<0>(h, z, 2 * s + q);
+          epi.template tile<0>(h, z[q], 2 * s + q);
 #pragma unroll
           for (int i = 0; i < 32; ++i) h[i] = acc1[32 * q + i];
-          epi.template tile<1>(h, z, 2 * s + q);
+          epi.template tile<1>(h, z[q], 2 * s + q);
         }
       }
 #else
       sink += acc0[0] + acc1[0];
 #endif
-      warp_arrive(rg.zempty + zs, lane);
     }
     epi.end(ie);
   }

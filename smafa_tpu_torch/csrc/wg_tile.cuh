@@ -1,14 +1,16 @@
 // Hopper building blocks of the port's warpgroup kernels (hist.cu, and
-// min2.cu and compact.cu through wg_scan.cuh and wg_long.cuh): TMA tile
-// loads into shared memory that complete on an mbarrier, the mbarrier
-// ring's waits and arrivals, the int8 warpgroup products
-// wgmma.mma_async m64n128k32 and m64n64k32 s8.s8 -> s32 with B (and A,
-// or A from registers) K-major in shared memory under the 128-byte
-// swizzle, setmaxnreg for a producer warpgroup, shared-memory
-// reductions by 32-bit address, and the host side: tensor maps encoded
-// through the runtime and the card's SM count. Proven exact by their
-// kernels against the plain versions (tests/test_torch_gpu_hist*.py,
-// tests/test_torch_gpu_*_wg.py, tests/test_torch_gpu_long_wg.py,
+// min2.cu, compact.cu, kstats.cu and min_count.cu through wg_scan.cuh
+// and wg_long.cuh): TMA tile loads into shared memory that complete on
+// an mbarrier, the mbarrier ring's waits and arrivals, the int8
+// warpgroup products wgmma.mma_async m64n128k32 and m64n64k32 s8.s8 ->
+// s32 with B (and A, or A from registers) K-major in shared memory under
+// the 128-byte swizzle, setmaxnreg for a producer warpgroup, the fence
+// between the generic and async proxies, the epilogues' compare and
+// predicated OR, shared-memory reductions by 32-bit address, and the
+// host side: tensor maps encoded through the runtime and the card's SM
+// count. Proven exact by their kernels against the plain versions
+// (tests/test_torch_gpu_hist*.py, tests/test_torch_gpu_*_wg.py,
+// tests/test_torch_gpu_*_long.py, tests/test_torch_gpu_long_wg.py,
 // chip_smoke.py).
 //
 // The shared layout every helper assumes: a tile of R rows x 128 bytes,
@@ -78,6 +80,23 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// Order this thread's earlier plain (generic-proxy) shared-memory
+// accesses before later async-proxy ones (TMA): a slot read by plain
+// loads is fenced before its release lets TMA write it again.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- epilogues ----
+
+// w |= bit where s == v: a compare and a predicated OR.
+__device__ __forceinline__ void set_if_eq(unsigned& w, int s, int v,
+                                          unsigned bit) {
+  asm("{\n\t.reg .pred p;\n\tsetp.eq.s32 p, %1, %2;\n\t@p or.b32 %0, %0, %3;\n\t}"
+      : "+r"(w)
+      : "r"(s), "r"(v), "r"(bit));
 }
 
 // ---- shared memory by 32-bit address ----

@@ -40,9 +40,11 @@ class Route(NamedTuple):
 
 
 # By embedding width; one block an SM on every route; every warpgroup's
-# wgmma is m64 x N.
+# wgmma is m64 x N. "kchunk" takes EP up to RESIDENT_EP_MAX (L <= 168,
+# csrc/hist.cu smafa_hist): the widest whose query rows and ring fit.
+RESIDENT_EP_MAX = 672
 ROUTES = (Route("split", M.SPLIT_EP_MAX, 128, 128, 4, "registers"),
-          Route("kchunk", M.RESIDENT_EP_MAX, 128, 128, 2, "shared"),
+          Route("kchunk", RESIDENT_EP_MAX, 128, 128, 2, "shared"),
           Route("kchunk_stream", None, 64, 256, 0, "streamed"))
 N = 128  # db columns of a warpgroup's wgmma
 

@@ -48,7 +48,8 @@ def kstats(q_emb: torch.Tensor, db_emb: torch.Tensor, zc: torch.Tensor,
     if not q_emb.is_cuda:
         raise ValueError(f"no kstats kernel for device {q_emb.device}")
     ep = q_emb.shape[1]
-    _, s = M.live_plan(b, n_valid, ep, M.sm_count(q_emb.device))
+    _, s = M.live_plan(b, n_valid, ep, M.sm_count(q_emb.device),
+                       M.KSTATS_ITEM_STEPS)
     if s == 0:
         return (torch.zeros((KSTATS_PROBES, b), dtype=torch.int32,
                             device=q_emb.device),
@@ -59,6 +60,8 @@ def kstats(q_emb: torch.Tensor, db_emb: torch.Tensor, zc: torch.Tensor,
     # the splits' partials; the caching allocator ties it to this stream
     part = torch.empty((KSTATS_PROBES + 1, s, b), dtype=torch.int32,
                        device=q_emb.device) if s > 1 else None
+    if ep > M.SPLIT_EP_MAX:
+        M.check_tma_zc(zc)
     lib = _build.load()
     stream = torch.cuda.current_stream(q_emb.device).cuda_stream
     rc = lib.smafa_kstats(q_emb.data_ptr(), db_emb.data_ptr(), zc.data_ptr(),

@@ -17,17 +17,14 @@ from smafa_tpu_torch.ops import distance as D
 
 launches = 0
 
-# The split tile (csrc/split_tile.cuh), kstats' and min_count's, which
-# ``launch_plan`` mirrors: query rows per block, blocks resident on one
-# SM and the widest embedding of the short route (L <= 64). Past it they
-# run the K-chunked split tile, one block an SM, with the query rows
-# resident up to RESIDENT_EP_MAX (L <= 168, route "kchunk") and streamed
-# past it ("kchunk_stream").
+# The split tile (csrc/split_tile.cuh), kstats' and min_count's up to 64
+# bp, which ``launch_plan`` mirrors: query rows per block, blocks
+# resident on one SM and the widest embedding of the short route (L <=
+# 64). Past it they run the K-chunked wgmma tile, as min2 and
+# compact_mask do (``live_plan``).
 BM = 256
 BLOCKS_PER_SM = 2
 SPLIT_EP_MAX = 256
-CHUNK_BLOCKS_PER_SM = 1
-RESIDENT_EP_MAX = 672
 
 # min2's and compact_mask's short route (EP <= SPLIT_EP_MAX), the
 # warp-specialised wgmma tile (csrc/wg_scan.cuh), which ``short_plan``
@@ -44,17 +41,21 @@ MIN2_ITEM_STEPS = 32
 COMPACT_ITEM_STEPS = 4
 
 
-# min2's and compact_mask's long routes (EP > SPLIT_EP_MAX), the
-# K-chunked wgmma tile (csrc/wg_long.cuh), which ``long_plan`` mirrors:
-# WG_ROWS query rows a block, form (a) ("wg_kchunk") with the rows
-# resident up to WG_RESIDENT_EP_MAX (L <= 160) in db steps of
-# WG_KCHUNK_STEP rows, form (b) ("wg_kchunk_stream") past it in steps of
-# WG_STREAM_STEP rows; each kernel's item cost as on the short route.
+# The long routes (EP > SPLIT_EP_MAX) of all four scans, the K-chunked
+# wgmma tile (csrc/wg_long.cuh), which ``long_plan`` mirrors: WG_ROWS
+# query rows a block, form (a) ("wg_kchunk") with the rows resident up
+# to WG_RESIDENT_EP_MAX (L <= 160) in db steps of WG_KCHUNK_STEP rows,
+# form (b) ("wg_kchunk_stream") past it in steps of WG_STREAM_STEP rows;
+# each kernel's item cost as on the short route. kstats' items restart
+# nothing (its counts add, its minima merge), as compact_mask's; each of
+# min_count's splits restarts its rows' running best, as min2's.
 WG_KCHUNK_ROUTE = "wg_kchunk"
 WG_STREAM_ROUTE = "wg_kchunk_stream"
 WG_RESIDENT_EP_MAX = 640
 WG_KCHUNK_STEP = 64
 WG_STREAM_STEP = 128
+KSTATS_ITEM_STEPS = 4
+MIN_COUNT_ITEM_STEPS = 32
 
 
 def splits_for(qtiles: int, steps: int, sms: int, item_steps: int) -> int:
@@ -87,8 +88,10 @@ def short_plan(b: int, wp: int, sms: int, item_steps: int) -> int:
 @functools.lru_cache(maxsize=None)
 def long_plan(b: int, wp: int, ep: int, sms: int,
               item_steps: int) -> tuple[str, int]:
-    """(route, db splits) of the long route's launch of min2 or
-    compact_mask (EP > SPLIT_EP_MAX; item_steps as in ``short_plan``):
+    """(route, db splits) of the long route's launch of min2,
+    compact_mask, kstats or min_count (EP > SPLIT_EP_MAX; item_steps the
+    kernel's, as in ``short_plan``; kstats' and min_count's wp their live
+    rows, ``live_plan``):
     "wg_kchunk" up to WG_RESIDENT_EP_MAX with db steps of WG_KCHUNK_STEP
     rows, else "wg_kchunk_stream" with steps of WG_STREAM_STEP rows (the
     last may pass wp, a multiple of 64); ``splits_for`` over ceil(b /
@@ -135,16 +138,13 @@ def sm_count(device: torch.device) -> int:
 
 def launch_plan(b: int, wp: int, ep: int, sms: int) -> tuple[str, int]:
     """(route, db splits) of a launch of the split tile's kernels (kstats
-    and min_count) on a card with ``sms`` SMs: windows up to 64 bp (EP <=
-    SPLIT_EP_MAX) take the split tile ("split") with ``split_count``
-    splits over the card's resident block slots; longer ones the
-    K-chunked split tile, "kchunk" up to RESIDENT_EP_MAX and
-    "kchunk_stream" past it, with ``split_count`` splits over one block
-    an SM."""
-    if ep <= SPLIT_EP_MAX:
-        return "split", split_count(b, wp, sms * BLOCKS_PER_SM)
-    route = "kchunk" if ep <= RESIDENT_EP_MAX else "kchunk_stream"
-    return route, split_count(b, wp, sms * CHUNK_BLOCKS_PER_SM)
+    and min_count up to 64 bp, EP <= SPLIT_EP_MAX) on a card with
+    ``sms`` SMs: "split" with ``split_count`` splits over the card's
+    resident block slots. Raises past SPLIT_EP_MAX, where they run the
+    long routes (``live_plan``)."""
+    if ep > SPLIT_EP_MAX:
+        raise ValueError(f"the split tile takes EP <= {SPLIT_EP_MAX}, not {ep}")
+    return "split", split_count(b, wp, sms * BLOCKS_PER_SM)
 
 
 def kernel_plan(b: int, wp: int, ep: int, sms: int) -> tuple[str, int]:
@@ -152,18 +152,23 @@ def kernel_plan(b: int, wp: int, ep: int, sms: int) -> tuple[str, int]:
     return scan_plan(b, wp, ep, sms, MIN2_ITEM_STEPS)
 
 
-def live_plan(b: int, n_valid: int, ep: int,
-              sms: int) -> tuple[str, int]:
-    """(route, db splits) of a kstats or min_count call, which scan only
-    the first ``n_valid`` db rows, on a card with ``sms`` SMs: ("none",
-    0) when there is nothing to scan (b == 0 or n_valid == 0), which
-    launches nothing; else ``launch_plan`` over the live 64-row tiles
-    only, ceil(n_valid / 64) of them, so no split walks the buffer past
-    n_valid."""
+def live_plan(b: int, n_valid: int, ep: int, sms: int,
+              item_steps: int) -> tuple[str, int]:
+    """(route, db splits) of a kstats or min_count call (item_steps:
+    KSTATS_ITEM_STEPS or MIN_COUNT_ITEM_STEPS), which scan only the first
+    ``n_valid`` db rows, on a card with ``sms`` SMs: ("none", 0) when
+    there is nothing to scan (b == 0 or n_valid == 0), which launches
+    nothing; else, over the live rows only, ceil(n_valid / 64) x 64 of
+    them, so no split walks the buffer past n_valid's 64-row block:
+    ``launch_plan`` up to SPLIT_EP_MAX, ``long_plan`` past it (form (a)
+    up to 160 bp; 161-168 bp, which the K-chunked split tile took in
+    form (a), take form (b))."""
     if b == 0 or n_valid == 0:
         return "none", 0
     live = -(-n_valid // D.WP_MULTIPLE) * D.WP_MULTIPLE
-    return launch_plan(b, live, ep, sms)
+    if ep <= SPLIT_EP_MAX:
+        return launch_plan(b, live, ep, sms)
+    return long_plan(b, live, ep, sms, item_steps)
 
 
 def check_operands(q_emb: torch.Tensor, db_emb: torch.Tensor,
@@ -196,7 +201,8 @@ def check_operands(q_emb: torch.Tensor, db_emb: torch.Tensor,
 
 def check_tma_zc(zc: torch.Tensor) -> None:
     """Raise unless zc may be a TMA source (16-byte aligned), as every
-    route of min2 and compact_mask copies it."""
+    route of min2 and compact_mask and the long routes of kstats and
+    min_count copy it."""
     if zc.data_ptr() % 16:
         raise ValueError("zc must be 16-byte aligned (a TMA source)")
 

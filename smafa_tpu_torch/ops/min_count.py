@@ -39,7 +39,8 @@ def min_count(q_emb: torch.Tensor, db_emb: torch.Tensor, zc: torch.Tensor,
     if not q_emb.is_cuda:
         raise ValueError(f"no min_count kernel for device {q_emb.device}")
     b, ep = q_emb.shape
-    _, s = M.live_plan(b, n_valid, ep, M.sm_count(q_emb.device))
+    _, s = M.live_plan(b, n_valid, ep, M.sm_count(q_emb.device),
+                       M.MIN_COUNT_ITEM_STEPS)
     if s == 0:
         key = torch.full((b,), D.BIG_KEY, dtype=torch.int32,
                          device=q_emb.device)
@@ -49,6 +50,8 @@ def min_count(q_emb: torch.Tensor, db_emb: torch.Tensor, zc: torch.Tensor,
     # the splits' partials; the caching allocator ties it to this stream
     part = torch.empty((2 if with_count else 1, s, b), dtype=torch.int32,
                        device=q_emb.device) if s > 1 else None
+    if ep > M.SPLIT_EP_MAX:
+        M.check_tma_zc(zc)
     lib = _build.load()
     stream = torch.cuda.current_stream(q_emb.device).cuda_stream
     rc = lib.smafa_min_count(q_emb.data_ptr(), db_emb.data_ptr(),

@@ -30,7 +30,8 @@ BIG = (1 << 20) + 37
 
 
 def _plan(g, b, n_valid, ep):
-    return g.M.live_plan(b, n_valid, ep, g.M.sm_count(g.dev))
+    return g.M.live_plan(b, n_valid, ep, g.M.sm_count(g.dev),
+                         g.M.KSTATS_ITEM_STEPS)
 
 
 def _stats(g, q_emb, emb, zc, ts, n_valid, seq_len):
@@ -235,9 +236,9 @@ def test_kstats_split_route_at_63_and_64_bp(cuda):
 
 @pytest.mark.parametrize("seq_len", [150, 300])
 def test_kstats_long_route_equals_plain(cuda, seq_len):
-    """Windows past 64 bp take the K-chunked route: form (a), the query
-    rows resident, at 150 bp, form (b), streamed, at 300 bp; 77 reads x
-    9000 rows plan more than one split."""
+    """Windows past 64 bp take the K-chunked wgmma tile: form (a), the
+    query rows resident, at 150 bp, form (b), streamed, at 300 bp; 77
+    reads x 9000 rows plan more than one split."""
     nw, b = 9000, 77
     rng = np.random.default_rng(seq_len)
     buf = rng.integers(0, 5, (nw, seq_len), dtype=np.uint8)
@@ -245,7 +246,7 @@ def test_kstats_long_route_equals_plain(cuda, seq_len):
     q[rng.random(q.shape) < 0.05] = 0
     emb, zc, q_emb = _embed(cuda, buf, q, seq_len)
     route, splits = _plan(cuda, b, nw, q_emb.shape[1])
-    assert route == ("kchunk" if seq_len <= 168 else "kchunk_stream")
+    assert route == ("wg_kchunk" if seq_len <= 160 else "wg_kchunk_stream")
     assert splits > 1
     ts = rng.integers(-1, seq_len + 1, (cuda.K.KSTATS_PROBES, b))
     _stats(cuda, q_emb, emb, zc, ts, 8999, seq_len)

@@ -1,17 +1,22 @@
-"""kstats' K-chunked route (windows past 64 bp, counts in 16-bit pairs)
-against its plain PyTorch version on the card, exact.
+"""kstats' long routes (windows past 64 bp, counts in 16-bit pairs), the
+K-chunked wgmma tile of csrc/wg_long.cuh, against its plain PyTorch
+version on the card, exact.
 
-Form (a), the query rows resident, serves EP <= 672 (L <= 168); form
-(b), query and db chunks streamed, serves longer windows. Each case runs
-at one split (no merge), at the wrapper's plan and at 7 splits, through
-the library's C entry, and once through the wrapper, which must launch
-once and take the plan's route. Cases: L = 65, 127, 150, 168, 169 and
-300, n_valid ending inside a tile with live rows past it (exact copies of
-the reads, which would count, and rows at distance L, which would raise
-the max); thresholds -1, L and equal across the probes; a db of one
-repeated row; more than PAIR_TILES (4095) tiles in one split, so the
-16-bit counts flush and pass 65,535; 29,903 bp on a small db; and the
-cutoff search at K past the window count.
+Form (a), "wg_kchunk", the query rows resident, serves EP <= 640 (L <=
+160); form (b), "wg_kchunk_stream", query and db chunks streamed, serves
+longer windows (161-168 bp among them). Each case runs at one split (no
+merge), at the wrapper's plan, at 7 splits and at ceil(n_valid / 64)
+splits (the C entry's most: in form (b) more splits than 128-row steps,
+so some walk none), through the library's C entry, and once through the
+wrapper, which must launch once and take the plan's route. Cases: L =
+65, 127, 150, 160, 161, 168, 169 and 300, n_valid ending inside a block
+with live rows past it (exact copies of the reads, which would count at
+every threshold, and rows at distance L, which would raise the max);
+n_valid ragged against the 64-row block and the 128-row step; thresholds
+-1, L and equal across the probes; a db of one repeated row; more than
+PAIR_TILES (4095) blocks in one split in both forms, so the 16-bit
+counts flush and pass 65,535; both item orders of form (b); 29,903 bp on
+a small db; and the cutoff search at K past the window count.
 
 Marked ``gpu``: each test skips where no CUDA device is visible. Run with
 ``python -m pytest --noconftest -m gpu tests/test_torch_gpu*.py``; the
@@ -47,18 +52,19 @@ def _launch(g, q_emb, emb, zc, ts, n_valid, seq_len, splits):
 
 
 def _held(g, q_emb, emb, zc, ts, n_valid, seq_len, splits=(1, 7)):
-    """The C entry at each of ``splits`` and at the plan's splits, and
-    the wrapper, equal the plain version; the plan is the K-chunked route
-    of this width. Returns (cnt, mx) as numpy."""
+    """The C entry at each of ``splits``, at the plan's splits and at
+    ceil(n_valid / 64), and the wrapper, equal the plain version; the
+    plan is the long route of this width. Returns (cnt, mx) as numpy."""
     torch = g.torch
     ts = torch.from_numpy(np.ascontiguousarray(ts, np.int32)).to(g.dev)
     want = g.D.stats_reference(q_emb, emb, zc, ts, n_valid, seq_len)
     b, ep = q_emb.shape
-    route, s = g.M.live_plan(b, n_valid, ep, g.M.sm_count(g.dev))
+    route, s = g.M.live_plan(b, n_valid, ep, g.M.sm_count(g.dev),
+                             g.M.KSTATS_ITEM_STEPS)
     tiles = -(-n_valid // WP_MULTIPLE)
-    assert route == ("kchunk" if ep <= 672 else "kchunk_stream")
+    assert route == ("wg_kchunk" if ep <= 640 else "wg_kchunk_stream")
     assert 1 <= s <= tiles
-    for n in sorted({min(x, tiles) for x in (*splits, s)}):
+    for n in sorted({min(x, tiles) for x in (*splits, s, tiles)}):
         got = _launch(g, q_emb, emb, zc, ts, n_valid, seq_len, n)
         torch.cuda.synchronize()
         for a, w in zip(got, want):
@@ -79,7 +85,7 @@ def _embed(g, buf, q, seq_len):
                                            seq_len)
 
 
-@pytest.mark.parametrize("seq_len", [65, 127, 150, 168, 169, 300])
+@pytest.mark.parametrize("seq_len", [65, 127, 150, 160, 161, 168, 169, 300])
 def test_kstats_kchunk_equals_plain(cuda, seq_len):
     """A 5056-row live buffer scanned to n_valid = 3001 (a partial last
     tile) with exact copies of the reads and rows at distance L from
@@ -158,7 +164,7 @@ def test_kstats_kchunk_repeated_row_db(cuda):
 
 
 def test_kstats_kchunk_flushes_pair_counts(cuda):
-    """270,001 rows at 65 bp in one split: 4,219 tiles, past PAIR_TILES,
+    """270,001 rows at 65 bp in one split: 4,219 blocks, past PAIR_TILES,
     so the 16-bit counts flush once mid-run, and at ts = L a count
     (270,001) passes 65,535."""
     seq_len, nw, b = 65, 270001, 33
@@ -170,6 +176,68 @@ def test_kstats_kchunk_flushes_pair_counts(cuda):
     ts[3] = seq_len
     cnt, _ = _held(cuda, q_emb, emb, zc, ts, nw, seq_len, splits=(1, 2))
     assert (cnt[3] == nw).all()
+
+
+def test_kstats_stream_flushes_every_pair_count(cuda):
+    """Form (b) (300 bp), one split over 4,097 blocks of one repeated row
+    and 37 rows more: every lane's pair counts fill (16 a block) and
+    flush by blocks, not 128-row steps; each count is every row or none,
+    at thresholds below, at and above each read's distance."""
+    seq_len, nw, b = 300, 4097 * 64 + 37, 33
+    rng = np.random.default_rng(9)
+    row = rng.integers(0, 4, (1, seq_len), dtype=np.uint8)
+    buf = np.repeat(row, nw, axis=0)
+    q = np.repeat(row, b, axis=0)
+    q[:, :5] = (q[:, :5] + (np.arange(b)[:, None] % 3)) % 4  # dist 0 or 5
+    emb, zc, q_emb = _embed(cuda, buf, q, seq_len)
+    dist = (q != row).sum(axis=1)
+    ts = np.stack([dist - 1, dist, np.full(b, seq_len), np.full(b, -1)])
+    cnt, mx = _held(cuda, q_emb, emb, zc, ts, nw, seq_len, splits=(1,))
+    np.testing.assert_array_equal(mx, dist)
+    np.testing.assert_array_equal(cnt, np.where(dist[None] <= ts, nw, 0))
+    assert (cnt[1] == nw).all() and nw > 65535
+
+
+@pytest.mark.parametrize("n_valid", [4097, 4160, 4223, 4224])
+def test_kstats_ragged_live_rows(cuda, n_valid):
+    """n_valid against the 64-row block and the 128-row step (65 or 66
+    live blocks, the last partial or whole) in both forms, the rows past
+    it exact copies of the reads (each would count at every threshold)
+    and rows at distance L (each would raise the max)."""
+    wp, b = 4352, 70
+    for seq_len in (150, 300):
+        rng = np.random.default_rng(n_valid + seq_len)
+        buf = rng.integers(0, 4, (wp, seq_len), dtype=np.uint8)
+        q = buf[rng.integers(0, n_valid, b)].copy()
+        q[:, :3] = (q[:, :3] + 1) % 4
+        past = min(b, wp - n_valid)
+        buf[n_valid:n_valid + past] = q[:past]
+        buf[n_valid + past:] = (q[0] + 2) % 4  # distance L from read 0
+        emb, zc, q_emb = _embed(cuda, buf, q, seq_len)
+        ts = rng.integers(-1, seq_len + 1, (cuda.K.KSTATS_PROBES, b))
+        ts[0] = 0
+        cnt, mx = _held(cuda, q_emb, emb, zc, ts, n_valid, seq_len)
+        dist = (q[:, None, :] != buf[None, :n_valid, :]).sum(axis=2)
+        np.testing.assert_array_equal(mx, dist.max(axis=1))
+        assert (cnt[0] == 0).all()  # no read lies at distance 0
+
+
+@pytest.mark.parametrize("splits", [8, 33])
+def test_kstats_stream_item_orders(cuda, splits):
+    """Form (b) at 300 bp, 1,024 reads (4 query tiles) x 32,768 rows
+    through the C entry: 8 splits put every item in the grid with the
+    splits at most twice the query tiles (db split fastest), 33 do not
+    (query tile fastest); both orders exact."""
+    seq_len, nw, b = 300, 32768, 1024
+    rng = np.random.default_rng(splits)
+    buf = rng.integers(0, 4, (nw, seq_len), dtype=np.uint8)
+    q = buf[rng.integers(0, nw, b)].copy()
+    q[rng.random(q.shape) < 0.05] = 1
+    emb, zc, q_emb = _embed(cuda, buf, q, seq_len)
+    qtiles, sms = -(-b // 256), cuda.M.sm_count(cuda.dev)
+    assert (qtiles * splits <= sms and splits <= 2 * qtiles) == (splits == 8)
+    ts = rng.integers(-1, seq_len + 1, (cuda.K.KSTATS_PROBES, b))
+    _held(cuda, q_emb, emb, zc, ts, nw - 5, seq_len, splits=(splits,))
 
 
 def test_kstats_kchunk_29903bp(cuda):

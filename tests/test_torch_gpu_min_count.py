@@ -28,7 +28,8 @@ pytestmark = pytest.mark.gpu
 
 
 def _plan(g, b, n_valid, ep):
-    return g.M.live_plan(b, n_valid, ep, g.M.sm_count(g.dev))
+    return g.M.live_plan(b, n_valid, ep, g.M.sm_count(g.dev),
+                         g.M.MIN_COUNT_ITEM_STEPS)
 
 
 def _embed(g, buf, q, seq_len):
@@ -188,8 +189,8 @@ def test_min_count_split_route_at_63_and_64_bp(cuda):
 
 @pytest.mark.parametrize("seq_len", [150, 300])
 def test_min_count_long_route_equals_plain(cuda, seq_len):
-    """Windows past 64 bp take the K-chunked route (form (a) at 150 bp,
-    (b) at 300) with the plan's splits over one block an SM."""
+    """Windows past 64 bp take the K-chunked wgmma tile (form (a) at 150
+    bp, (b) at 300) with ``long_plan``'s splits over the live rows."""
     nw, b = 9000, 77
     rng = np.random.default_rng(seq_len)
     buf = rng.integers(0, 5, (nw, seq_len), dtype=np.uint8)
@@ -197,6 +198,8 @@ def test_min_count_long_route_equals_plain(cuda, seq_len):
     q[rng.random(q.shape) < 0.05] = 0
     emb, zc, q_emb, shift = _embed(cuda, buf, q, seq_len)
     route, s = _plan(cuda, b, 8999, q_emb.shape[1])
-    assert route == ("kchunk" if seq_len <= 168 else "kchunk_stream")
-    assert s == cuda.M.split_count(b, 9024, cuda.M.sm_count(cuda.dev)) > 1
+    assert route == ("wg_kchunk" if seq_len <= 160 else "wg_kchunk_stream")
+    assert s == cuda.M.long_plan(b, 9024, q_emb.shape[1],
+                                 cuda.M.sm_count(cuda.dev),
+                                 cuda.M.MIN_COUNT_ITEM_STEPS)[1] > 1
     _scan(cuda, q_emb, emb, zc, 8999, seq_len, shift)

@@ -1,18 +1,23 @@
-"""min_count's K-chunked route (windows past 64 bp) against its plain
-PyTorch version on the card, exact, with and without the count.
+"""min_count's long routes (windows past 64 bp), the K-chunked wgmma
+tile of csrc/wg_long.cuh, against its plain PyTorch version on the
+card, exact, with and without the count.
 
-Form (a), the query rows resident, serves EP <= 672 (L <= 168); form
-(b), query and db chunks streamed, serves longer windows. Each case runs
-at one split (no merge), at the wrapper's plan and at 7 splits (a count
-that divides no run of live tiles evenly), through the library's C
-entry, and once through the wrapper, which must launch once and take
-the plan's route. Cases: L = 65, 150, 168, 169 and 300 over a buffer
-whose rows past n_valid are exact copies of the reads (they would win
-if they were read); n_valid = 37 (one partial tile) and 3001 (a partial
-last tile, owned by the last split); a db of one repeated row (the count
-is every live row, summed across the splits); a db whose only exact
-match is its last live row; batches of 1, 77 and 257 rows; 29,903 bp on
-a small db.
+Form (a), "wg_kchunk", the query rows resident, serves EP <= 640 (L <=
+160); form (b), "wg_kchunk_stream", query and db chunks streamed, serves
+longer windows (161-168 bp among them). Each case runs at one split (no
+merge), at the wrapper's plan, at 7 splits (a count that divides no run
+of live blocks evenly) and at ceil(n_valid / 64) splits (the C entry's
+most: in form (b) more splits than 128-row steps, so some walk none),
+through the library's C entry, and once through the wrapper, which must
+launch once and take the plan's route. Cases: L = 65, 150, 160, 161,
+168, 169 and 300 over a buffer whose rows past n_valid are exact copies
+of the reads (they would win if they were read); n_valid = 37, 3001 and
+ragged against the 64-row block and the 128-row step; a db of one
+repeated row (the count is every live row, summed across the splits); a
+db whose only exact match is its last live row; batches of 1, 77 and
+257 rows; form (a) at 3 panels (65 bp) run again and again, where the
+zc slots once raced; both item orders of form (b); 29,903 bp on a small
+db.
 
 Marked ``gpu``: each test skips where no CUDA device is visible. Run with
 ``python -m pytest --noconftest -m gpu tests/test_torch_gpu*.py``; the
@@ -47,21 +52,22 @@ def _launch(g, q_emb, emb, zc, n_valid, seq_len, shift, with_count,
     return (key, cnt) if with_count else (key,)
 
 
-def _held(g, q_emb, emb, zc, n_valid, seq_len, shift):
-    """With and without the count: the C entry at 1 and 7 splits and at
-    the plan's, and the wrapper, equal the plain version; the plan is the
-    K-chunked route of this width over the live tiles. Returns (dist,
-    idx, cnt) as numpy."""
+def _held(g, q_emb, emb, zc, n_valid, seq_len, shift, splits=(1, 7)):
+    """With and without the count: the C entry at each of ``splits``, at
+    the plan's and at ceil(n_valid / 64), and the wrapper, equal the
+    plain version; the plan is the long route of this width over the
+    live rows. Returns (dist, idx, cnt) as numpy."""
     torch = g.torch
     b, ep = q_emb.shape
-    route, s = g.M.live_plan(b, n_valid, ep, g.M.sm_count(g.dev))
+    route, s = g.M.live_plan(b, n_valid, ep, g.M.sm_count(g.dev),
+                             g.M.MIN_COUNT_ITEM_STEPS)
     tiles = -(-n_valid // WP_MULTIPLE)
-    assert route == ("kchunk" if ep <= 672 else "kchunk_stream")
+    assert route == ("wg_kchunk" if ep <= 640 else "wg_kchunk_stream")
     assert 1 <= s <= tiles
     for with_count in (False, True):
         want = g.D.min_count_reference(q_emb, emb, zc, n_valid, seq_len,
                                        shift, with_count)
-        for n in sorted({min(x, tiles) for x in (1, 7, s)}):
+        for n in sorted({min(x, tiles) for x in (*splits, s, tiles)}):
             got = _launch(g, q_emb, emb, zc, n_valid, seq_len, shift,
                           with_count, n)
             torch.cuda.synchronize()
@@ -108,7 +114,7 @@ def _brute(buf, q, n_valid):
     return m, d.argmin(axis=1), (d == m[:, None]).sum(axis=1)
 
 
-@pytest.mark.parametrize("seq_len", [65, 150, 168, 169, 300])
+@pytest.mark.parametrize("seq_len", [65, 150, 160, 161, 168, 169, 300])
 def test_min_count_kchunk_equals_plain(cuda, seq_len):
     """n_valid = 3001 of a 5056-row buffer, 300 reads; the scan sees none
     of the copies past n_valid."""
@@ -122,12 +128,14 @@ def test_min_count_kchunk_equals_plain(cuda, seq_len):
     assert (dist >= 1).all()
 
 
-@pytest.mark.parametrize("n_valid", [37, 3001])
+@pytest.mark.parametrize("n_valid", [37, 3001, 4097, 4160, 4223])
 def test_min_count_kchunk_partial_last_tile(cuda, n_valid):
-    """The last live tile holds n_valid % 64 live rows and live copies of
-    the reads after them; the last split owns it; both forms."""
+    """The last live block holds n_valid % 64 live rows (or 64) and live
+    copies of the reads after them, the live blocks odd or even against
+    form (b)'s 128-row steps; the last split that walks any step owns
+    it; both forms."""
     for seq_len in (150, 300):
-        buf, q = _copies_past(seq_len, 4096, 77, n_valid, n_valid + seq_len)
+        buf, q = _copies_past(seq_len, 4352, 77, n_valid, n_valid + seq_len)
         emb, zc, q_emb, shift = _embed(cuda, buf, q, seq_len)
         dist, idx, cnt = _held(cuda, q_emb, emb, zc, n_valid, seq_len, shift)
         for got, w in zip((dist, idx, cnt), _brute(buf, q, n_valid)):
@@ -195,3 +203,36 @@ def test_min_count_kchunk_29903bp(cuda):
     assert q_emb.shape[1] == 119616
     dist, idx, _ = _held(cuda, q_emb, emb, zc, n_valid, seq_len, shift)
     assert (dist[:4] == 0).all() and (idx[:4] == 636).all()
+
+
+def test_min_count_three_panels_repeated(cuda):
+    """Form (a) at 3 panels (65 bp), whose 16-stage ring runs 5 steps
+    ahead of the 4 zc slots, 4,096 reads x 32,768 rows without the
+    count at 1 and 2 splits, 20 runs each: every run exact (the slots
+    once raced, and a few rows a run came out off)."""
+    torch = cuda.torch
+    seq_len, nw, b = 65, 32768, 4096
+    buf, q = _copies_past(seq_len, nw + b, b, nw, 11)
+    emb, zc, q_emb, shift = _embed(cuda, buf, q, seq_len)
+    want = cuda.D.min_count_reference(q_emb, emb, zc, nw, seq_len, shift,
+                                      False)
+    for splits in (1, 2):
+        for _ in range(20):
+            got = _launch(cuda, q_emb, emb, zc, nw, seq_len, shift, False,
+                          splits)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]), splits
+
+
+@pytest.mark.parametrize("splits", [8, 33])
+def test_min_count_stream_item_orders(cuda, splits):
+    """Form (b) at 300 bp, 1,024 reads (4 query tiles) x 32,768 rows
+    through the C entry: 8 splits put every item in the grid with the
+    splits at most twice the query tiles (db split fastest), 33 do not
+    (query tile fastest); both orders exact."""
+    seq_len, nw, b = 300, 32768, 1024
+    buf, q = _copies_past(seq_len, nw + b, b, nw - 5, splits)
+    emb, zc, q_emb, shift = _embed(cuda, buf, q, seq_len)
+    qtiles, sms = -(-b // 256), cuda.M.sm_count(cuda.dev)
+    assert (qtiles * splits <= sms and splits <= 2 * qtiles) == (splits == 8)
+    _held(cuda, q_emb, emb, zc, nw - 5, seq_len, shift, splits=(splits,))

@@ -64,10 +64,12 @@ def test_kstats_constants_pinned():
     assert K.kstats_steps(60) == 3
 
 
-@pytest.mark.parametrize("seq_len", [3, 60, 150])
+@pytest.mark.parametrize("seq_len", [3, 60, 150, 161, 300])
 def test_stats_reference_equals_statsN_pass(port, seq_len):
     """n_valid below the buffer's rows and not a multiple of 64: the
-    rows past it are live and must not count; thresholds -1..L."""
+    rows past it are live and must not count; thresholds -1..L. 150 bp
+    is the kernel's form (a) on the card, 161 (form (b)'s narrowest) and
+    300 bp its form (b)."""
     wp, b = 640, 40
     buf, q, rng = _case(seq_len, wp, b, seq_len)
     q_emb, emb, zc = _port_operands(port, buf, q, seq_len)

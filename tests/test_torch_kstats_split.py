@@ -4,9 +4,10 @@ The launch plan (``ops/min2.py:live_plan``) cuts only the live
 64-row tiles, ceil(n_valid / 64) of them, into splits the way the kernel
 does (split y of S walks tiles tiles * y // S up to tiles * (y + 1) //
 S): every live tile once, none past n_valid's, one split when the query
-tiles fill the card's block slots, the K-chunked route past 64 bp, no
-launch at n_valid = 0. The merge the kernel does (counts summed over the
-splits, maxima maxed) is held on plain tensors: ``stats_reference`` over
+tiles fill the card's block slots, the K-chunked wgmma tile's plan past
+64 bp (tests/test_torch_long_plan.py), no launch at n_valid = 0. The
+merge the kernel does (counts summed over the splits, maxima maxed) is
+held on plain tensors: ``stats_reference`` over
 each split's rows, merged, equals ``stats_reference`` over [0, n_valid)
 and smafa_tpu's ``_statsN_pass`` on JAX CPU, exactly (every value is an
 integer), also over a buffer whose rows past n_valid are live and
@@ -40,6 +41,11 @@ def port():
     return types.SimpleNamespace(torch=torch, D=distance, KS=kstats, M=min2)
 
 
+def _plan(port, b: int, n_valid: int, ep: int, sms: int) -> tuple[str, int]:
+    """kstats' plan: ``live_plan`` at its item cost."""
+    return port.M.live_plan(b, n_valid, ep, sms, port.M.KSTATS_ITEM_STEPS)
+
+
 def _split_rows(n_valid: int, s: int) -> list[tuple[int, int]]:
     """The db rows split y of s scans: whole live tiles, the last one cut
     at n_valid."""
@@ -58,9 +64,9 @@ PLAN = {16384: {BIG: 4, 3001: 4, 37: 1}, 4096: {BIG: 16, 3001: 16, 37: 1},
 @pytest.mark.parametrize("b", sorted(PLAN))
 def test_kstats_plan_covers_the_live_tiles(port, b):
     ep = port.D.embed_width(60)
-    assert port.M.live_plan(b, 0, ep, H100_SMS) == ("none", 0)
+    assert _plan(port, b, 0, ep, H100_SMS) == ("none", 0)
     for n_valid, want in PLAN[b].items():
-        route, s = port.M.live_plan(b, n_valid, ep, H100_SMS)
+        route, s = _plan(port, b, n_valid, ep, H100_SMS)
         tiles = -(-n_valid // WP_MULTIPLE)
         assert route == "split" and s == want and 1 <= s <= tiles
         cover = np.zeros(tiles + 1, np.int64)  # + 1: the tile past n_valid's
@@ -80,33 +86,37 @@ def test_kstats_plan_one_split_when_query_tiles_fill_the_slots(port):
     ep = port.D.embed_width(60)
     slots = H100_SMS * port.M.BLOCKS_PER_SM
     for b in (256 * slots, 256 * slots + 1, 1 << 20):
-        assert port.M.live_plan(b, BIG, ep, H100_SMS) == ("split", 1)
-    assert port.M.live_plan(256 * (slots - 1), BIG, ep, H100_SMS) == ("split", 1)
-    assert port.M.live_plan(256 * (slots // 2), BIG, ep, H100_SMS) == ("split", 2)
-    assert port.M.live_plan(1, 3001, ep, 1000) == ("split", 47)
+        assert _plan(port, b, BIG, ep, H100_SMS) == ("split", 1)
+    assert _plan(port, 256 * (slots - 1), BIG, ep, H100_SMS) == ("split", 1)
+    assert _plan(port, 256 * (slots // 2), BIG, ep, H100_SMS) == ("split", 2)
+    assert _plan(port, 1, 3001, ep, 1000) == ("split", 47)
 
 
 def test_kstats_plan_routes_by_width(port):
-    """Past 64 bp (EP > 256) kstats' plan is the K-chunked route, query
-    rows resident up to 168 bp ("kchunk") and streamed past it
-    ("kchunk_stream"), with splits over one block an SM, at most one a
-    live tile; up to 64 bp the split route."""
-    for seq_len in (3, 60, 64, 65, 150, 168, 169, 300):
+    """Past 64 bp (EP > 256) kstats' plan is the K-chunked wgmma tile's,
+    query rows resident up to 160 bp ("wg_kchunk") and streamed past it
+    ("wg_kchunk_stream"), with ``long_plan``'s splits over the live
+    rows at kstats' item cost, never more than the live steps; up to 64
+    bp the split route."""
+    M = port.M
+    for seq_len in (3, 60, 64, 65, 150, 160, 161, 168, 169, 300):
         ep = port.D.embed_width(seq_len)
         for b in (1, 77, 16384):
             for n_valid in (37, 3001, BIG):
-                route, s = port.M.live_plan(b, n_valid, ep, H100_SMS)
+                route, s = _plan(port, b, n_valid, ep, H100_SMS)
                 tiles = -(-n_valid // WP_MULTIPLE)
-                if seq_len > 168:
-                    assert route == "kchunk_stream" and 1 <= s <= tiles
+                if seq_len > 160:
+                    assert route == "wg_kchunk_stream"
+                    assert 1 <= s <= -(-tiles // 2)
                 elif seq_len > 64:
-                    assert route == "kchunk" and 1 <= s <= tiles
+                    assert route == "wg_kchunk" and 1 <= s <= tiles
                 else:
                     assert route == "split" and s >= 1
                 if seq_len > 64:
-                    assert s == port.M.split_count(b, tiles * WP_MULTIPLE,
-                                                   H100_SMS)
-            assert port.M.live_plan(b, 0, ep, H100_SMS) == ("none", 0)
+                    assert (route, s) == M.long_plan(
+                        b, tiles * WP_MULTIPLE, ep, H100_SMS,
+                        M.KSTATS_ITEM_STEPS)
+            assert _plan(port, b, 0, ep, H100_SMS) == ("none", 0)
 
 
 def _case(seq_len, wp, b, n_valid, seed, far=False):
@@ -152,7 +162,7 @@ def test_split_merge_equals_whole_and_statsN_pass(port, seq_len, sms):
     emb, zc = port.D.embed_db(from_numpy(buf), seq_len, wp)
     q_emb = port.D.expand_embed_query(from_numpy(q), seq_len)
     ts = from_numpy(ts_np)
-    _, s = port.M.live_plan(b, n_valid, port.D.embed_width(60), sms)
+    _, s = _plan(port, b, n_valid, port.D.embed_width(60), sms)
     assert s == (9 if sms == H100_SMS else 4)
     cnt, mx = _merged_splits(port, q_emb, emb, zc, ts, n_valid, seq_len, s)
     whole = port.D.stats_reference(q_emb, emb, zc, ts, n_valid, seq_len)
@@ -175,7 +185,7 @@ def test_split_merge_ignores_far_live_rows(port, n_valid):
     from_numpy = port.torch.from_numpy
     emb, zc = port.D.embed_db(from_numpy(buf), seq_len, wp)
     q_emb = port.D.expand_embed_query(from_numpy(q), seq_len)
-    _, s = port.M.live_plan(b, n_valid, port.D.embed_width(seq_len), 2)
+    _, s = _plan(port, b, n_valid, port.D.embed_width(seq_len), 2)
     cnt, mx = _merged_splits(port, q_emb, emb, zc, from_numpy(ts_np), n_valid,
                              seq_len, s)
     dist = (q[:, None, :] != buf[None, :, :]).sum(axis=2)

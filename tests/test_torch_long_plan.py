@@ -2,16 +2,15 @@
 splits each kernel gets, and the constants the plan mirrors from the
 CUDA sources.
 
-``ops/min2.py``'s ``launch_plan`` and ``live_plan`` are kstats' and
-min_count's plan. Up to EP = 256 bytes (L <= 64) they take the split
-tile at two blocks an SM; past it the K-chunked split tile at one block
-an SM: "kchunk", query rows resident, up to EP = 672 (the widest whose
-rows and a 3-stage ring of db chunks fit the 232,448 bytes a block can
-use), and "kchunk_stream" past it, with ``split_count`` splits over the
-live 64-row tiles. min2 and compact_mask take the wgmma tiles
-(``kernel_plan``: ``short_plan`` up to 64 bp,
-tests/test_torch_wg_plan.py; ``long_plan`` past it,
-tests/test_torch_wg_long_plan.py).
+``ops/min2.py``'s ``live_plan`` is kstats' and min_count's plan. Up to
+EP = 256 bytes (L <= 64) they take the split tile at two blocks an SM
+(``launch_plan``); past it the K-chunked wgmma tile of csrc/wg_long.cuh,
+as min2 and compact_mask do (``long_plan``, over the live rows, each
+kernel's own item cost): "wg_kchunk", query rows resident, up to EP =
+640 (160 bp), and "wg_kchunk_stream" past it. min2 and compact_mask
+take ``kernel_plan``: ``short_plan`` up to 64 bp
+(tests/test_torch_wg_plan.py), ``long_plan`` past it
+(tests/test_torch_wg_long_plan.py).
 
 torch is imported by the ``port`` fixture, not at collection (see
 test_torch_min2.py)."""
@@ -53,93 +52,113 @@ def _plans(port, b, rows, ep):
     multiple of 64 for min2 and compact_mask)."""
     M = port.M
     return {"min2": M.kernel_plan(b, rows, ep, H100_SMS),
-            "kstats": M.live_plan(b, rows, ep, H100_SMS),
+            "kstats": M.live_plan(b, rows, ep, H100_SMS, M.KSTATS_ITEM_STEPS),
             "compact_mask": port.C.kernel_plan(b, rows, ep, H100_SMS),
-            "min_count": M.live_plan(b, rows, ep, H100_SMS)}
+            "min_count": M.live_plan(b, rows, ep, H100_SMS,
+                                     M.MIN_COUNT_ITEM_STEPS)}
 
 
-@pytest.mark.parametrize("ep,want", [(256, "split"), (288, "kchunk"),
-                                     (672, "kchunk"), (704, "kchunk_stream"),
-                                     (119616, "kchunk_stream")])
+def _item_steps(M):
+    return {"min2": M.MIN2_ITEM_STEPS, "compact_mask": M.COMPACT_ITEM_STEPS,
+            "kstats": M.KSTATS_ITEM_STEPS,
+            "min_count": M.MIN_COUNT_ITEM_STEPS}
+
+
+@pytest.mark.parametrize("ep,want", [(256, "split"), (288, "wg_kchunk"),
+                                     (640, "wg_kchunk"),
+                                     (672, "wg_kchunk_stream"),
+                                     (704, "wg_kchunk_stream"),
+                                     (119616, "wg_kchunk_stream")])
 def test_routes_at_the_boundaries(port, ep, want):
-    """EP 256 (64 bp), 288 (the first K-chunked width, 65-72 bp), 672
-    (168 bp, form (a)'s last), 704 (the 32-byte step past it) and 119,616
-    (29,903 bp): kstats and min_count take the route named, past 64 bp
-    with splits over one block an SM, at 64 bp the split tile; min2 and
-    compact_mask the wgmma tiles: the short route at 64 bp, past it
-    ``long_plan``'s routes (their own form (a) ends at 640)."""
+    """EP 256 (64 bp), 288 (the first long width, 65-72 bp), 640 (160
+    bp, form (a)'s last), 672 (161-168 bp, which the K-chunked split tile
+    took in form (a)), 704 and 119,616 (29,903 bp): past 64 bp all four
+    kernels take ``long_plan``'s route and splits, each with its own
+    item cost; at 64 bp kstats and min_count the split tile, min2 and
+    compact_mask the short wgmma route."""
     M = port.M
-    short = {"min2": M.MIN2_ITEM_STEPS, "compact_mask": M.COMPACT_ITEM_STEPS}
+    steps = _item_steps(M)
     for b, rows in ((1, 64), (77, 32768), (1024, 32768), (4096, 2621440),
                     (32768, 2621440), (65536, 64)):
         plans = _plans(port, b, rows, ep)
         tiles = rows // WP_MULTIPLE
         for kernel, (route, s) in plans.items():
-            if ep <= M.SPLIT_EP_MAX and kernel in short:
-                assert route == M.WG_ROUTE, kernel
-                assert s == M.short_plan(b, rows, H100_SMS, short[kernel])
-            elif kernel in short:
-                assert route == ("wg_kchunk" if ep <= M.WG_RESIDENT_EP_MAX
-                                 else "wg_kchunk_stream"), kernel
+            if ep > M.SPLIT_EP_MAX:
+                assert route == want, kernel
                 assert (route, s) == M.long_plan(b, rows, ep, H100_SMS,
-                                                 short[kernel])
-            elif ep <= M.SPLIT_EP_MAX:
-                assert route == "split", kernel
-                assert s == M.split_count(b, rows, H100_SMS * M.BLOCKS_PER_SM)
+                                                 steps[kernel])
+            elif kernel in ("min2", "compact_mask"):
+                assert route == M.WG_ROUTE, kernel
+                assert s == M.short_plan(b, rows, H100_SMS, steps[kernel])
             else:
                 assert route == want, kernel
-                assert s == M.split_count(b, rows,
-                                          H100_SMS * M.CHUNK_BLOCKS_PER_SM)
+                assert s == M.split_count(b, rows, H100_SMS * M.BLOCKS_PER_SM)
             assert 1 <= s <= tiles
 
 
 def test_chunk_splits_fill_one_wave_and_never_exceed_the_live_tiles(port):
-    """Past 64 bp: S <= the live tiles, ceil(B / 256) x S blocks within
-    the 132 one-block slots, one split once the query tiles fill them;
-    the phase 9 and phase 12 (b) shapes get 1, 8 and 33 splits."""
+    """Past 64 bp kstats' and min_count's splits are ``long_plan``'s over
+    the live rows (ceil(n_valid / 64) x 64): never more than the live
+    steps (64 rows in form (a), 128 in form (b)) nor the SMs; the phase
+    9, 10 (b) and 12 (b) shapes get the splits named. Nothing is planned
+    at B = 0 or n_valid = 0."""
     M = port.M
-    for ep in (288, 608, 1216, 119616):
+    for ep in (288, 608, 640, 672, 1216, 119616):
+        step = M.WG_KCHUNK_STEP if ep <= M.WG_RESIDENT_EP_MAX else M.WG_STREAM_STEP
         for b in (1, 77, 256, 1024, 4096, 32768, 33792, 1 << 20):
-            for n_valid in (1, 37, 64, 3001, 32768, 2621440):
-                route, s = M.live_plan(b, n_valid, ep, H100_SMS)
-                tiles = -(-n_valid // WP_MULTIPLE)
-                qtiles = -(-b // M.BM)
-                assert route.startswith("kchunk") and 1 <= s <= tiles
-                if qtiles >= H100_SMS:
-                    assert s == 1
-                else:
-                    assert qtiles * s <= H100_SMS
-                    assert s == tiles or qtiles * (s + 1) > H100_SMS
-    assert M.launch_plan(32768, 2621440, 608, H100_SMS) == ("kchunk", 1)
-    assert M.live_plan(4096, 2621440, 608, H100_SMS) == ("kchunk", 8)
-    assert M.live_plan(1024, 32768, 119616, H100_SMS) == (
-        "kchunk_stream", 33)
-    assert M.live_plan(0, 32768, 608, H100_SMS) == ("none", 0)
-    assert M.live_plan(77, 0, 608, H100_SMS) == ("none", 0)
+            for n_valid in (1, 37, 64, 65, 3001, 32768, 2621440):
+                live = -(-n_valid // WP_MULTIPLE) * WP_MULTIPLE
+                for kernel in ("kstats", "min_count"):
+                    item = _item_steps(M)[kernel]
+                    route, s = M.live_plan(b, n_valid, ep, H100_SMS, item)
+                    assert (route, s) == M.long_plan(b, live, ep, H100_SMS,
+                                                     item)
+                    assert 1 <= s <= min(-(-live // step), H100_SMS)
+    K, MC = M.KSTATS_ITEM_STEPS, M.MIN_COUNT_ITEM_STEPS
+    assert M.live_plan(4096, 2621440, 608, H100_SMS, K) == ("wg_kchunk", 33)
+    assert M.live_plan(1024, 32768, 1216, H100_SMS, K) == (
+        "wg_kchunk_stream", 33)
+    assert M.live_plan(1024, 32768, 119616, H100_SMS, K) == (
+        "wg_kchunk_stream", 33)
+    assert M.live_plan(32768, 1 << 22, 1216, H100_SMS, MC) == (
+        "wg_kchunk_stream", 33)
+    assert M.live_plan(32768, 32768, 608, H100_SMS, MC) == ("wg_kchunk", 1)
+    for item in (K, MC):
+        assert M.live_plan(0, 32768, 608, H100_SMS, item) == ("none", 0)
+        assert M.live_plan(77, 0, 608, H100_SMS, item) == ("none", 0)
 
 
 def test_mirrored_constants_equal_the_sources(port):
-    """ops/min2.py's BM, BLOCKS_PER_SM, SPLIT_EP_MAX, CHUNK_BLOCKS_PER_SM
-    and RESIDENT_EP_MAX are split_tile.cuh's S_WARPS * 32,
-    S_BLOCKS_PER_SM, S_KS * 32, K_BLOCKS_PER_SM and RESIDENT_EP_MAX; the
-    chunk kernels of kstats and min_count launch with K_BLOCKS_PER_SM
-    and switch forms at RESIDENT_EP_MAX, min2 and compact_mask run no
-    split tile any more, and no first-version loop is left (scan_tile.cuh
-    is gone)."""
+    """ops/min2.py's BM, BLOCKS_PER_SM and SPLIT_EP_MAX are
+    split_tile.cuh's S_WARPS * 32, S_BLOCKS_PER_SM and S_KS * 32, and
+    ops/hist.py's RESIDENT_EP_MAX is hist.cu's "kchunk" limit; kstats.cu
+    and min_count.cu run the split tile up to S_KS * 32 and wg_long.cuh
+    past it, through its one choice of form, and the K-chunked split
+    tile is gone (no kchunk_scan, no chunk kernel, no K_CHUNK); no
+    first-version loop is left (scan_tile.cuh is gone)."""
     M = port.M
     c = _constants("split_tile.cuh")
     assert M.BM == c["S_WARPS"] * 32
     assert M.BLOCKS_PER_SM == c["S_BLOCKS_PER_SM"]
     assert M.SPLIT_EP_MAX == c["S_KS"] * 32
-    assert "constexpr int K_CHUNK = S_KS * 32;" in (CSRC / "split_tile.cuh").read_text()
-    assert M.CHUNK_BLOCKS_PER_SM == c["K_BLOCKS_PER_SM"]
-    assert M.RESIDENT_EP_MAX == c["RESIDENT_EP_MAX"]
+    tile = (CSRC / "split_tile.cuh").read_text()
+    for gone in ("K_CHUNK", "kchunk_scan", "kchunk_smem", "RESIDENT_EP_MAX",
+                 "K_BLOCKS_PER_SM"):
+        assert gone not in tile, gone
+    from smafa_tpu_torch.ops import hist
+
+    assert f"EP > {hist.RESIDENT_EP_MAX} ? 0 : panels(EP)" in (
+        CSRC / "hist.cu").read_text()
+    assert not hasattr(M, "RESIDENT_EP_MAX")
+    assert not hasattr(M, "CHUNK_BLOCKS_PER_SM")
     for src in ("min2.cu", "kstats.cu", "compact.cu", "min_count.cu"):
         text = (CSRC / src).read_text()
         split = src in ("kstats.cu", "min_count.cu")
-        assert ("__launch_bounds__(S_THREADS, K_BLOCKS_PER_SM)" in text) == split
-        assert ("EP <= RESIDENT_EP_MAX" in text) == split
+        assert ("EP <= S_KS * 32" in text or "EP > S_KS * 32" in text) == split
         assert ('#include "split_tile.cuh"' in text) == split
+        assert '#include "wg_long.cuh"' in text
+        assert "wg_long::by_form(EP," in text
+        assert "kchunk_scan" not in text and "_chunk_kernel" not in text
         assert "launch_long" not in text and "scan_tile" not in text
     assert "min2_long_kernel" not in (CSRC / "min2.cu").read_text()
     assert "kstats_kernel(" not in (CSRC / "kstats.cu").read_text()
@@ -148,24 +167,37 @@ def test_mirrored_constants_equal_the_sources(port):
     assert not (CSRC / "scan_tile.cuh").exists()
 
 
+def _form_a_smem(c, nkp):
+    fixed = (nkp * c["ROWS"] * c["PANEL"] + c["ZS"] * c["NA"] * 4
+             + c["BAR_BYTES"] + c["SLACK"])
+    ring = min(c["RING_A"], (c["SMEM_LIMIT"] - fixed) // (c["NA"] * c["PANEL"]))
+    return ring, fixed + ring * c["NA"] * c["PANEL"]
+
+
 def test_form_a_limit_is_the_widest_that_fits(port):
-    """Form (a)'s shared memory, 256 x (EP + 16) bytes of query rows plus
-    KQ_STAGES x (64 x 272 bytes of db chunk + 64 zc), fits 232,448 bytes
-    at RESIDENT_EP_MAX (212,736 at 150 bp) and not 32 bytes past it; form
-    (b)'s KS_STAGES x (320 x 272 + 64 x 4) fits at every EP."""
-    c = _constants("split_tile.cuh")
-    stride = c["S_KS"] * 32 + c["S_PAD"]  # K_STRIDE
-
-    def form_a(ep):
-        return (c["S_WARPS"] * 32 * (ep + c["S_PAD"])
-                + c["KQ_STAGES"] * (c["S_BN"] * stride + c["S_BN"] * 4))
-
-    assert form_a(608) == 212736
-    assert form_a(port.M.RESIDENT_EP_MAX) <= SMEM_MAX < form_a(
-        port.M.RESIDENT_EP_MAX + 32)
-    form_b = c["KS_STAGES"] * ((c["S_WARPS"] * 32 + c["S_BN"]) * stride
-                               + c["S_BN"] * 4)
-    assert form_b == 174592 <= SMEM_MAX
+    """kstats' and min_count's long routes launch through wg_long.cuh's
+    ``launch``, whose shared memory fits 232,448 bytes: form (a) at
+    every panel count up to NKP_MAX (640 bytes, 160 bp) holds the
+    resident rows and a ring of at least a step's chunks, and one panel
+    more (168 bp's 672 bytes) would not; form (b) fits at any width.
+    Their wgchunk kernels are built for each of by_form's forms."""
+    c = {**_constants("wg_tile.cuh"), **_constants("wg_long.cuh")}
+    assert c["SMEM_LIMIT"] == SMEM_MAX
+    for nkp in range(3, c["NKP_MAX"] + 1):
+        ring, smem = _form_a_smem(c, nkp)
+        assert nkp <= ring and smem <= SMEM_MAX
+    assert _form_a_smem(c, c["NKP_MAX"] + 1)[0] < c["NKP_MAX"] + 1
+    assert port.M.WG_RESIDENT_EP_MAX == c["NKP_MAX"] * c["PANEL"] == 640
+    assert port.D.embed_width(160) == 640 < port.D.embed_width(161) == 672
+    smem_b = (c["RING_B"] * (c["ROWS"] + c["NB"]) * c["PANEL"]
+              + c["ZS"] * c["NB"] * 4 + c["BAR_BYTES"] + c["SLACK"])
+    assert smem_b <= SMEM_MAX
+    for src, kernel in (("kstats.cu", "kstats_wgchunk_kernel<NKP>"),
+                        ("min_count.cu",
+                         "min_count_wgchunk_kernel<NKP, WITH_COUNT>")):
+        text = (CSRC / src).read_text()
+        assert "wg_long::launch<NKP>(" in text and kernel in text, src
+        assert "__launch_bounds__(wg_long::THREADS, 1)" in text, src
 
 
 def test_wrappers_plan_by_kernel(port):
@@ -182,3 +214,84 @@ def test_wrappers_plan_by_kernel(port):
         text = (CSRC / name).read_text()
         assert "splits != 1" not in text, name
         assert re.search(r"splits < 1 \|\| splits > ", text), name
+
+
+def _live_items(M, b, n_valid, ep, item_steps, sms, splits=None):
+    """kstats' or min_count's items past 64 bp as csrc/wg_long.cuh walks
+    them over the live rows: (query tile, split, the 64-row blocks its
+    steps hold below the live rows), and the route and splits (the
+    plan's, or ``splits``)."""
+    route, planned = M.live_plan(b, n_valid, ep, sms, item_steps)
+    splits = splits or planned
+    live = -(-n_valid // WP_MULTIPLE)  # live 64-row blocks
+    per = 1 if route == M.WG_KCHUNK_ROUTE else M.WG_STREAM_STEP // WP_MULTIPLE
+    steps = -(-live // per)
+    items = []
+    for qt in range(-(-b // M.WG_ROWS)):
+        for y in range(splits):
+            s0, s1 = steps * y // splits, steps * (y + 1) // splits
+            items.append((qt, y, [blk for s in range(s0, s1)
+                                  for blk in range(per * s, per * s + per)
+                                  if blk < live]))
+    return route, splits, live, items
+
+
+@pytest.mark.parametrize("n_valid", [1, 64, 65, 127, 128, 129, 3001,
+                                     4096 + 64 + 1])
+def test_live_items_cover_each_live_block_once(port, n_valid):
+    """n_valid ragged against the 64-row block and the 128-row stream
+    step, in both forms (150 and 300 bp) and for both kernels, at the
+    plan's splits and at 7 and ceil(n_valid / 64) splits (the C entry's
+    widest): each query tile's items hold every live block exactly once
+    and none past them (form (b)'s last step may hold one live block,
+    whose other half the kernel skips); the last live block, partial
+    unless 64 divides n_valid, has one owner; and the plan's splits are
+    never more than the live steps."""
+    M = port.M
+    for ep in (608, 1216):
+        for kernel, item in (("kstats", M.KSTATS_ITEM_STEPS),
+                             ("min_count", M.MIN_COUNT_ITEM_STEPS)):
+            live = -(-n_valid // WP_MULTIPLE)
+            for b, splits in ((1, None), (300, None), (300, min(7, live)),
+                              (1, live)):
+                route, s, _, items = _live_items(M, b, n_valid, ep, item,
+                                                 H100_SMS, splits)
+                per = 1 if route == M.WG_KCHUNK_ROUTE else 2
+                assert route == ("wg_kchunk" if ep <= 640
+                                 else "wg_kchunk_stream")
+                if splits is None:
+                    assert 1 <= s <= -(-live // per)
+                for qt in range(-(-b // M.WG_ROWS)):
+                    blocks = sorted(x for q, _, bl in items if q == qt
+                                    for x in bl)
+                    assert blocks == list(range(live)), (kernel, ep, b)
+                    owners = [y for q, y, bl in items
+                              if q == qt and live - 1 in bl]
+                    assert len(owners) == 1
+
+
+def test_pair_counts_flush_by_blocks(port):
+    """kstats' long routes count in 16-bit pairs: a lane adds at most 16
+    to a count a 64-row block, so PAIR_TILES blocks stay below 65,536,
+    and the epilogue flushes by blocks (form (b)'s steps are two), at
+    each item's end too; its masked path runs only at the last live
+    block."""
+    c = _constants("kstats.cu")
+    assert 16 * c["PAIR_TILES"] < 1 << 16 <= 16 * (c["PAIR_TILES"] + 1)
+    text = (CSRC / "kstats.cu").read_text()
+    assert "if (M == 1 && ++blocks == PAIR_TILES)" in text
+    assert "end(const wg_scan::Item&) { flush(true); }" in text
+    for src in ("kstats.cu", "min_count.cu"):
+        text = (CSRC / src).read_text()
+        assert "epi.last = epi.rem < wg_scan::N ? live - 1 : -1;" in text
+        assert "if (s == last) {" in text
+
+
+def test_long_routes_check_zc_as_a_tma_source(port):
+    """Past 64 bp kstats and min_count copy zc by TMA: both wrappers
+    check its alignment there, after planning (so n_valid = 0 launches
+    nothing and checks nothing)."""
+    for fn in (port.KS.kstats, port.MC.min_count):
+        src = inspect.getsource(fn)
+        assert "if ep > M.SPLIT_EP_MAX:\n        M.check_tma_zc(zc)" in src
+        assert src.index("M.live_plan(") < src.index("M.check_tma_zc(zc)")

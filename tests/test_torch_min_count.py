@@ -76,6 +76,7 @@ def _case(seq_len, W, B, seed):
 
 @pytest.mark.parametrize("seq_len,W,B,seed", [(60, 300, 70, 0), (13, 97, 33, 1),
                                               (3, 5, 9, 2), (150, 200, 20, 3),
+                                              (161, 200, 20, 5),
                                               (300, 200, 20, 4)])
 @pytest.mark.parametrize("with_count", [True, False])
 def test_min_count_equals_pallas(port, seq_len, W, B, seed, with_count):
@@ -92,7 +93,8 @@ def test_min_count_equals_pallas(port, seq_len, W, B, seed, with_count):
 
 
 @pytest.mark.parametrize("seq_len,n_valid", [(60, 1000), (60, 64), (60, 1),
-                                             (60, 0), (13, 777), (150, 300)])
+                                             (60, 0), (13, 777), (150, 300),
+                                             (161, 517), (300, 300)])
 def test_min_count_equals_min_scan(port, seq_len, n_valid):
     """A centroid buffer whose rows past n_valid are live codes (better
     matches than any real row): the scan must not see them. n_valid = 0

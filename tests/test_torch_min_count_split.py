@@ -5,7 +5,8 @@ calls too) cuts only the live 64-row tiles, ceil(n_valid / 64) of
 them, into splits the way the kernel does (split y of S walks tiles
 tiles * y // S up to tiles * (y + 1) // S): every live tile once, none
 past n_valid's, one split when the query tiles fill the card's block
-slots, the K-chunked route past 64 bp, no launch at n_valid = 0. The
+slots, the K-chunked wgmma tile's plan past 64 bp (form (b) in steps of
+two tiles), no launch at n_valid = 0. The
 merge the kernel does (the min of the splits' keys;
 with the count, the sum of the counts of the splits whose partial
 distance is the row's minimum) is held on plain tensors:
@@ -44,12 +45,19 @@ def port():
                                  MC=min_count)
 
 
-def _split_rows(n_valid: int, s: int) -> list[tuple[int, int]]:
-    """The db rows split y of s scans: whole live tiles, the last one cut
-    at n_valid."""
-    tiles = -(-n_valid // WP_MULTIPLE)
-    return [(WP_MULTIPLE * (tiles * y // s),
-             min(n_valid, WP_MULTIPLE * (tiles * (y + 1) // s)))
+def _plan(port, b: int, n_valid: int, ep: int, sms: int) -> tuple[str, int]:
+    """min_count's plan: ``live_plan`` at its item cost."""
+    return port.M.live_plan(b, n_valid, ep, sms, port.M.MIN_COUNT_ITEM_STEPS)
+
+
+def _split_rows(n_valid: int, s: int,
+                step: int = WP_MULTIPLE) -> list[tuple[int, int]]:
+    """The db rows split y of s scans: whole live steps of ``step`` rows
+    (64-row tiles; form (b)'s steps of 128), the last one cut at
+    n_valid."""
+    tiles = -(-n_valid // step)
+    return [(step * (tiles * y // s),
+             min(n_valid, step * (tiles * (y + 1) // s)))
             for y in range(s)]
 
 
@@ -66,7 +74,7 @@ PLAN = {32768: {32768: 2, 29321: 2, 4096: 2, 37: 1, 1: 1},
 def test_min_count_plan_covers_the_live_tiles(port, b):
     ep = port.D.embed_width(60)
     for n_valid, want in PLAN[b].items():
-        route, s = port.M.live_plan(b, n_valid, ep, H100_SMS)
+        route, s = _plan(port, b, n_valid, ep, H100_SMS)
         tiles = -(-n_valid // WP_MULTIPLE)
         assert route == "split" and s == want and 1 <= s <= tiles
         cover = np.zeros(tiles + 1, np.int64)  # + 1: the tile past n_valid's
@@ -92,8 +100,8 @@ def test_min_count_plan_is_kstats_plan_and_scans_nothing_at_zero(port):
     for seq_len in (3, 60, 150):
         ep = port.D.embed_width(seq_len)
         for b in (1, 77, 2048, 32768):
-            assert port.M.live_plan(b, 0, ep, H100_SMS) == ("none", 0)
-        assert port.M.live_plan(0, 4096, ep, H100_SMS) == ("none", 0)
+            assert _plan(port, b, 0, ep, H100_SMS) == ("none", 0)
+        assert _plan(port, 0, 4096, ep, H100_SMS) == ("none", 0)
 
 
 def test_min_count_plan_one_split_when_query_tiles_fill_the_slots(port):
@@ -102,41 +110,45 @@ def test_min_count_plan_one_split_when_query_tiles_fill_the_slots(port):
     ep = port.D.embed_width(60)
     slots = H100_SMS * port.M.BLOCKS_PER_SM
     for b in (256 * slots, 256 * slots + 1, 1 << 20):
-        assert port.M.live_plan(b, 32768, ep, H100_SMS) == ("split", 1)
-    assert port.M.live_plan(256 * (slots - 1), 32768, ep, H100_SMS) == ("split", 1)
-    assert port.M.live_plan(256 * (slots // 2), 32768, ep, H100_SMS) == ("split", 2)
-    assert port.M.live_plan(8192, 16384, ep, H100_SMS) == ("split", 8)
+        assert _plan(port, b, 32768, ep, H100_SMS) == ("split", 1)
+    assert _plan(port, 256 * (slots - 1), 32768, ep, H100_SMS) == ("split", 1)
+    assert _plan(port, 256 * (slots // 2), 32768, ep, H100_SMS) == ("split", 2)
+    assert _plan(port, 8192, 16384, ep, H100_SMS) == ("split", 8)
 
 
 def test_min_count_plan_routes_by_width(port):
-    """Past 64 bp (EP > 256) the K-chunked route, "kchunk" up to 168 bp
-    and "kchunk_stream" past it, with splits over one block an SM and at
-    most one a live tile, at any batch and n_valid; up to 64 bp the split
-    route."""
-    for seq_len in (3, 60, 63, 64, 65, 150, 300):
+    """Past 64 bp (EP > 256) the K-chunked wgmma tile, "wg_kchunk" up to
+    160 bp and "wg_kchunk_stream" past it, with ``long_plan``'s splits
+    over the live rows at min_count's item cost, never more than the
+    live steps, at any batch and n_valid; up to 64 bp the split route."""
+    M = port.M
+    for seq_len in (3, 60, 63, 64, 65, 150, 160, 161, 300):
         ep = port.D.embed_width(seq_len)
         for b in (1, 77, 2048, 32768):
             for n_valid in (1, 37, 4096, 29321):
-                route, s = port.M.live_plan(b, n_valid, ep, H100_SMS)
+                route, s = _plan(port, b, n_valid, ep, H100_SMS)
                 tiles = -(-n_valid // 64)
                 assert 1 <= s <= tiles
                 if seq_len > 64:
-                    assert route == ("kchunk" if seq_len <= 168
-                                     else "kchunk_stream")
-                    assert s == port.M.split_count(b, tiles * 64, H100_SMS)
+                    assert route == ("wg_kchunk" if seq_len <= 160
+                                     else "wg_kchunk_stream")
+                    assert (route, s) == M.long_plan(
+                        b, tiles * 64, ep, H100_SMS, M.MIN_COUNT_ITEM_STEPS)
+                    if route == "wg_kchunk_stream":
+                        assert s <= -(-tiles // 2)
                 else:
                     assert route == "split"
 
 
 def _merged_splits(port, q_emb, emb, zc, n_valid, seq_len, shift, s,
-                   with_count):
+                   with_count, step=WP_MULTIPLE):
     """min_count_reference over each split's rows, its keys moved to the
     buffer's row indices, merged as the kernel's merge does: the min of
     the keys; with the count, the counts of the splits whose distance is
     the row's minimum, summed."""
     torch = port.torch
     keys, cnts = [], []
-    for a, e in _split_rows(n_valid, s):
+    for a, e in _split_rows(n_valid, s, step):
         key, cnt = port.D.min_count_reference(q_emb, emb[a:e], zc[a:e], e - a,
                                               seq_len, shift, True)
         assert (key != K.BIG_KEY).all()  # every split holds a live row
@@ -193,9 +205,10 @@ def test_split_merge_equals_whole_and_min_count_scan(port, seq_len,
                                                      with_count):
     """n_valid = 517 of a 640-row live buffer (9 tiles, the last holding
     5 live rows), at the plan of this width: on 132 SMs one tile per
-    split; on 2 SMs (split route, two blocks an SM) or 4 SMs (K-chunked
-    route past 64 bp, one block an SM) 4 splits that do not divide the
-    tiles."""
+    split (one 128-row step per split at 300 bp, form (b): 5, the last
+    holding one live block); on 2 SMs (split route, two blocks an SM)
+    or 4 SMs (the wgmma tile past 64 bp, one block an SM) 4 splits that
+    do not divide the tiles (or steps)."""
     wp, b, n_valid = 640, 40, 517
     buf, q = _case(seq_len, wp, b, n_valid, seq_len + with_count)
     from_numpy = port.torch.from_numpy
@@ -206,12 +219,14 @@ def test_split_merge_equals_whole_and_min_count_scan(port, seq_len,
     whole = port.D.min_count_reference(q_emb, emb, zc, n_valid, seq_len,
                                        shift, with_count)
     route = ("split" if seq_len <= 64 else
-             "kchunk" if seq_len <= 168 else "kchunk_stream")
-    for sms, s in ((2 if seq_len <= 64 else 4, 4), (H100_SMS, 9)):
-        assert port.M.live_plan(b, n_valid, port.D.embed_width(seq_len),
-                                sms) == (route, s)
+             "wg_kchunk" if seq_len <= 160 else "wg_kchunk_stream")
+    step = 128 if route == "wg_kchunk_stream" else WP_MULTIPLE
+    for sms, s in ((2 if seq_len <= 64 else 4, 4),
+                   (H100_SMS, 5 if step == 128 else 9)):
+        assert _plan(port, b, n_valid, port.D.embed_width(seq_len),
+                     sms) == (route, s)
         got = _merged_splits(port, q_emb, emb, zc, n_valid, seq_len, shift,
-                             s, with_count)
+                             s, with_count, step)
         assert len(got) == len(whole) == 1 + with_count
         for g, w in zip(got, whole):
             assert port.torch.equal(g, w), s
@@ -246,7 +261,7 @@ def test_split_merge_ignores_live_rows_past_n_valid(port, n_valid):
     assert dist.min() >= 1
     want = _pallas(buf, q, n_valid, seq_len)
     for sms in (2, H100_SMS):
-        _, s = port.M.live_plan(b, n_valid, port.D.embed_width(seq_len), sms)
+        _, s = _plan(port, b, n_valid, port.D.embed_width(seq_len), sms)
         for with_count in (True, False):
             got = _merged_splits(port, q_emb, emb, zc, n_valid, seq_len,
                                  shift, s, with_count)

@@ -73,16 +73,21 @@ def test_routes_at_the_boundaries(port, ep, want):
 def _items(M, b: int, wp: int, ep: int, item_steps: int, sms: int):
     """The kernel's items in its order (item it, run by block it % grid:
     query tile it % qtiles against split it // qtiles, or in form (b)
-    with every item in the grid and S <= 2 x the query tiles split it %
-    S of query tile it // S, as csrc/wg_long.cuh split_fastest_b), as
-    (block, first query row,
-    end query row, first db row, end db row)."""
+    split it % S of query tile it // S, as csrc/wg_long.cuh
+    split_fastest_b picks it: with every item in the grid where S <= 2 x
+    the query tiles, with more items than the grid where the query rows
+    of the tiles in flight pass its L2_QUERY_MB), as (block, first
+    query row, end query row, first db row, end db row)."""
     route, splits = M.long_plan(b, wp, ep, sms, item_steps)
     step = M.WG_KCHUNK_STEP if route == M.WG_KCHUNK_ROUTE else M.WG_STREAM_STEP
     qtiles, steps = -(-b // M.WG_ROWS), -(-wp // step)
     grid = min(qtiles * splits, sms)  # csrc/wg_long.cuh launch
-    split_fastest = (route == M.WG_STREAM_ROUTE and qtiles * splits <= grid
-                     and splits <= 2 * qtiles)
+    if qtiles * splits <= grid:
+        split_fastest = splits <= 2 * qtiles
+    else:
+        split_fastest = (min(qtiles, grid) * M.WG_ROWS * -(-ep // 128) * 128
+                         > _constants("wg_long.cuh")["L2_QUERY_MB"] << 20)
+    split_fastest = split_fastest and route == M.WG_STREAM_ROUTE
     out = []
     for it in range(qtiles * splits):
         qt, y = ((it // splits, it % splits) if split_fastest

@@ -165,28 +165,32 @@ def test_zc_must_be_a_tma_source(port):
 
 
 # launch_plan and live_plan as they were before min2 and compact_mask
-# took the wgmma tiles: kstats and min_count keep them, short and long.
-LAUNCH = {(1, 70016, 256): ("split", 264), (1, 70016, 608): ("kchunk", 132),
-          (77, 1 << 20, 256): ("split", 264), (512, 1 << 20, 256): ("split", 132),
-          (512, 1 << 20, 608): ("kchunk", 66), (4096, 1 << 20, 256): ("split", 16),
-          (4096, 1 << 20, 608): ("kchunk", 8), (16384, 70016, 256): ("split", 4),
-          (16384, 1 << 20, 608): ("kchunk", 2), (32768, 1 << 20, 256): ("split", 2),
-          (32768, 1 << 20, 608): ("kchunk", 1)}
+# took the wgmma tiles: kstats and min_count keep them up to 64 bp; past
+# it live_plan is long_plan's over the live rows (at either kernel's item
+# cost, these shapes plan alike), and launch_plan refuses.
+LAUNCH = {(1, 70016, 256): ("split", 264), (77, 1 << 20, 256): ("split", 264),
+          (512, 1 << 20, 256): ("split", 132), (4096, 1 << 20, 256): ("split", 16),
+          (16384, 70016, 256): ("split", 4), (32768, 1 << 20, 256): ("split", 2)}
 LIVE = {(1, 37, 256): ("split", 1), (77, 3001, 256): ("split", 47),
         (2048, 29321, 256): ("split", 33), (32768, 29321, 256): ("split", 2),
         (8192, 16384, 256): ("split", 8), (16384, (1 << 20) + 37, 256): ("split", 4),
         (4096, (1 << 20) + 37, 256): ("split", 16), (0, 5, 256): ("none", 0),
-        (5, 0, 256): ("none", 0), (1024, 32768, 1216): ("kchunk_stream", 33),
-        (32768, 32768, 608): ("kchunk", 1)}
+        (5, 0, 256): ("none", 0), (1024, 32768, 1216): ("wg_kchunk_stream", 33),
+        (32768, 32768, 608): ("wg_kchunk", 1)}
 
 
 def test_split_tile_plan_unchanged(port):
-    """launch_plan and live_plan give their earlier values, and the hist
-    kernel's plan, which shares ``splits_for``, its 33 splits."""
+    """launch_plan and live_plan give their earlier values up to 64 bp,
+    at either kernel's item cost; past it live_plan takes the long
+    routes and launch_plan raises; and the hist kernel's plan, which
+    shares ``splits_for``, its 33 splits."""
     M = port.M
     for (b, wp, ep), want in LAUNCH.items():
         assert M.launch_plan(b, wp, ep, H100_SMS) == want
-    for (b, n, ep), want in LIVE.items():
-        assert M.live_plan(b, n, ep, H100_SMS) == want
+    for item in (M.KSTATS_ITEM_STEPS, M.MIN_COUNT_ITEM_STEPS):
+        for (b, n, ep), want in LIVE.items():
+            assert M.live_plan(b, n, ep, H100_SMS, item) == want
+    with pytest.raises(ValueError):
+        M.launch_plan(4096, 1 << 20, 608, H100_SMS)
     assert port.H.launch_plan(16384, (1 << 20) + 37, 60, H100_SMS).splits == 33
     assert port.H.launch_plan(4096, (1 << 20) + 37, 60, H100_SMS).splits == 33
