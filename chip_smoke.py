@@ -8,8 +8,8 @@ Phases, one line each:
 1. build: compiles the CUDA kernels from smafa_tpu_torch/csrc with nvcc;
    logs each source's ``ptxas -v`` (registers, spills) and, where the
    toolkit has cuobjdump, the warpgroup MMA and TMA load instructions
-   of the hist kernels, of min2's and compact_mask's kernels on both
-   their routes and of kstats' and min_count's long routes (fails if one
+   of the hist kernels and of the four scans' kernels (min2,
+   compact_mask, kstats, min_count) on both their routes (fails if one
    of them has none of either, or if one of those but hist's has an
    mma.sync, ldmatrix or cp.async instruction).
 2. kernel parity: each kernel against its plain PyTorch version on the
@@ -18,7 +18,8 @@ Phases, one line each:
    TOP/s and its bytes over 3.35 TB/s, the H100 SXM's dense peaks).
    min_count, with and without the count, at L = 3, 60, 150, 300 over a
    live buffer (each line with the route and db splits of both n_valid:
-   the K-chunked tile past 64 bp), then at its split shapes, each line
+   the wgmma tile to 64 bp, the K-chunked tile past it), then at its
+   split shapes, each line
    with its route and db splits (the cluster's batches B = 1, 77, 2048, 32768 against
    29,321 live rows of a 32,768-row buffer; n_valid = 37 and 3001 with
    query copies past n_valid; a db of one repeated row; a db whose only
@@ -287,7 +288,7 @@ def smoke_sizes(query_mod) -> types.SimpleNamespace:
                     ("c", 65536, 5, None, 16384)),
         # hist's split shapes at 60 bp: (B, n_valid, db) against
         # kstats_rows, db "random" or "repeated" (one row); then (B, L)
-        # at the narrowest and widest windows of the split tile
+        # at the narrowest and widest windows of the short route
         hist_split_shapes=((1, (1 << 20) + 37, "random"),
                            (77, (1 << 20) + 37, "random"),
                            (300, 37, "random"),
@@ -352,25 +353,26 @@ def nvidia_smi() -> str:
 # SASS opcodes of the Hopper machinery the warpgroup kernels must use
 SASS_WGMMA = ("HGMMA", "IGMMA", "WGMMA")  # warpgroup MMA (int8: IGMMA)
 SASS_TMA = ("UTMALDG",)                   # TMA tensor loads
-# and what min2's and compact_mask's kernels must not use: the split
+# and what the four scans' kernels must not use: the retired split
 # tile's mma.sync (IMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
 SASS_OLD_TILE = ("IMMA", "LDSM", "LDGSTS")
 # the warpgroup kernels, by a part of their names: each must be built
-# (min2's and compact_mask's short route, then the long routes of min2,
-# compact_mask, kstats and min_count)
+# (the short route of min2, compact_mask, kstats and min_count, then
+# their long routes)
 WG_KERNELS = ("hist_kernel", "min2_wg_kernel", "compact_wg_kernel",
+              "kstats_wg_kernel", "min_count_wg_kernel",
               "min2_wgchunk_kernel", "compact_wgchunk_kernel",
               "kstats_wgchunk_kernel", "min_count_wgchunk_kernel")
 
 
 def warpgroup_sass(build_mod) -> dict:
-    """The warpgroup kernels' (hist, min2's and compact_mask's on both
-    routes, kstats' and min_count's long routes) warpgroup MMA and TMA
-    load instructions in the built library (``cuobjdump -sass``): per
-    kernel their counts and first lines, and their count of split-tile
-    instructions; fails if a kind of kernel is missing, if one has none
-    of either, or if one but hist's has any split-tile instruction.
-    "not measured" where the toolkit has no cuobjdump."""
+    """The warpgroup kernels' (hist, the four scans' on both routes)
+    warpgroup MMA and TMA load instructions in the built library
+    (``cuobjdump -sass``): per kernel their counts and first lines, and
+    their count of mma.sync, ldmatrix and cp.async instructions; fails if
+    a kind of kernel is missing, if one has none of either, or if one
+    but hist's has any of the last three. "not measured" where the
+    toolkit has no cuobjdump."""
     tool = os.path.join(os.path.dirname(build_mod._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         return {"wg_sass": "not measured (no cuobjdump)"}
@@ -398,7 +400,7 @@ def warpgroup_sass(build_mod) -> dict:
             or any(c["old_tile"] for n, c in counts.items()
                    if "hist_kernel" not in n)):
         raise AssertionError(f"warpgroup kernels without wgmma or TMA, "
-                             f"missing ({missing}) or on the split tile: "
+                             f"missing ({missing}) or with mma.sync: "
                              f"{counts}")
     return {"wg_sass": {n: {k: {"count": len(v), "first": v[:2]}
                             for k, v in d.items()}

@@ -203,13 +203,12 @@ extern "C" int smafa_compact_mask(const void* q, const void* db,
   const auto* tp = static_cast<const int*>(thresh);
   auto* mp = static_cast<unsigned*>(mask);
   if (EP <= wg_scan::EP_MAX) {
-    return (int)(EP <= wg_tile::PANEL
-                     ? wg_scan::launch<1>(compact_wg_kernel<1>, db, zc, B, W,
-                                          EP, splits, s, qp, tp, mp, B, W, EP,
-                                          seq_len, splits)
-                     : wg_scan::launch<2>(compact_wg_kernel<2>, db, zc, B, W,
-                                          EP, splits, s, qp, tp, mp, B, W, EP,
-                                          seq_len, splits));
+    return (int)wg_scan::by_panels(EP, [&](auto panels) {
+      constexpr int NKP = decltype(panels)::value;
+      return wg_scan::launch<NKP>(compact_wg_kernel<NKP>, db, zc, B, W, EP,
+                                  splits, s, qp, tp, mp, B, W, EP, seq_len,
+                                  splits);
+    });
   }
   return (int)wg_long::by_form(EP, [&](auto form) {
     constexpr int NKP = decltype(form)::value;

@@ -26,26 +26,80 @@
 // (2 x 2 of 32 query rows x 32 db rows) streams its K range in chunks of
 // D_KC bytes of its 64 db rows and 64 query rows through a cp.async
 // ring of D_STAGES stages, and takes the products with int8 mma.sync
-// (split_tile.cuh: mma_s8, ldmatrix_x4, cp_async16), query rows at or
-// past B neither copied nor stored. Its int32 partials go to dist with
+// fed by ldmatrix, query rows at or past B neither copied nor stored. Its int32 partials go to dist with
 // one atomicAdd each, onto seq_len - zc[w] written first by
 // dist_init_kernel: integer adds are exact in any order, so the result
 // does not depend on how the splits interleave. Every byte offset is 64
 // bits wide (row * (long)EP); EP itself is an int, so EP < 2^31 (windows
 // below 2^29 bp), which ops/dist_block.py checks and names.
 
-#include "split_tile.cuh"
+#include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-using namespace split_tile;
+// c += a . b: the int8 tensor-core product mma.sync.m16n8k32 s8.s8 -> s32.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* s, const void* g) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(s)),
+               "l"(g)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices; lanes 8j..8j+7 give the row addresses of
+// matrix j, and lane l receives 4 bytes of row l / 4 of each.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// A lane's ldmatrix.x4 row addresses. B: matrix j = lane / 8 is n-tile
+// j / 2 of a pair, k half j % 2, so regs {0, 1} and {2, 3} are the
+// pair's B fragments; the offset is into a db tile. A: matrix j is rows
+// 8 (j % 2), k half j / 2 of an m16 tile of the warp's 32 query rows,
+// regs 0..3 its A fragment.
+__device__ __forceinline__ int b_frag_offset(int lane, int stride) {
+  return ((lane >> 4) * 8 + (lane & 7)) * stride + ((lane >> 3) & 1) * 16;
+}
+
+__device__ __forceinline__ const int8_t* a_frag_row(const int8_t* sA, int warp,
+                                                    int lane, int stride) {
+  return sA + (warp * 32 + (lane & 7) + ((lane >> 3) & 1) * 8) * stride +
+         (lane >> 4) * 16;
+}
 
 constexpr int D_WARPS = 4;
 constexpr int D_THREADS = D_WARPS * 32;
 constexpr int D_BM = 64;   // query rows a block (2 warps of 32)
 constexpr int D_BN = 64;   // db rows a block (2 warps of 32)
 constexpr int D_KC = 128;  // bytes of a row a chunk: 4 k-steps of 32
-constexpr int D_STRIDE = D_KC + S_PAD;                   // 144 B a shared row
+constexpr int D_PAD = 16;                                // bytes of padding a shared row
+constexpr int D_STRIDE = D_KC + D_PAD;                   // 144 B a shared row
 constexpr int D_STAGES = 4;                              // cp.async ring depth
 constexpr int D_STAGE_BYTES = (D_BN + D_BM) * D_STRIDE;  // db rows, then queries
 constexpr int D_SMEM = D_STAGES * D_STAGE_BYTES;         // 73,728 B
@@ -111,7 +165,7 @@ __global__ void __launch_bounds__(D_THREADS, D_BLOCKS_PER_SM)
     cp_async_commit();
   }
 
-  // ldmatrix.x4 row addresses (split_tile.cuh): the warp's B fragments
+  // ldmatrix.x4 row addresses: the warp's B fragments
   // from its 32 db rows, its A fragments from its 32 query rows.
   const int b_off = b_frag_offset(lane, D_STRIDE) + wn * 32 * D_STRIDE;
   const int a_off =

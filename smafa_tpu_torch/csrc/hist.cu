@@ -27,6 +27,9 @@
 //    zc rides with its first chunk into a ring of its own); two consumer
 //    warpgroups run wgmma m64n128k32 s8 and tally. setmaxnreg moves the
 //    producer's registers to the consumers (232 a thread, no spills).
+//    The tally reads a step's zc by plain loads, and TMA (the async
+//    proxy) then refills its slot: each consumer fences the two proxies
+//    before it releases the slot (see wg_long.cuh).
 // 2. A step (NSTEP db rows against the block's query rows) is K chunks
 //    of 128 bytes, one commit group each. Each warpgroup double-buffers
 //    its accumulators and tallies step s - 1 in pieces, one after each
@@ -470,6 +473,7 @@ __device__ void consume(const int8_t* __restrict__ q,
         }
       }
       if (s > im.s0) {
+        fence_proxy_async();  // the zc read before TMA may refill the slot
         warp_arrive(rg.zempty + prev_z, lane);
         if (++since == flush_steps<C>()) {
           flush();
@@ -511,6 +515,7 @@ __device__ void consume(const int8_t* __restrict__ q,
       } else {
         finish(accB);
       }
+      fence_proxy_async();
       warp_arrive(rg.zempty + prev_z, lane);
     } else {
       for (int s = im.s0; s < im.s1; ++s) {
@@ -521,6 +526,7 @@ __device__ void consume(const int8_t* __restrict__ q,
         warp_arrive(rg.empty + prev_st, lane);
         prev_st = -1;
         last(accA);
+        fence_proxy_async();  // the zc read before TMA may refill the slot
         warp_arrive(rg.zempty + prev_z, lane);
         if (s + 1 < im.s1 && ++since == flush_steps<C>()) {
           flush();

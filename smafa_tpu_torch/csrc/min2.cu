@@ -63,7 +63,6 @@
 
 namespace {
 
-using wg_tile::PANEL;
 using wg_tile::set_if_eq;
 
 constexpr int MERGE_THREADS = 256;
@@ -270,13 +269,12 @@ cudaError_t launch_split(const int8_t* q, const int8_t* db, const int* zc,
   int* hi_o = direct ? hi : part + sb;
   int* cnt_o = direct ? cnt : part + 2 * sb;
   if (EP <= wg_scan::EP_MAX) {
-    return EP <= PANEL
-               ? wg_scan::launch<1>(min2_wg_kernel<1>, db, zc, B, W, EP,
-                                    splits, s, q, lo_o, hi_o, cnt_o, B, W,
-                                    EP, seq_len, shift, with_count, splits)
-               : wg_scan::launch<2>(min2_wg_kernel<2>, db, zc, B, W, EP,
-                                    splits, s, q, lo_o, hi_o, cnt_o, B, W,
-                                    EP, seq_len, shift, with_count, splits);
+    return wg_scan::by_panels(EP, [&](auto panels) {
+      constexpr int NKP = decltype(panels)::value;
+      return wg_scan::launch<NKP>(min2_wg_kernel<NKP>, db, zc, B, W, EP,
+                                  splits, s, q, lo_o, hi_o, cnt_o, B, W, EP,
+                                  seq_len, shift, with_count, splits);
+    });
   }
   return wg_long::by_form(EP, [&](auto form) {
     constexpr int NKP = decltype(form)::value;

@@ -28,249 +28,59 @@
 // its epilogue built and compared a key per column, behind a branch on
 // n_valid, in every tile.
 //
-// What the design does about it (min_count_split_kernel):
-// 1. The split tile (split_tile.cuh; see min2.cu, lever 3) over the live
-//    tiles only: ceil(B / 256) query tiles x S db splits, S from
-//    ops/min2.py's live_plan over tiles = ceil(n_valid / 64), split y
-//    walking tiles tiles * y / S up to tiles * (y + 1) / S. Db tiles and
-//    their zc arrive by cp.async in a 2-stage ring, fragments by
-//    ldmatrix.x4, two blocks per SM. With S > 1 the splits write int32
-//    key partials [S, B] (and, with the count, count partials [S, B]
-//    after them) to scratch the wrapper allocates, and
-//    min_count_merge_kernel, launched right after on the same stream,
-//    takes the min of the keys and sums the counts of the splits whose
-//    partial distance key >> shift is the row's minimum; no atomics.
-// 2. min2's max-first epilogue with one key: each lane folds its 16
-//    scores (acc + zc) per row of a tile into the tile's best with
-//    __viaddmax_s32, and one branch per tile runs the exact update for
-//    the rows whose tile best reaches their running best. Without the
-//    count only a strictly better best enters it: a split's later tiles
-//    hold higher indices, so an equal distance cannot lower the key.
-// 3. Only the last live tile can be partial. The split that owns it runs
-//    it through a masked epilogue of its own, columns at or past n_valid
-//    scored INT_MIN (below every real score); every other tile runs
-//    without the branch.
-//
-// Longer windows (EP > 256, L > 64) take min_count_wgchunk_kernel: the
-// same splits over the live rows, masked last tile and merge, and
-// min2.cu's max-first epilogue with one key (MinCountWg), on the
-// warp-specialised wgmma tile of wg_long.cuh (see min2.cu, lever 3):
-// form (a), the block's 256 query rows resident, up to EP = 640 (160
-// bp), form (b), query and db chunks streamed, 256 x 128 a step, past
-// it. They replace the K-chunked split tile (mma.sync fed by ldmatrix,
-// cp.async; 25.8% of the bound at 32768 x 32768, 150 bp, 13.8% at 32768
-// x 2^22, 300 bp; chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W), which
-// replaced the first version's loop there (one split; 8.3% at 300 bp).
+// What the design does about it:
+// 1. Db splits over the live rows only: ceil(B / 256) query tiles x S
+//    db splits, S from ops/min2.py's live_plan over the ceil(n_valid /
+//    64) live 64-row blocks. With S > 1 the splits write int32 key
+//    partials [S, B] (and, with the count, count partials [S, B] after
+//    them) to scratch the wrapper allocates, and min_count_merge_kernel,
+//    launched right after on the same stream, takes the min of the keys
+//    and sums the counts of the splits whose partial distance key >>
+//    shift is the row's minimum; no atomics.
+// 2. The warp-specialised wgmma tiles (see min2.cu, lever 3) over the
+//    live blocks (their W is the blocks' rows). Up to 64 bp (EP <= 256)
+//    min_count_wg_kernel runs wg_scan.cuh's, the rows' A fragments in
+//    registers, m64n64k32 against each 64-row db step. Past it
+//    min_count_wgchunk_kernel runs wg_long.cuh's: form (a), the block's
+//    256 query rows resident, up to EP = 640 (160 bp), form (b), query
+//    and db chunks streamed, 256 x 128 a step, past it. Both replace the
+//    split tile (mma.sync fed by ldmatrix, cp.async; 29% of the bound at
+//    32768 x 32768, 60 bp, 25.8% at 150 bp, and its K-chunked form 13.8%
+//    at 32768 x 2^22, 300 bp; chip_smoke.py, NVIDIA H100 80GB HBM3, 700
+//    W), which replaced the first version's loop (one split; 8.3% at 300
+//    bp).
+// 3. min2.cu's max-first epilogue with one key (MinCountWg): each lane
+//    folds its 16 scores (acc + zc) per row of a block into the block's
+//    best with __viaddmax_s32, the quad shares it by two xor shuffles,
+//    and one branch a block runs the exact update for the rows whose
+//    block best reaches their running best. Without the count only a
+//    strictly better best enters it: a split's later blocks hold higher
+//    indices, so an equal distance cannot lower the key.
+// 4. Only the last live block can be partial: its tile runs masked,
+//    columns at or past n_valid neither fold nor hit; every other block
+//    runs without the branch.
 
 #include <climits>
 
-#include "split_tile.cuh"
 #include "wg_long.cuh"
+#include "wg_scan.cuh"
 
 namespace {
 
-using namespace split_tile;  // the tile's constants and helpers
 using wg_tile::set_if_eq;
 
 constexpr int MERGE_THREADS = 256;
+constexpr int BIG_KEY = 0x7fffffff;  // the empty packed key
 
-// A lane's running state of its rows i = 2m + h (row q0 + g + 8i) over
-// the db columns it owns (2t, 2t + 1 of every n-tile): the best score,
-// the key and (WITH_COUNT) the count at the best score.
-template <bool WITH_COUNT>
-struct MinCountState {
-  int best[4], key[4], cnt[4];
-
-  __device__ __forceinline__ void init() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      best[i] = INT_MIN;
-      key[i] = BIG_KEY;
-      cnt[i] = 0;
-    }
-  }
-
-  // Fold one tile: acc[m][n][2h + c] is row i's dot with tile column 8n
-  // + 2t + c, sZ the tile's zc, w0 its first db row. MASKED: only
-  // columns below rem are live.
-  template <bool MASKED>
-  __device__ __forceinline__ void fold(const int (&acc)[2][8][4],
-                                       const int* sZ, int w0, int t, int rem,
-                                       int seq_len, int shift) {
-    int tb[4] = {INT_MIN, INT_MIN, INT_MIN, INT_MIN};
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int2 z = *reinterpret_cast<const int2*>(sZ + n * 8 + 2 * t);
-      const bool live0 = !MASKED || n * 8 + 2 * t < rem;
-      const bool live1 = !MASKED || n * 8 + 2 * t + 1 < rem;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (live0) tb[i] = __viaddmax_s32(acc[i >> 1][n][2 * (i & 1)], z.x, tb[i]);
-        if (live1) tb[i] = __viaddmax_s32(acc[i >> 1][n][2 * (i & 1) + 1], z.y, tb[i]);
-      }
-    }
-    auto reaches = [&](int i) {
-      return WITH_COUNT ? tb[i] >= best[i] : tb[i] > best[i];
-    };
-    if (reaches(0) | reaches(1) | reaches(2) | reaches(3)) {  // rare after the first tiles
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        // a masked tile may hold no live column of this lane
-        if (!reaches(i) || (MASKED && tb[i] == INT_MIN)) continue;
-        if (tb[i] > best[i]) {
-          best[i] = tb[i];
-          key[i] = BIG_KEY;
-          cnt[i] = 0;
-        }
-        const int kd = (seq_len - tb[i]) << shift;
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int col = n * 8 + 2 * t + c;
-            if ((!MASKED || col < rem) &&
-                acc[i >> 1][n][2 * (i & 1) + c] + sZ[col] == tb[i]) {
-              key[i] = min(key[i], kd | (w0 + col));
-              if (WITH_COUNT) ++cnt[i];
-            }
-          }
-        }
-      }
-    }
-  }
-
-  // The tile from db row w0; `masked`: the last live tile, partial.
-  __device__ __forceinline__ void tile(const int (&acc)[2][8][4],
-                                       const int* sZ, int w0, int t,
-                                       bool masked, int rem, int seq_len,
-                                       int shift) {
-    if (masked) {
-      fold<true>(acc, sZ, w0, t, rem, seq_len, shift);
-    } else {
-      fold<false>(acc, sZ, w0, t, rem, seq_len, shift);
-    }
-  }
-
-  // Merge the 4 lanes (t = 0..3) that share each row (a better best
-  // takes its count, an equal one adds it) and write the rows below B of
-  // the warp from q0 at out0 (split y's partials, or the outputs).
-  __device__ __forceinline__ void store(int* key_out, int* cnt_out,
-                                        long out0, long q0, int g, int t,
-                                        int B) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        const int okey = __shfl_xor_sync(0xffffffffu, key[i], off);
-        if (WITH_COUNT) {
-          const int ob = __shfl_xor_sync(0xffffffffu, best[i], off);
-          const int ocnt = __shfl_xor_sync(0xffffffffu, cnt[i], off);
-          cnt[i] = ob > best[i] ? ocnt : (ob == best[i] ? cnt[i] + ocnt : cnt[i]);
-          best[i] = max(best[i], ob);
-        }
-        key[i] = min(key[i], okey);
-      }
-      const long row = q0 + g + 8 * i;
-      if (t == 0 && row < B) {
-        key_out[out0 + row] = key[i];
-        if (WITH_COUNT) cnt_out[out0 + row] = cnt[i];
-      }
-    }
-  }
-};
-
-// Split y's run of the live tiles (tiles = ceil(n_valid / 64)): tiles
-// [t_begin, t_begin + nt), and the index in it of the last live tile,
-// partial unless n_valid fills it (the last split owns it as its last
-// tile), or -1.
-struct LiveRun {
-  int t_begin, nt, rem, masked_it;
-  __device__ __forceinline__ LiveRun(int n_valid) {
-    const int tiles = (n_valid + S_BN - 1) / S_BN;
-    const int S = gridDim.y, y = blockIdx.y;
-    t_begin = (int)((long)tiles * y / S);
-    nt = (int)((long)tiles * (y + 1) / S) - t_begin;
-    rem = n_valid - (tiles - 1) * S_BN;
-    masked_it = (y == S - 1 && rem < S_BN) ? nt - 1 : -1;
-  }
-};
-
-// key_out (and with the count cnt_out): [S, B] partials, split y at
-// y * B, or the final [B] outputs when S == 1. Split blockIdx.y of
-// gridDim.y = S.
-template <bool WITH_COUNT>
-__global__ void __launch_bounds__(S_THREADS, S_BLOCKS_PER_SM)
-    min_count_split_kernel(const int8_t* __restrict__ q,
-                           const int8_t* __restrict__ db,
-                           const int* __restrict__ zc,
-                           int* __restrict__ key_out,
-                           int* __restrict__ cnt_out, int B, int n_valid,
-                           int EP, int seq_len, int shift) {
-  extern __shared__ __align__(16) int8_t smem[];
-  const int stride = EP + S_PAD;
-  const int sbytes = stage_bytes(stride);
-  int8_t* sA = smem;  // the block's S_BM query rows
-  int8_t* ring = smem + S_BM * stride;
-  const int nks = EP >> 5;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // mma groupID: fragment row / db column
-  const int t = lane & 3;   // mma threadID_in_group
-  const long q0 = (long)blockIdx.x * S_BM + warp * 32;
-  const bool live = q0 < B;  // the warp has a row below B
-  const LiveRun run(n_valid);
-  const int t_begin = run.t_begin, nt = run.nt;
-
-  // The query tile, zero past B, joins the first tile's copy group.
-  issue_queries(sA, q, (long)blockIdx.x * S_BM, B, EP, stride);
-#pragma unroll
-  for (int s = 0; s < S_STAGES - 1; ++s) {
-    if (s < nt) {
-      issue_tile(ring + s * sbytes, db, zc, (long)(t_begin + s) * S_BN, EP,
-                 stride);
-    }
-    cp_async_commit();
-  }
-
-  MinCountState<WITH_COUNT> st;
-  st.init();
-  // ldmatrix.x4 row addresses (split_tile.cuh).
-  const int b_off = b_frag_offset(lane, stride);
-  const int8_t* a_row = a_frag_row(sA, warp, lane, stride);
-
-  for (int it = 0; it < nt; ++it) {
-    cp_async_wait<S_STAGES - 2>();
-    __syncthreads();  // tile it visible; stage (it - 1) % S_STAGES free
-    {
-      const int nx = it + S_STAGES - 1;
-      if (nx < nt) {
-        issue_tile(ring + (nx % S_STAGES) * sbytes, db, zc,
-                   (long)(t_begin + nx) * S_BN, EP, stride);
-      }
-      cp_async_commit();
-    }
-    if (!live) continue;  // the last query tile's rows past B
-    const int8_t* sD = ring + (it % S_STAGES) * sbytes;
-    int acc[2][8][4] = {};
-    tile_mma(acc, a_row, sD + b_off, stride, nks);
-    st.tile(acc, reinterpret_cast<const int*>(sD + S_BN * stride),
-            (t_begin + it) * S_BN, t, it == run.masked_it, run.rem, seq_len,
-            shift);
-  }
-  cp_async_wait<0>();
-  if (!live) return;
-  st.store(key_out, cnt_out, (long)blockIdx.y * B, q0, g, t, B);
-}
-
-// Long windows (EP > S_KS * 32): the epilogue of wg_long.cuh's tile
-// (its interface: begin, tile<M> a 64 x 64 block, end), min2.cu's
-// max-first fold with one key. A lane's rows i = 2M + h (row r0 + 64 M
-// + 8 h) keep the row's best score (the same in the 4 lanes of the
-// quad), the key and (WITH_COUNT) the count at it over the columns the
-// lane owns (8j + 2t + c of every 64-row block). Without the count only
-// a strictly better best enters the update: an item walks its blocks in
-// index order, so an equal distance cannot lower the key. Only the last
-// live block can be partial: its tile runs masked, columns at or past
+// The epilogue of both wgmma tiles (wg_scan.cuh, wg_long.cuh; their
+// interface: begin, tile<M> a 64 x 64 block, end), min2.cu's max-first
+// fold with one key. A lane's rows i = 2M + h (row r0 + 64 M + 8 h) keep
+// the row's best score (the same in the 4 lanes of the quad), the key
+// and (WITH_COUNT) the count at it over the columns the lane owns (8j +
+// 2t + c of every 64-row block). Without the count only a strictly
+// better best enters the update: an item walks its blocks in index
+// order, so an equal distance cannot lower the key. Only the last live
+// block can be partial: its tile runs masked, columns at or past
 // n_valid (live rows, which may match better) neither fold nor hit;
 // every other block is branch-free.
 template <bool WITH_COUNT>
@@ -280,6 +90,23 @@ struct MinCountWg {
   int* cnt_out;
   int B, seq_len, shift, t, last, rem, y;
   long r0;
+
+  // The launch's fields; the live 64-row blocks are ceil(n_valid / 64),
+  // the last one partial (`last`, its live columns `rem`) unless n_valid
+  // fills it. Returns the live blocks' rows.
+  __device__ __forceinline__ int init(int* key_out_, int* cnt_out_, int B_,
+                                      int n_valid, int seq_len_, int shift_) {
+    key_out = key_out_;
+    cnt_out = cnt_out_;
+    B = B_;
+    seq_len = seq_len_;
+    shift = shift_;
+    t = threadIdx.x & 3;
+    const int live = (n_valid + wg_scan::N - 1) / wg_scan::N;
+    rem = n_valid - (live - 1) * wg_scan::N;
+    last = rem < wg_scan::N ? live - 1 : -1;
+    return live * wg_scan::N;
+  }
 
   __device__ __forceinline__ void begin(long r, const wg_scan::Item& im) {
     r0 = r;
@@ -399,9 +226,25 @@ struct MinCountWg {
   }
 };
 
+// The short route (wg_scan.cuh), NKP panels a row, over the live 64-row
+// blocks. key_out (and with the count cnt_out): [S, B] partials, split
+// y at y * B, or the final [B] outputs when S == 1.
+template <int NKP, bool WITH_COUNT>
+__global__ void __launch_bounds__(wg_scan::THREADS, 1)
+    min_count_wg_kernel(const __grid_constant__ CUtensorMap tm_db,
+                        const __grid_constant__ CUtensorMap tm_zc,
+                        const int8_t* __restrict__ q,
+                        int* __restrict__ key_out, int* __restrict__ cnt_out,
+                        int B, int n_valid, int EP, int seq_len, int shift,
+                        int S) {
+  MinCountWg<WITH_COUNT> epi;
+  const int W = epi.init(key_out, cnt_out, B, n_valid, seq_len, shift);
+  wg_scan::run<NKP>(&tm_db, &tm_zc, q, B, W / wg_scan::N, EP, S, epi);
+}
+
 // The long routes (wg_long.cuh), NKP panels a row in form (a), 0 in
 // form (b), over the live 64-row blocks: outputs as
-// min_count_split_kernel's, split y's partials at y * B.
+// min_count_wg_kernel's.
 template <int NKP, bool WITH_COUNT>
 __global__ void __launch_bounds__(wg_long::THREADS, 1)
     min_count_wgchunk_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -411,17 +254,8 @@ __global__ void __launch_bounds__(wg_long::THREADS, 1)
                              int* __restrict__ cnt_out, int B, int n_valid,
                              int seq_len, int shift) {
   MinCountWg<WITH_COUNT> epi;
-  epi.key_out = key_out;
-  epi.cnt_out = cnt_out;
-  epi.B = B;
-  epi.seq_len = seq_len;
-  epi.shift = shift;
-  epi.t = threadIdx.x & 3;
-  const int live = (n_valid + wg_scan::N - 1) / wg_scan::N;
-  epi.rem = n_valid - (live - 1) * wg_scan::N;
-  epi.last = epi.rem < wg_scan::N ? live - 1 : -1;
-  wg_long::run<NKP>(&tm_q, &tm_db, &tm_zc, B, live * wg_scan::N, T, S, R,
-                    nkp, epi);
+  const int W = epi.init(key_out, cnt_out, B, n_valid, seq_len, shift);
+  wg_long::run<NKP>(&tm_q, &tm_db, &tm_zc, B, W, T, S, R, nkp, epi);
 }
 
 // part: int32 [S, B] key partials of the S splits, then, with the
@@ -446,23 +280,10 @@ __global__ void min_count_merge_kernel(const int* __restrict__ part,
   }
 }
 
-template <class Kernel>
-cudaError_t launch(Kernel kernel, int smem, dim3 grid, const int8_t* q,
-                   const int8_t* db, const int* zc, int* key, int* cnt,
-                   int B, int n_valid, int EP, int seq_len, int shift,
-                   cudaStream_t s) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, S_THREADS, smem, s>>>(q, db, zc, key, cnt, B, n_valid, EP,
-                                       seq_len, shift);
-  return cudaGetLastError();
-}
-
-// The split kernel up to EP = S_KS * 32, the long route's (wg_long.cuh)
-// over the live rows past it, in form (a) up to wg_long::EP_A_MAX; with
-// splits > 1 it writes part = key [, cnt] x [splits, B] and the merge
-// follows.
+// The short route up to wg_scan::EP_MAX, the long route's past it, in
+// form (a) up to wg_long::EP_A_MAX, each over the live rows; with
+// splits > 1 the kernel writes part = key [, cnt] x [splits, B] and the
+// merge follows.
 template <bool WITH_COUNT>
 cudaError_t launch_split(const int8_t* q, const int8_t* db, const int* zc,
                          int* key, int* cnt, int* part, int B, int n_valid,
@@ -471,12 +292,16 @@ cudaError_t launch_split(const int8_t* q, const int8_t* db, const int* zc,
   const bool direct = splits == 1;
   int* key_o = direct ? key : part;
   int* cnt_o = direct ? cnt : part + (long)splits * B;
-  const int live = (n_valid + S_BN - 1) / S_BN * S_BN;
+  const int live = (n_valid + wg_scan::N - 1) / wg_scan::N * wg_scan::N;
   const cudaError_t err =
-      EP <= S_KS * 32
-          ? launch(min_count_split_kernel<WITH_COUNT>, split_smem(EP),
-                   dim3((B + S_BM - 1) / S_BM, splits), q, db, zc, key_o,
-                   cnt_o, B, n_valid, EP, seq_len, shift, s)
+      EP <= wg_scan::EP_MAX
+          ? wg_scan::by_panels(EP, [&](auto panels) {
+              constexpr int NKP = decltype(panels)::value;
+              return wg_scan::launch<NKP>(
+                  min_count_wg_kernel<NKP, WITH_COUNT>, db, zc, B, live, EP,
+                  splits, s, q, key_o, cnt_o, B, n_valid, EP, seq_len, shift,
+                  splits);
+            })
           : wg_long::by_form(EP, [&](auto form) {
               constexpr int NKP = decltype(form)::value;
               return wg_long::launch<NKP>(
@@ -497,10 +322,9 @@ cudaError_t launch_split(const int8_t* q, const int8_t* db, const int* zc,
 // key and cnt: int32 [B], cnt written (and read as a pointer) only when
 // with_count; part: int32 [with_count ? 2 : 1, splits, B] scratch when
 // splits > 1 (else unused). Requires EP % 32 == 0, W % 64 == 0,
-// B >= 1, 1 <= n_valid <= W, 16-byte aligned q and db (and zc past EP =
-// 256, a TMA source) and
-// 1 <= splits <= ceil(n_valid / 64). Returns the cudaError_t of the
-// launches.
+// B >= 1, 1 <= n_valid <= W, 16-byte aligned q, db and zc (TMA
+// sources) and 1 <= splits <= ceil(n_valid / 64). Returns the
+// cudaError_t of the launches.
 extern "C" int smafa_min_count(const void* q, const void* db, const void* zc,
                                void* key, void* cnt, void* part, int B,
                                int n_valid, int EP, int seq_len, int shift,
@@ -513,7 +337,7 @@ extern "C" int smafa_min_count(const void* q, const void* db, const void* zc,
   int* cp = static_cast<int*>(cnt);
   int* pp = static_cast<int*>(part);
   if (B < 1 || n_valid < 1) return (int)cudaErrorInvalidValue;
-  if (splits < 1 || splits > (n_valid + S_BN - 1) / S_BN) {
+  if (splits < 1 || splits > (n_valid + wg_scan::N - 1) / wg_scan::N) {
     return (int)cudaErrorInvalidValue;
   }
   return (int)(with_count

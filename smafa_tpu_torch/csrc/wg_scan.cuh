@@ -1,9 +1,12 @@
-// The short route (EP <= 256 bytes, L <= 64) of min2.cu and compact.cu
-// on Hopper: a warp-specialised, persistent scan of query tiles against
-// the db, whose caller supplies the epilogue of each 64 x 64 block of
-// scores. Built from wg_tile.cuh.
+// The short route (EP <= 256 bytes, L <= 64) of min2.cu, compact.cu,
+// kstats.cu and min_count.cu on Hopper: a warp-specialised, persistent
+// scan of query tiles against the db, whose caller supplies the epilogue
+// of each 64 x 64 block of scores. Built from wg_tile.cuh. kstats and
+// min_count scan only the first n_valid db rows: their W is the live
+// 64-row blocks' rows, and their epilogues mask the last block past
+// n_valid.
 //
-// What bounds both kernels: the int8 contraction, 2 * B * W * 4L
+// What bounds the kernels: the int8 contraction, 2 * B * W * 4L
 // operations over 1,979 TOP/s (8.33 ms at 32768 x 2^20, L = 60). The
 // design:
 //
@@ -36,6 +39,12 @@
 // 5. Persistent blocks: grid = min(items, SMs), items = query tiles x
 //    db splits, query tile fastest, so blocks in flight share a db split
 //    in L2; ops/min2.py's short_plan picks the splits.
+// 6. A step's zc is read by plain loads and its stage then refilled by
+//    TMA (the async proxy): each consumer fences the two proxies after
+//    its zc read, before tile 0's epilogue (the fence also waits for the
+//    thread's stores in flight, and there only the step before's tile 1
+//    stores can be), and so before it releases the stage (see
+//    wg_long.cuh, whose form (a) read a later step's zc without it).
 //
 // The epilogue (class Epi) gets, per item, begin(r0, item) (r0: the
 // lane's row of tile 0, half 0) and end(item); per step s, tile<0> and
@@ -46,6 +55,7 @@
 #pragma once
 
 #include <algorithm>
+#include <type_traits>
 
 #include "wg_tile.cuh"
 
@@ -183,6 +193,7 @@ __device__ void consume(const int8_t* __restrict__ q, Ring rg, int qtiles,
       wgmma_wait<1>();  // tile 0 done; tile 1's product runs on
       fence_regs(acc0);
       zload(J);
+      fence_proxy_async();  // the zc read before TMA may refill the stage
       epi.template tile<0>(acc0, z, s);
       wgmma_wait<0>();
       fence_regs(acc1);
@@ -225,6 +236,15 @@ __device__ __forceinline__ void run(const CUtensorMap* tdb,
     setmaxnreg_inc<CONSUMER_REGS>();
     consume<NKP>(q, rg, qtiles, T, S, B, EP, epi);
   }
+}
+
+// The panels of a row of EP <= EP_MAX bytes: f(std::integral_constant<
+// int, NKP>), which launches the caller's kernel<NKP>.
+template <class F>
+cudaError_t by_panels(int EP, F f) {
+  static_assert(EP_MAX == 2 * PANEL, "a case for each panel count");
+  return EP <= PANEL ? f(std::integral_constant<int, 1>())
+                     : f(std::integral_constant<int, 2>());
 }
 
 // Host: launch a short-route kernel of NKP panels a row, whose

@@ -17,23 +17,18 @@ from smafa_tpu_torch.ops import distance as D
 
 launches = 0
 
-# The split tile (csrc/split_tile.cuh), kstats' and min_count's up to 64
-# bp, which ``launch_plan`` mirrors: query rows per block, blocks
-# resident on one SM and the widest embedding of the short route (L <=
-# 64). Past it they run the K-chunked wgmma tile, as min2 and
-# compact_mask do (``live_plan``).
-BM = 256
-BLOCKS_PER_SM = 2
-SPLIT_EP_MAX = 256
-
-# min2's and compact_mask's short route (EP <= SPLIT_EP_MAX), the
+# The short route (EP <= SPLIT_EP_MAX, L <= 64) of all four scans, the
 # warp-specialised wgmma tile (csrc/wg_scan.cuh), which ``short_plan``
 # mirrors: query rows a block, db rows a step, one persistent block an
 # SM. An item's fixed cost in steps: its A fragments and the drain
 # (compact_mask), and for min2 also the exact updates of its split,
 # whose every row restarts its running best and meets again the records
 # and ties of a running maximum (tools/torch_wg_probe.py --splits times
-# min2 at other splits; PERF.md section 6).
+# the kernels at other splits; PERF.md section 6). kstats' and
+# min_count's item costs (below) serve both their routes: on an H100 the
+# short route's planned splits came within 0.4% of the best of those
+# timed at their main shapes.
+SPLIT_EP_MAX = 256
 WG_ROUTE = "wgmma"
 WG_ROWS = 256
 WG_STEP = 64
@@ -75,8 +70,9 @@ def splits_for(qtiles: int, steps: int, sms: int, item_steps: int) -> int:
 @functools.lru_cache(maxsize=None)
 def short_plan(b: int, wp: int, sms: int, item_steps: int) -> int:
     """db splits S of the short route's launch of min2 (item_steps
-    MIN2_ITEM_STEPS) or compact_mask (COMPACT_ITEM_STEPS) with b >= 1
-    query rows and wp db rows, a multiple of WG_STEP, on a card with
+    MIN2_ITEM_STEPS), compact_mask (COMPACT_ITEM_STEPS), kstats or
+    min_count (their item costs; wp their live rows, ``live_plan``) with
+    b >= 1 query rows and wp db rows, a multiple of WG_STEP, on a card with
     ``sms`` SMs: items = ceil(b / WG_ROWS) query tiles x S db splits
     (``splits_for``; split i of S walks steps steps * i // S up to steps
     * (i + 1) // S), which the kernel walks with min(items, sms)
@@ -106,27 +102,12 @@ def long_plan(b: int, wp: int, ep: int, sms: int,
 
 def scan_plan(b: int, wp: int, ep: int, sms: int,
               item_steps: int) -> tuple[str, int]:
-    """(route, db splits) of a min2 or compact_mask launch (item_steps:
-    the kernel's, see ``short_plan``): the short route (``WG_ROUTE``) up
-    to SPLIT_EP_MAX, else ``long_plan``'s."""
+    """(route, db splits) of a launch of one of the four scans
+    (item_steps: the kernel's, see ``short_plan``): the short route
+    (``WG_ROUTE``) up to SPLIT_EP_MAX, else ``long_plan``'s."""
     if ep <= SPLIT_EP_MAX:
         return WG_ROUTE, short_plan(b, wp, sms, item_steps)
     return long_plan(b, wp, ep, sms, item_steps)
-
-
-def split_count(b: int, wp: int, slots: int) -> int:
-    """Db splits S of the kernel's grid (ceil(b / BM) query tiles x S),
-    given the card's resident block slots (SMs x blocks per SM): 1 when
-    the query tiles alone fill the slots, else as many as fit beside
-    them, never more than the 64-row tiles (split i of S walks tiles
-    tiles * i // S up to tiles * (i + 1) // S). Batches are padded to
-    powers of two, for which the grid comes within 3% of the 132 x k
-    slots of an H100."""
-    qtiles = -(-b // BM)
-    tiles = wp // D.WP_MULTIPLE
-    if qtiles >= slots:
-        return 1
-    return max(1, min(tiles, slots // qtiles))
 
 
 @functools.lru_cache(maxsize=None)
@@ -134,17 +115,6 @@ def sm_count(device: torch.device) -> int:
     """SMs of the card ``device`` names, queried once per device: the
     query is host work that every launch would otherwise repeat."""
     return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def launch_plan(b: int, wp: int, ep: int, sms: int) -> tuple[str, int]:
-    """(route, db splits) of a launch of the split tile's kernels (kstats
-    and min_count up to 64 bp, EP <= SPLIT_EP_MAX) on a card with
-    ``sms`` SMs: "split" with ``split_count`` splits over the card's
-    resident block slots. Raises past SPLIT_EP_MAX, where they run the
-    long routes (``live_plan``)."""
-    if ep > SPLIT_EP_MAX:
-        raise ValueError(f"the split tile takes EP <= {SPLIT_EP_MAX}, not {ep}")
-    return "split", split_count(b, wp, sms * BLOCKS_PER_SM)
 
 
 def kernel_plan(b: int, wp: int, ep: int, sms: int) -> tuple[str, int]:
@@ -160,15 +130,12 @@ def live_plan(b: int, n_valid: int, ep: int, sms: int,
     there is nothing to scan (b == 0 or n_valid == 0), which launches
     nothing; else, over the live rows only, ceil(n_valid / 64) x 64 of
     them, so no split walks the buffer past n_valid's 64-row block:
-    ``launch_plan`` up to SPLIT_EP_MAX, ``long_plan`` past it (form (a)
-    up to 160 bp; 161-168 bp, which the K-chunked split tile took in
-    form (a), take form (b))."""
+    ``scan_plan``'s route and splits (the short route up to
+    SPLIT_EP_MAX; past it form (a) up to 160 bp and form (b) past it)."""
     if b == 0 or n_valid == 0:
         return "none", 0
     live = -(-n_valid // D.WP_MULTIPLE) * D.WP_MULTIPLE
-    if ep <= SPLIT_EP_MAX:
-        return launch_plan(b, live, ep, sms)
-    return long_plan(b, live, ep, sms, item_steps)
+    return scan_plan(b, live, ep, sms, item_steps)
 
 
 def check_operands(q_emb: torch.Tensor, db_emb: torch.Tensor,
@@ -201,8 +168,7 @@ def check_operands(q_emb: torch.Tensor, db_emb: torch.Tensor,
 
 def check_tma_zc(zc: torch.Tensor) -> None:
     """Raise unless zc may be a TMA source (16-byte aligned), as every
-    route of min2 and compact_mask and the long routes of kstats and
-    min_count copy it."""
+    route of the four scans copies it."""
     if zc.data_ptr() % 16:
         raise ValueError("zc must be 16-byte aligned (a TMA source)")
 

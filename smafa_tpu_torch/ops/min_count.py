@@ -50,8 +50,7 @@ def min_count(q_emb: torch.Tensor, db_emb: torch.Tensor, zc: torch.Tensor,
     # the splits' partials; the caching allocator ties it to this stream
     part = torch.empty((2 if with_count else 1, s, b), dtype=torch.int32,
                        device=q_emb.device) if s > 1 else None
-    if ep > M.SPLIT_EP_MAX:
-        M.check_tma_zc(zc)
+    M.check_tma_zc(zc)
     lib = _build.load()
     stream = torch.cuda.current_stream(q_emb.device).cuda_stream
     rc = lib.smafa_min_count(q_emb.data_ptr(), db_emb.data_ptr(),

@@ -2,15 +2,23 @@
 version on the card: exact equality, one launch per call that scans, and
 the route and db splits of its launch plan.
 
-The split route (L <= 64) at B = 1, 16, 77 and 300 against 2^20 + 37
-rows (many splits, the last query tile partial, the last db tile 37
-rows); n_valid = 37 (one partial tile), 64 x 47 exactly and 3001, each in
-a longer buffer whose rows past n_valid are live, among them exact
-copies of the queries and rows at distance L from them; thresholds all
--1, all L and equal across the probes; a db of one repeated row; and the
-cutoff search at K past the window count, where the cutoff is the row
-max. Windows past 64 bp take the K-chunked route
-(tests/test_torch_gpu_kstats_long.py holds it at every form and split).
+The short route (L <= 64, "wgmma": csrc/wg_scan.cuh's warp-specialised
+tile, counts in byte lanes below 64 bp and in 16-bit pairs at 64 bp) at
+B = 1, 16, 77 and 300 against 2^20 + 37 rows (many splits, the last
+query tile partial, the last db block 37 rows); n_valid = 37 (one
+partial block), 64 x 47 exactly and 3001, each in a longer buffer whose
+rows past n_valid are live, among them exact copies of the queries and
+rows at distance L from them; thresholds all -1, all L and equal across
+the probes; a db of one repeated row; and the cutoff search at K past
+the window count, where the cutoff is the row max. Then through the
+library's C entry at 1, 7, the plan's and ceil(n_valid / 64) splits
+(the last split owns the partial block at every count): L = 3, 32, 33,
+60, 63 and 64 (the panel and byte-lane boundaries) at B = 1, 77 and
+32768, n_valid below 64 and ragged, rows past n_valid that every
+threshold would count; and more than PAIR_TILES (4095) blocks of one
+repeated row in one split, in byte lanes and in pairs. Windows past 64
+bp take the K-chunked route (tests/test_torch_gpu_kstats_long.py holds
+it at every form and split).
 
 Marked ``gpu``: each test skips where no CUDA device is visible. Run with
 ``python -m pytest --noconftest -m gpu tests/test_torch_gpu*.py``; the
@@ -22,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from torch_gpu_common import WP_MULTIPLE, cuda  # noqa: F401
+from torch_gpu_common import WP_MULTIPLE, cuda, operands  # noqa: F401
 
 pytestmark = pytest.mark.gpu
 
@@ -110,7 +118,7 @@ def test_kstats_split_kernel_equals_plain(cuda, b):
     q[: max(1, b // 10)] = buf[BIG - 1]  # the last, partial tile's last row
     emb, zc, q_emb = _embed(cuda, buf, q, seq_len)
     route, splits = _plan(cuda, b, BIG, q_emb.shape[1])
-    assert route == "split" and splits > 1
+    assert route == "wgmma" and splits > 1
     ts = rng.integers(-1, seq_len + 1, (cuda.K.KSTATS_PROBES, b))
     ts[:, 0] = [0, 40, 45, seq_len]
     cnt, mx = _stats(cuda, q_emb, emb, zc, ts, BIG, seq_len)
@@ -132,7 +140,7 @@ def test_kstats_live_rows_past_n_valid(cuda, n_valid):
     buf[n_valid:n_valid + b] = q
     buf[n_valid + b:n_valid + 2 * b] = (q + 2) % 4  # distance L
     emb, zc, q_emb = _embed(cuda, buf, q, seq_len)
-    assert _plan(cuda, b, n_valid, q_emb.shape[1])[0] == "split"
+    assert _plan(cuda, b, n_valid, q_emb.shape[1])[0] == "wgmma"
     ts = rng.integers(-1, seq_len + 1, (cuda.K.KSTATS_PROBES, b))
     ts[:, :8] = seq_len
     cnt, mx = _stats(cuda, q_emb, emb, zc, ts, n_valid, seq_len)
@@ -185,7 +193,7 @@ def test_kstats_repeated_row_db(cuda):
 
 
 def test_kstats_cutoff_past_the_window_count(cuda):
-    """kmode_phase1 at K > n_windows over the split kernel: the cutoff is
+    """kmode_phase1 at K > n_windows over the kernel: the cutoff is
     the row max over the real rows, though the buffer's rows past them
     are live and farther."""
     torch, D = cuda.torch, cuda.D
@@ -207,7 +215,7 @@ def test_kstats_cutoff_past_the_window_count(cuda):
 
 
 def test_kstats_split_route_at_63_and_64_bp(cuda):
-    """The widest windows of the split route: 63 bp counts four probes in
+    """The widest windows of the short route: 63 bp counts four probes in
     the bytes of one register, 64 bp in 16-bit pairs; thresholds reach
     -1 and L. Byte lanes are exact only while every score q . db + zc of
     a real row lies in [0, 63]. The operands come from ``embed_db`` and
@@ -226,7 +234,7 @@ def test_kstats_split_route_at_63_and_64_bp(cuda):
         emb, zc, q_emb = _embed(cuda, buf, q, seq_len)
         scores = q_emb.float() @ emb[:8999].float().T + zc[:8999].float()
         assert int(scores.min()) == 0 and int(scores.max()) == seq_len
-        assert _plan(cuda, b, nw, q_emb.shape[1])[0] == "split"
+        assert _plan(cuda, b, nw, q_emb.shape[1])[0] == "wgmma"
         ts = rng.integers(-1, seq_len + 1, (cuda.K.KSTATS_PROBES, b))
         ts[:, :4] = [[-1], [0], [seq_len - 1], [seq_len]]
         cnt, mx = _stats(cuda, q_emb, emb, zc, ts, 8999, seq_len)
@@ -250,3 +258,99 @@ def test_kstats_long_route_equals_plain(cuda, seq_len):
     assert splits > 1
     ts = rng.integers(-1, seq_len + 1, (cuda.K.KSTATS_PROBES, b))
     _stats(cuda, q_emb, emb, zc, ts, 8999, seq_len)
+
+
+def _launch(g, q_emb, emb, zc, ts, n_valid, seq_len, splits):
+    """kstats through the library's C entry at ``splits`` db splits."""
+    from smafa_tpu_torch.ops import _build
+
+    torch = g.torch
+    b, ep = q_emb.shape
+    cnt = torch.full(tuple(ts.shape), -7, dtype=torch.int32, device=g.dev)
+    mx = torch.full((b,), -7, dtype=torch.int32, device=g.dev)
+    part = torch.empty((ts.shape[0] + 1, splits, b), dtype=torch.int32,
+                       device=g.dev)
+    rc = _build.load().smafa_kstats(
+        q_emb.data_ptr(), emb.data_ptr(), zc.data_ptr(), ts.data_ptr(),
+        cnt.data_ptr(), mx.data_ptr(), part.data_ptr(), b, n_valid, ep,
+        seq_len, splits, torch.cuda.current_stream(g.dev).cuda_stream)
+    _build.check(rc, "kstats")
+    return cnt, mx
+
+
+def _held(g, q_emb, emb, zc, ts, n_valid, seq_len, splits=(1, 7)):
+    """The C entry at each of ``splits``, at the plan's splits and at
+    ceil(n_valid / 64), and the wrapper, equal the plain version; the
+    plan is the short route. Returns (cnt, mx) as numpy."""
+    torch = g.torch
+    ts = torch.from_numpy(np.ascontiguousarray(ts, np.int32)).to(g.dev)
+    want = g.D.stats_reference(q_emb, emb, zc, ts, n_valid, seq_len)
+    route, s = _plan(g, q_emb.shape[0], n_valid, q_emb.shape[1])
+    tiles = -(-n_valid // WP_MULTIPLE)
+    assert route == "wgmma" and 1 <= s <= tiles
+    for n in sorted({min(x, tiles) for x in (*splits, s, tiles)}):
+        got = _launch(g, q_emb, emb, zc, ts, n_valid, seq_len, n)
+        torch.cuda.synchronize()
+        for a, w in zip(got, want):
+            assert torch.equal(a, w), n
+    _stats(g, q_emb, emb, zc, ts.cpu().numpy(), n_valid, seq_len)
+    return want[0].cpu().numpy(), want[1].cpu().numpy()
+
+
+@pytest.mark.parametrize("seq_len", [3, 32, 33, 60, 63, 64])
+def test_kstats_wg_widths_and_batches(cuda, seq_len):
+    """Each width at B = 1 and 77, n_valid = 37 (below one block), 3001
+    (ragged) and 4096 (whole blocks) in a 4,224-row buffer whose rows
+    past n_valid are exact copies of the reads (each would count at
+    every threshold), thresholds mixing -1, 0 and L."""
+    wp = 4224
+    for b in (1, 77):
+        for n_valid in (37, 3001, 4096):
+            rng = np.random.default_rng(seq_len * 1000 + n_valid + b)
+            buf = rng.integers(0, 4, (wp, seq_len), dtype=np.uint8)
+            q = buf[rng.integers(0, n_valid, b)].copy()
+            q[:, :1] = (q[:, :1] + 1) % 4
+            past = min(b, wp - n_valid)
+            buf[n_valid:n_valid + past] = q[:past]
+            emb, zc, q_emb = _embed(cuda, buf, q, seq_len)
+            ts = rng.integers(-1, seq_len + 1, (cuda.K.KSTATS_PROBES, b))
+            ts[0] = 0
+            ts[3, ::2] = seq_len
+            cnt, mx = _held(cuda, q_emb, emb, zc, ts, n_valid, seq_len)
+            dist = (q[:, None, :] != buf[None, :n_valid, :]).sum(axis=2)
+            np.testing.assert_array_equal(mx, dist.max(axis=1))
+            if seq_len >= 32:  # no read lies at distance 0
+                assert (cnt[0] == 0).all()
+            assert (cnt[3, ::2] == n_valid).all()
+
+
+@pytest.mark.parametrize("seq_len", [33, 60, 64])
+def test_kstats_wg_32768_reads(cuda, seq_len):
+    """32,768 reads (128 query tiles) against 3001 rows, byte lanes and
+    pairs."""
+    emb, zc, q_emb, _ = operands(cuda, seq_len, 3001, 32768, seq_len)
+    rng = np.random.default_rng(seq_len)
+    ts = rng.integers(-1, seq_len + 1, (cuda.K.KSTATS_PROBES, 32768))
+    _held(cuda, q_emb, emb, zc, ts, 3001, seq_len)
+
+
+@pytest.mark.parametrize("seq_len", [60, 64])
+def test_kstats_wg_flushes_every_pair_count(cuda, seq_len):
+    """One split over 4,097 blocks of one repeated row and 37 rows more,
+    in byte lanes (60 bp) and pairs (64 bp): every lane's counts fill
+    (16 a block), flush every PAIR_TILES blocks and pass 65,535; each
+    count is every row or none, at thresholds below, at and above each
+    read's distance."""
+    nw, b = 4097 * 64 + 37, 33
+    rng = np.random.default_rng(seq_len)
+    row = rng.integers(0, 4, (1, seq_len), dtype=np.uint8)
+    buf = np.repeat(row, nw, axis=0)
+    q = np.repeat(row, b, axis=0)
+    q[:, :5] = (q[:, :5] + (np.arange(b)[:, None] % 3)) % 4  # dist 0 or 5
+    emb, zc, q_emb = _embed(cuda, buf, q, seq_len)
+    dist = (q != row).sum(axis=1)
+    ts = np.stack([dist - 1, dist, np.full(b, seq_len), np.full(b, -1)])
+    cnt, mx = _held(cuda, q_emb, emb, zc, ts, nw, seq_len, splits=(1,))
+    np.testing.assert_array_equal(mx, dist)
+    np.testing.assert_array_equal(cnt, np.where(dist[None] <= ts, nw, 0))
+    assert (cnt[1] == nw).all() and nw > 65535

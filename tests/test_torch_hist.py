@@ -109,8 +109,8 @@ def test_hist_rejects_bad_operands(port, bad):
 
 
 def test_launch_plan_routes(port):
-    """The route follows the embedding width (the split tile's width up
-    to SPLIT_EP_MAX, and hist's own RESIDENT_EP_MAX); a block's bins
+    """The route follows the embedding width (the scans' short route's
+    width up to SPLIT_EP_MAX, and hist's own RESIDENT_EP_MAX); a block's bins
     (16-bit copies a lane on the split route, a lane pair to 168 bp, one
     odd-strided row of two-bin words past it) and ring fit the card's
     232,448 shared bytes;
@@ -125,8 +125,9 @@ def test_launch_plan_routes(port):
         assert plan.route == route
         assert (route == "split") == (ep <= port.M.SPLIT_EP_MAX)
         assert (route == "kchunk_stream") == (ep > port.H.RESIDENT_EP_MAX)
-        if route == "split":
-            assert port.M.launch_plan(4096, 1 << 20, ep, 132)[0] == route
+        if route == "split":  # the widths of the scans' short route
+            assert port.M.live_plan(4096, 1 << 20, ep, 132,
+                                    port.M.KSTATS_ITEM_STEPS)[0] == "wgmma"
         want_bins = (8 * (seq_len + 1) * 32 * 4 if route == "split"
                      else 8 * (seq_len + 1) * 16 * 4 if route == "kchunk"
                      else rows * (((seq_len + 2) // 2) | 1) * 4)

@@ -104,8 +104,8 @@ def test_work_items_cover_every_row_once(port, b, n_valid, seq_len, sms):
 def test_route_by_width_as_the_kernel_picks_it(port):
     """csrc/hist.cu's smafa_hist picks "split" up to EP = 256,
     "kchunk" up to EP = 672 (ops/hist.py RESIDENT_EP_MAX) and
-    "kchunk_stream" past it; the plan agrees at every L, and with the
-    split tile's plan (kstats' and min_count's) up to 256."""
+    "kchunk_stream" past it; the plan agrees at every L, and its "split"
+    route covers the widths of kstats' short route ("wgmma") up to 256."""
     assert port.H.RESIDENT_EP_MAX == 672
     for seq_len in range(1, 1024):
         ep = port.D.embed_width(seq_len)
@@ -114,7 +114,8 @@ def test_route_by_width_as_the_kernel_picks_it(port):
         assert port.H.route_of(seq_len).name == want
         assert port.H.launch_plan(77, 1000, seq_len, 132).route == want
         if ep <= port.M.SPLIT_EP_MAX:
-            assert port.M.launch_plan(77, 1 << 20, ep, 132)[0] == want
+            assert port.M.live_plan(77, 1 << 20, ep, 132,
+                                    port.M.KSTATS_ITEM_STEPS)[0] == "wgmma"
     assert [port.H.route_of(L).name for L in (64, 65, 168, 169)] == [
         "split", "kchunk", "kchunk", "kchunk_stream"]
 

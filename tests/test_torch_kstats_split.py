@@ -4,8 +4,10 @@ The launch plan (``ops/min2.py:live_plan``) cuts only the live
 64-row tiles, ceil(n_valid / 64) of them, into splits the way the kernel
 does (split y of S walks tiles tiles * y // S up to tiles * (y + 1) //
 S): every live tile once, none past n_valid's, one split when the query
-tiles fill the card's block slots, the K-chunked wgmma tile's plan past
-64 bp (tests/test_torch_long_plan.py), no launch at n_valid = 0. The
+tiles fill the card's SMs, the short route's plan (``short_plan``, the
+wgmma tile of csrc/wg_scan.cuh) up to 64 bp and the K-chunked wgmma
+tile's past it (tests/test_torch_long_plan.py), no launch at n_valid =
+0. The
 merge the kernel does (counts summed over the splits, maxima maxed) is
 held on plain tensors: ``stats_reference`` over
 each split's rows, merged, equals ``stats_reference`` over [0, n_valid)
@@ -55,10 +57,11 @@ def _split_rows(n_valid: int, s: int) -> list[tuple[int, int]]:
             for y in range(s)]
 
 
-# (B, n_valid) -> splits on an H100 (132 SMs x 2 blocks); qtiles = ceil(B
-# / 256) query tiles take 264 // qtiles splits, at most one per live tile
-PLAN = {16384: {BIG: 4, 3001: 4, 37: 1}, 4096: {BIG: 16, 3001: 16, 37: 1},
-        300: {BIG: 132, 3001: 47, 37: 1}, 1: {BIG: 264, 3001: 47, 37: 1}}
+# (B, n_valid) -> splits on an H100 (132 SMs, one persistent block
+# each): ``short_plan`` over qtiles = ceil(B / 256) query tiles and the
+# live steps at KSTATS_ITEM_STEPS, at most one split per live tile
+PLAN = {16384: {BIG: 33, 3001: 2, 37: 1}, 4096: {BIG: 33, 3001: 8, 37: 1},
+        300: {BIG: 66, 3001: 47, 37: 1}, 1: {BIG: 132, 3001: 47, 37: 1}}
 
 
 @pytest.mark.parametrize("b", sorted(PLAN))
@@ -68,7 +71,9 @@ def test_kstats_plan_covers_the_live_tiles(port, b):
     for n_valid, want in PLAN[b].items():
         route, s = _plan(port, b, n_valid, ep, H100_SMS)
         tiles = -(-n_valid // WP_MULTIPLE)
-        assert route == "split" and s == want and 1 <= s <= tiles
+        assert route == "wgmma" and s == want and 1 <= s <= tiles
+        assert s == port.M.short_plan(b, tiles * WP_MULTIPLE, H100_SMS,
+                                      port.M.KSTATS_ITEM_STEPS)
         cover = np.zeros(tiles + 1, np.int64)  # + 1: the tile past n_valid's
         for y in range(s):
             t0, t1 = tiles * y // s, tiles * (y + 1) // s
@@ -81,15 +86,18 @@ def test_kstats_plan_covers_the_live_tiles(port, b):
 
 
 def test_kstats_plan_one_split_when_query_tiles_fill_the_slots(port):
-    """264 query tiles fill an H100's 132 x 2 slots: one split, no merge;
-    one query tile fewer leaves room for a second."""
+    """132 query tiles fill an H100's 132 SMs: one split, no merge, and
+    so do 131; half as many take two. One tile more would leave a second
+    wave of one item, so the splits even it out (64); at 2^20 reads (4096
+    tiles) 12 splits even out the waves. Never more splits than live
+    tiles, whatever the SMs."""
     ep = port.D.embed_width(60)
-    slots = H100_SMS * port.M.BLOCKS_PER_SM
-    for b in (256 * slots, 256 * slots + 1, 1 << 20):
-        assert _plan(port, b, BIG, ep, H100_SMS) == ("split", 1)
-    assert _plan(port, 256 * (slots - 1), BIG, ep, H100_SMS) == ("split", 1)
-    assert _plan(port, 256 * (slots // 2), BIG, ep, H100_SMS) == ("split", 2)
-    assert _plan(port, 1, 3001, ep, 1000) == ("split", 47)
+    for b in (256 * H100_SMS, 256 * (H100_SMS - 1)):
+        assert _plan(port, b, BIG, ep, H100_SMS) == ("wgmma", 1)
+    assert _plan(port, 256 * (H100_SMS // 2), BIG, ep, H100_SMS) == ("wgmma", 2)
+    assert _plan(port, 256 * H100_SMS + 1, BIG, ep, H100_SMS) == ("wgmma", 64)
+    assert _plan(port, 1 << 20, BIG, ep, H100_SMS) == ("wgmma", 12)
+    assert _plan(port, 1, 3001, ep, 1000) == ("wgmma", 47)
 
 
 def test_kstats_plan_routes_by_width(port):
@@ -97,7 +105,7 @@ def test_kstats_plan_routes_by_width(port):
     query rows resident up to 160 bp ("wg_kchunk") and streamed past it
     ("wg_kchunk_stream"), with ``long_plan``'s splits over the live
     rows at kstats' item cost, never more than the live steps; up to 64
-    bp the split route."""
+    bp the short route, ``short_plan``'s splits over the live rows."""
     M = port.M
     for seq_len in (3, 60, 64, 65, 150, 160, 161, 168, 169, 300):
         ep = port.D.embed_width(seq_len)
@@ -111,7 +119,9 @@ def test_kstats_plan_routes_by_width(port):
                 elif seq_len > 64:
                     assert route == "wg_kchunk" and 1 <= s <= tiles
                 else:
-                    assert route == "split" and s >= 1
+                    assert route == "wgmma" and 1 <= s <= tiles
+                    assert s == M.short_plan(b, tiles * WP_MULTIPLE,
+                                             H100_SMS, M.KSTATS_ITEM_STEPS)
                 if seq_len > 64:
                     assert (route, s) == M.long_plan(
                         b, tiles * WP_MULTIPLE, ep, H100_SMS,
@@ -153,9 +163,9 @@ def _merged_splits(port, q_emb, emb, zc, ts, n_valid, seq_len, s):
 @pytest.mark.parametrize("seq_len", [3, 60, 150])
 def test_split_merge_equals_whole_and_statsN_pass(port, seq_len, sms):
     """n_valid = 517 of a 640-row live buffer (9 tiles, the last
-    partial): on 132 SMs one tile per split, on 2 SMs 4 splits that do
+    partial): on 132 SMs one tile per split, on 2 SMs 2 splits that do
     not divide the tiles. The long route (L = 150) runs one split, so
-    the merge is held at the split route's plan for L = 60."""
+    the merge is held at the short route's plan for L = 60."""
     wp, b, n_valid = 640, 40, 517
     buf, q, ts_np = _case(seq_len, wp, b, n_valid, seq_len + sms)
     from_numpy = port.torch.from_numpy
@@ -163,7 +173,7 @@ def test_split_merge_equals_whole_and_statsN_pass(port, seq_len, sms):
     q_emb = port.D.expand_embed_query(from_numpy(q), seq_len)
     ts = from_numpy(ts_np)
     _, s = _plan(port, b, n_valid, port.D.embed_width(60), sms)
-    assert s == (9 if sms == H100_SMS else 4)
+    assert s == (9 if sms == H100_SMS else 2)
     cnt, mx = _merged_splits(port, q_emb, emb, zc, ts, n_valid, seq_len, s)
     whole = port.D.stats_reference(q_emb, emb, zc, ts, n_valid, seq_len)
     want_cnt, want_mx = D0._statsN_pass(

@@ -3,12 +3,12 @@ splits each kernel gets, and the constants the plan mirrors from the
 CUDA sources.
 
 ``ops/min2.py``'s ``live_plan`` is kstats' and min_count's plan. Up to
-EP = 256 bytes (L <= 64) they take the split tile at two blocks an SM
-(``launch_plan``); past it the K-chunked wgmma tile of csrc/wg_long.cuh,
-as min2 and compact_mask do (``long_plan``, over the live rows, each
-kernel's own item cost): "wg_kchunk", query rows resident, up to EP =
-640 (160 bp), and "wg_kchunk_stream" past it. min2 and compact_mask
-take ``kernel_plan``: ``short_plan`` up to 64 bp
+EP = 256 bytes (L <= 64) they take the wgmma tile of csrc/wg_scan.cuh
+(``short_plan`` over the live rows); past it the K-chunked wgmma tile
+of csrc/wg_long.cuh, as min2 and compact_mask do (``long_plan``, over
+the live rows, each kernel's own item cost): "wg_kchunk", query rows
+resident, up to EP = 640 (160 bp), and "wg_kchunk_stream" past it. min2
+and compact_mask take ``kernel_plan``: ``short_plan`` up to 64 bp
 (tests/test_torch_wg_plan.py), ``long_plan`` past it
 (tests/test_torch_wg_long_plan.py).
 
@@ -64,7 +64,7 @@ def _item_steps(M):
             "min_count": M.MIN_COUNT_ITEM_STEPS}
 
 
-@pytest.mark.parametrize("ep,want", [(256, "split"), (288, "wg_kchunk"),
+@pytest.mark.parametrize("ep,want", [(256, "wgmma"), (288, "wg_kchunk"),
                                      (640, "wg_kchunk"),
                                      (672, "wg_kchunk_stream"),
                                      (704, "wg_kchunk_stream"),
@@ -74,8 +74,8 @@ def test_routes_at_the_boundaries(port, ep, want):
     bp, form (a)'s last), 672 (161-168 bp, which the K-chunked split tile
     took in form (a)), 704 and 119,616 (29,903 bp): past 64 bp all four
     kernels take ``long_plan``'s route and splits, each with its own
-    item cost; at 64 bp kstats and min_count the split tile, min2 and
-    compact_mask the short wgmma route."""
+    item cost; at 64 bp all four the short wgmma route, with
+    ``short_plan``'s splits at their item costs."""
     M = port.M
     steps = _item_steps(M)
     for b, rows in ((1, 64), (77, 32768), (1024, 32768), (4096, 2621440),
@@ -87,12 +87,9 @@ def test_routes_at_the_boundaries(port, ep, want):
                 assert route == want, kernel
                 assert (route, s) == M.long_plan(b, rows, ep, H100_SMS,
                                                  steps[kernel])
-            elif kernel in ("min2", "compact_mask"):
-                assert route == M.WG_ROUTE, kernel
-                assert s == M.short_plan(b, rows, H100_SMS, steps[kernel])
             else:
-                assert route == want, kernel
-                assert s == M.split_count(b, rows, H100_SMS * M.BLOCKS_PER_SM)
+                assert route == want == M.WG_ROUTE, kernel
+                assert s == M.short_plan(b, rows, H100_SMS, steps[kernel])
             assert 1 <= s <= tiles
 
 
@@ -129,22 +126,19 @@ def test_chunk_splits_fill_one_wave_and_never_exceed_the_live_tiles(port):
 
 
 def test_mirrored_constants_equal_the_sources(port):
-    """ops/min2.py's BM, BLOCKS_PER_SM and SPLIT_EP_MAX are
-    split_tile.cuh's S_WARPS * 32, S_BLOCKS_PER_SM and S_KS * 32, and
-    ops/hist.py's RESIDENT_EP_MAX is hist.cu's "kchunk" limit; kstats.cu
-    and min_count.cu run the split tile up to S_KS * 32 and wg_long.cuh
-    past it, through its one choice of form, and the K-chunked split
-    tile is gone (no kchunk_scan, no chunk kernel, no K_CHUNK); no
+    """ops/min2.py's SPLIT_EP_MAX is wg_scan.cuh's widest row (two
+    panels of PANEL bytes), and ops/hist.py's RESIDENT_EP_MAX is
+    hist.cu's "kchunk" limit; kstats.cu and min_count.cu run wg_scan.cuh
+    up to its EP_MAX and wg_long.cuh past it, through its one choice of
+    form; the split tile (split_tile.cuh, its planners BM,
+    BLOCKS_PER_SM, split_count and launch_plan) and the K-chunked split
+    tile are gone (no kchunk_scan, no chunk kernel, no K_CHUNK); no
     first-version loop is left (scan_tile.cuh is gone)."""
     M = port.M
-    c = _constants("split_tile.cuh")
-    assert M.BM == c["S_WARPS"] * 32
-    assert M.BLOCKS_PER_SM == c["S_BLOCKS_PER_SM"]
-    assert M.SPLIT_EP_MAX == c["S_KS"] * 32
-    tile = (CSRC / "split_tile.cuh").read_text()
-    for gone in ("K_CHUNK", "kchunk_scan", "kchunk_smem", "RESIDENT_EP_MAX",
-                 "K_BLOCKS_PER_SM"):
-        assert gone not in tile, gone
+    assert M.SPLIT_EP_MAX == 2 * _constants("wg_tile.cuh")["PANEL"]
+    assert not (CSRC / "split_tile.cuh").exists()
+    for gone in ("BM", "BLOCKS_PER_SM", "split_count", "launch_plan"):
+        assert not hasattr(M, gone), gone
     from smafa_tpu_torch.ops import hist
 
     assert f"EP > {hist.RESIDENT_EP_MAX} ? 0 : panels(EP)" in (
@@ -153,9 +147,8 @@ def test_mirrored_constants_equal_the_sources(port):
     assert not hasattr(M, "CHUNK_BLOCKS_PER_SM")
     for src in ("min2.cu", "kstats.cu", "compact.cu", "min_count.cu"):
         text = (CSRC / src).read_text()
-        split = src in ("kstats.cu", "min_count.cu")
-        assert ("EP <= S_KS * 32" in text or "EP > S_KS * 32" in text) == split
-        assert ('#include "split_tile.cuh"' in text) == split
+        assert "S_KS" not in text and '#include "split_tile.cuh"' not in text
+        assert "EP <= wg_scan::EP_MAX" in text
         assert '#include "wg_long.cuh"' in text
         assert "wg_long::by_form(EP," in text
         assert "kchunk_scan" not in text and "_chunk_kernel" not in text
@@ -208,7 +201,7 @@ def test_wrappers_plan_by_kernel(port):
         ("min2", port.M.min2), ("kstats", port.KS.kstats),
         ("compact_mask", port.C.compact_mask), ("min_count", port.MC.min_count))}
     assert "chunked" not in "".join(src.values())
-    assert "chunked" not in inspect.signature(port.M.launch_plan).parameters
+    assert "chunked" not in inspect.signature(port.M.scan_plan).parameters
     assert "chunked" not in inspect.signature(port.M.live_plan).parameters
     for name in ("min2.cu", "kstats.cu", "compact.cu", "min_count.cu"):
         text = (CSRC / name).read_text()
@@ -271,11 +264,11 @@ def test_live_items_cover_each_live_block_once(port, n_valid):
 
 
 def test_pair_counts_flush_by_blocks(port):
-    """kstats' long routes count in 16-bit pairs: a lane adds at most 16
-    to a count a 64-row block, so PAIR_TILES blocks stay below 65,536,
-    and the epilogue flushes by blocks (form (b)'s steps are two), at
-    each item's end too; its masked path runs only at the last live
-    block."""
+    """kstats' epilogue counts in 16-bit pairs (in byte lanes first below
+    64 bp): a lane adds at most 16 to a count a 64-row block, so
+    PAIR_TILES blocks stay below 65,536, and the epilogue flushes by
+    blocks (form (b)'s steps are two), at each item's end too; its
+    masked path runs only at the last live block."""
     c = _constants("kstats.cu")
     assert 16 * c["PAIR_TILES"] < 1 << 16 <= 16 * (c["PAIR_TILES"] + 1)
     text = (CSRC / "kstats.cu").read_text()
@@ -283,15 +276,17 @@ def test_pair_counts_flush_by_blocks(port):
     assert "end(const wg_scan::Item&) { flush(true); }" in text
     for src in ("kstats.cu", "min_count.cu"):
         text = (CSRC / src).read_text()
-        assert "epi.last = epi.rem < wg_scan::N ? live - 1 : -1;" in text
+        assert "last = rem < wg_scan::N ? live - 1 : -1;" in text
         assert "if (s == last) {" in text
 
 
 def test_long_routes_check_zc_as_a_tma_source(port):
-    """Past 64 bp kstats and min_count copy zc by TMA: both wrappers
-    check its alignment there, after planning (so n_valid = 0 launches
-    nothing and checks nothing)."""
+    """On every route kstats and min_count copy zc by TMA: both wrappers
+    check its alignment whatever the width (no branch on EP before the
+    check), after planning (so n_valid = 0 launches nothing and checks
+    nothing)."""
     for fn in (port.KS.kstats, port.MC.min_count):
         src = inspect.getsource(fn)
-        assert "if ep > M.SPLIT_EP_MAX:\n        M.check_tma_zc(zc)" in src
+        assert "\n    M.check_tma_zc(zc)\n" in src
+        assert "SPLIT_EP_MAX" not in src
         assert src.index("M.live_plan(") < src.index("M.check_tma_zc(zc)")

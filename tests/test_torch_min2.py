@@ -133,22 +133,27 @@ def test_min2_rejects_bad_operands(port, bad):
 @pytest.mark.parametrize("b,wp", [(4096, (1 << 20) + 64), (1, (1 << 20) + 64),
                                   (16, 64), (67584, 1 << 20)])
 def test_split_count_covers_the_db(port, b, wp):
-    """The kernel's db splits: at least one, each a positive run of whole
-    64-row tiles, together exactly [0, wp); one wave of blocks on an
-    H100's 132 SMs, and one split when the query tiles already fill
-    them."""
-    sms = 132 * port.M.BLOCKS_PER_SM  # resident block slots
-    s = port.M.split_count(b, wp, sms)
-    tiles = wp // WP_MULTIPLE  # the kernel's cut: split i of s
-    rows = [(tiles * i // s * WP_MULTIPLE, tiles * (i + 1) // s * WP_MULTIPLE)
-            for i in range(s)]
-    assert s >= 1 and len(rows) == s
-    assert rows[0][0] == 0 and rows[-1][1] == wp
-    assert all(e0 == b1 for (_, e0), (b1, _) in zip(rows, rows[1:]))
-    assert all(e > b0 and (e - b0) % WP_MULTIPLE == 0 for b0, e in rows)
-    qtiles = -(-b // port.M.BM)
-    if qtiles >= sms:
-        assert s == 1
-    else:
-        assert qtiles * s <= sms
-        assert s == wp // WP_MULTIPLE or qtiles * (s + 1) > sms
+    """kstats' and min_count's short-route splits over the live rows (wp
+    rows of a longer buffer live, and wp - 37, a partial last block):
+    at least one and never more than the live 64-row blocks, each a
+    positive run of whole blocks, together every live block once and
+    none past n_valid's; the plan is ``short_plan``'s over the live rows
+    at each kernel's item cost, one split when the query tiles alone
+    fill an H100's 132 SMs."""
+    M = port.M
+    for n_valid in (wp, max(1, wp - 37)):
+        tiles = -(-n_valid // WP_MULTIPLE)  # live blocks
+        for item in (M.KSTATS_ITEM_STEPS, M.MIN_COUNT_ITEM_STEPS):
+            route, s = M.live_plan(b, n_valid, 256, 132, item)
+            assert route == M.WG_ROUTE
+            assert s == M.short_plan(b, tiles * WP_MULTIPLE, 132, item)
+            assert 1 <= s <= tiles
+            rows = [(tiles * i // s * WP_MULTIPLE,
+                     tiles * (i + 1) // s * WP_MULTIPLE) for i in range(s)]
+            assert rows[0][0] == 0 and rows[-1][1] == tiles * WP_MULTIPLE
+            assert rows[-1][1] - WP_MULTIPLE < n_valid <= rows[-1][1]
+            assert all(e0 == b1 for (_, e0), (b1, _) in zip(rows, rows[1:]))
+            assert all(e > b0 and (e - b0) % WP_MULTIPLE == 0
+                       for b0, e in rows)
+            if -(-b // M.WG_ROWS) % 132 == 0:
+                assert s == 1

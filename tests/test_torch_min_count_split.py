@@ -4,9 +4,10 @@ The launch plan (``ops/min2.py:live_plan``, which kstats' wrapper
 calls too) cuts only the live 64-row tiles, ceil(n_valid / 64) of
 them, into splits the way the kernel does (split y of S walks tiles
 tiles * y // S up to tiles * (y + 1) // S): every live tile once, none
-past n_valid's, one split when the query tiles fill the card's block
-slots, the K-chunked wgmma tile's plan past 64 bp (form (b) in steps of
-two tiles), no launch at n_valid = 0. The
+past n_valid's, one split when the query tiles fill the card's SMs,
+the short route's plan (``short_plan``, the wgmma tile of
+csrc/wg_scan.cuh) up to 64 bp and the K-chunked wgmma tile's past it
+(form (b) in steps of two tiles), no launch at n_valid = 0. The
 merge the kernel does (the min of the splits' keys;
 with the count, the sum of the counts of the splits whose partial
 distance is the row's minimum) is held on plain tensors:
@@ -61,13 +62,14 @@ def _split_rows(n_valid: int, s: int,
             for y in range(s)]
 
 
-# (B, n_valid) -> splits on an H100 (132 SMs x 2 blocks): qtiles = ceil(B
-# / 256) query tiles take 264 // qtiles splits, at most one per live tile
+# (B, n_valid) -> splits on an H100 (132 SMs, one persistent block
+# each): ``short_plan`` over qtiles = ceil(B / 256) query tiles and the
+# live steps at MIN_COUNT_ITEM_STEPS, at most one split per live tile
 # (the cluster's batches 2048-32768 against its centroid counts)
-PLAN = {32768: {32768: 2, 29321: 2, 4096: 2, 37: 1, 1: 1},
-        2048: {32768: 33, 29321: 33, 4096: 33, 37: 1, 1: 1},
-        77: {32768: 264, 29321: 264, 4096: 64, 37: 1, 1: 1},
-        1: {32768: 264, 29321: 264, 4096: 64, 37: 1, 1: 1}}
+PLAN = {32768: {32768: 1, 29321: 1, 4096: 1, 37: 1, 1: 1},
+        2048: {32768: 16, 29321: 16, 4096: 16, 37: 1, 1: 1},
+        77: {32768: 132, 29321: 132, 4096: 64, 37: 1, 1: 1},
+        1: {32768: 132, 29321: 132, 4096: 64, 37: 1, 1: 1}}
 
 
 @pytest.mark.parametrize("b", sorted(PLAN))
@@ -76,7 +78,9 @@ def test_min_count_plan_covers_the_live_tiles(port, b):
     for n_valid, want in PLAN[b].items():
         route, s = _plan(port, b, n_valid, ep, H100_SMS)
         tiles = -(-n_valid // WP_MULTIPLE)
-        assert route == "split" and s == want and 1 <= s <= tiles
+        assert route == "wgmma" and s == want and 1 <= s <= tiles
+        assert s == port.M.short_plan(b, tiles * WP_MULTIPLE, H100_SMS,
+                                      port.M.MIN_COUNT_ITEM_STEPS)
         cover = np.zeros(tiles + 1, np.int64)  # + 1: the tile past n_valid's
         for y in range(s):
             t0, t1 = tiles * y // s, tiles * (y + 1) // s
@@ -105,22 +109,25 @@ def test_min_count_plan_is_kstats_plan_and_scans_nothing_at_zero(port):
 
 
 def test_min_count_plan_one_split_when_query_tiles_fill_the_slots(port):
-    """264 query tiles fill an H100's 132 x 2 slots: one split, no merge;
-    half as many leave room for a second."""
+    """132 query tiles fill an H100's 132 SMs: one split, no merge, and
+    so do 131 and 2^20 reads; half as many take two, and one tile more
+    four (a second wave of one item, evened out at min_count's item
+    cost). 32 query tiles against 256 live steps take 4 splits (128
+    items on 132 SMs)."""
     ep = port.D.embed_width(60)
-    slots = H100_SMS * port.M.BLOCKS_PER_SM
-    for b in (256 * slots, 256 * slots + 1, 1 << 20):
-        assert _plan(port, b, 32768, ep, H100_SMS) == ("split", 1)
-    assert _plan(port, 256 * (slots - 1), 32768, ep, H100_SMS) == ("split", 1)
-    assert _plan(port, 256 * (slots // 2), 32768, ep, H100_SMS) == ("split", 2)
-    assert _plan(port, 8192, 16384, ep, H100_SMS) == ("split", 8)
+    for b in (256 * H100_SMS, 256 * (H100_SMS - 1), 1 << 20):
+        assert _plan(port, b, 32768, ep, H100_SMS) == ("wgmma", 1)
+    assert _plan(port, 256 * (H100_SMS // 2), 32768, ep, H100_SMS) == ("wgmma", 2)
+    assert _plan(port, 256 * H100_SMS + 1, 32768, ep, H100_SMS) == ("wgmma", 4)
+    assert _plan(port, 8192, 16384, ep, H100_SMS) == ("wgmma", 4)
 
 
 def test_min_count_plan_routes_by_width(port):
     """Past 64 bp (EP > 256) the K-chunked wgmma tile, "wg_kchunk" up to
     160 bp and "wg_kchunk_stream" past it, with ``long_plan``'s splits
     over the live rows at min_count's item cost, never more than the
-    live steps, at any batch and n_valid; up to 64 bp the split route."""
+    live steps, at any batch and n_valid; up to 64 bp the short route,
+    ``short_plan``'s splits over the live rows."""
     M = port.M
     for seq_len in (3, 60, 63, 64, 65, 150, 160, 161, 300):
         ep = port.D.embed_width(seq_len)
@@ -137,7 +144,9 @@ def test_min_count_plan_routes_by_width(port):
                     if route == "wg_kchunk_stream":
                         assert s <= -(-tiles // 2)
                 else:
-                    assert route == "split"
+                    assert route == "wgmma"
+                    assert s == M.short_plan(b, tiles * 64, H100_SMS,
+                                             M.MIN_COUNT_ITEM_STEPS)
 
 
 def _merged_splits(port, q_emb, emb, zc, n_valid, seq_len, shift, s,
@@ -206,9 +215,8 @@ def test_split_merge_equals_whole_and_min_count_scan(port, seq_len,
     """n_valid = 517 of a 640-row live buffer (9 tiles, the last holding
     5 live rows), at the plan of this width: on 132 SMs one tile per
     split (one 128-row step per split at 300 bp, form (b): 5, the last
-    holding one live block); on 2 SMs (split route, two blocks an SM)
-    or 4 SMs (the wgmma tile past 64 bp, one block an SM) 4 splits that
-    do not divide the tiles (or steps)."""
+    holding one live block); on 4 SMs 4 splits that do not divide the
+    tiles (or steps)."""
     wp, b, n_valid = 640, 40, 517
     buf, q = _case(seq_len, wp, b, n_valid, seq_len + with_count)
     from_numpy = port.torch.from_numpy
@@ -218,10 +226,10 @@ def test_split_merge_equals_whole_and_min_count_scan(port, seq_len,
     want = _pallas(buf, q, n_valid, seq_len)
     whole = port.D.min_count_reference(q_emb, emb, zc, n_valid, seq_len,
                                        shift, with_count)
-    route = ("split" if seq_len <= 64 else
+    route = ("wgmma" if seq_len <= 64 else
              "wg_kchunk" if seq_len <= 160 else "wg_kchunk_stream")
     step = 128 if route == "wg_kchunk_stream" else WP_MULTIPLE
-    for sms, s in ((2 if seq_len <= 64 else 4, 4),
+    for sms, s in ((4, 4),
                    (H100_SMS, 5 if step == 128 else 9)):
         assert _plan(port, b, n_valid, port.D.embed_width(seq_len),
                      sms) == (route, s)

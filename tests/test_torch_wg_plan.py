@@ -1,11 +1,10 @@
-"""The short route's launch plan of min2 and compact_mask
-(``ops/min2.py:short_plan``, the warp-specialised wgmma tile of
-csrc/wg_scan.cuh), on the CPU: every db row covered once by whole
-64-row steps, the persistent grid within the SMs, the db's trailing
-64-row half of a 128-row pair, the splits each kernel gets, the
-constants the plan mirrors from the sources; and the split tile's plan
-(``launch_plan`` / ``live_plan``, which kstats and min_count keep)
-giving the values it gave before min2 and compact_mask left it.
+"""The short route's launch plan (``ops/min2.py:short_plan``, the
+warp-specialised wgmma tile of csrc/wg_scan.cuh), on the CPU: every db
+row covered once by whole 64-row steps, the persistent grid within the
+SMs, the db's trailing 64-row half of a 128-row pair, the splits min2
+and compact_mask get, the constants the plan mirrors from the sources;
+and kstats' and min_count's plans over their live rows (``live_plan``)
+pinned at the main shapes.
 
 torch is imported by the ``port`` fixture, not at collection (see
 test_torch_min2.py)."""
@@ -136,22 +135,42 @@ def test_plan_is_cached(port):
 def test_mirrored_constants_equal_the_sources(port):
     """WG_ROWS and WG_STEP are wg_scan.cuh's ROWS and N, the route's
     widest embedding (2 panels of 128 bytes) is SPLIT_EP_MAX, and a
-    block's ring fits the shared memory a block can use at that width;
-    compact_mask stores 16 bytes a row only where rows are 16-byte
-    aligned (Wp % 128 == 0), else 8."""
+    block's ring fits the shared memory a block can use at either panel
+    count (1 to 32 bp, 2 to 64 bp); compact_mask stores 16 bytes a row
+    only where rows are 16-byte aligned (Wp % 128 == 0), else 8. kstats'
+    probes are keys.KSTATS_PROBES and its pair counts flush before 16
+    columns a block overflow 16 bits; all four scans launch the short
+    route from wg_scan.cuh up to its EP_MAX (kstats and min_count
+    through its one choice of panels, kstats with byte lanes below 64
+    bp), and the split tile is gone."""
     M = port.M
     c = {**_constants("wg_tile.cuh"), **_constants("wg_scan.cuh")}
     assert M.WG_ROWS == c["ROWS"] and M.WG_STEP == c["N"]
     assert M.SPLIT_EP_MAX == 2 * c["PANEL"]
-    nkp = M.SPLIT_EP_MAX // c["PANEL"]
-    smem = c["RING"] * (nkp * c["N"] * c["PANEL"] + c["N"] * 4 + 16) + c["SLACK"]
-    assert smem <= SMEM_MAX
+    for nkp in (1, 2):
+        smem = (c["RING"] * (nkp * c["N"] * c["PANEL"] + c["N"] * 4 + 16)
+                + c["SLACK"])
+        assert smem <= SMEM_MAX
     compact = (CSRC / "compact.cu").read_text()
     assert "epi.wide = (W & 127) == 0" in compact
-    for src in ("min2.cu", "compact.cu"):
+    for src in ("min2.cu", "compact.cu", "kstats.cu", "min_count.cu"):
         text = (CSRC / src).read_text()
         assert '#include "wg_scan.cuh"' in text
         assert "wg_scan::EP_MAX" in text
+        assert "split_tile" not in text and "mma_s8" not in text
+    ks = _constants("kstats.cu")
+    from smafa_tpu_torch.ops import keys
+
+    assert ks["PROBES"] == keys.KSTATS_PROBES
+    assert 16 * ks["PAIR_TILES"] < 1 << 16
+    kst = (CSRC / "kstats.cu").read_text()
+    assert "const bool bytes = seq_len < 64;" in kst
+    for src, kernel in (("kstats.cu", "kstats_wg_kernel<NKP, true>"),
+                        ("min_count.cu", "min_count_wg_kernel<NKP, WITH_COUNT>")):
+        text = (CSRC / src).read_text()
+        assert "wg_scan::by_panels(EP," in text and kernel in text, src
+        assert "__launch_bounds__(wg_scan::THREADS, 1)" in text, src
+    assert not (CSRC / "split_tile.cuh").exists()
 
 
 def test_zc_must_be_a_tma_source(port):
@@ -164,33 +183,38 @@ def test_zc_must_be_a_tma_source(port):
         port.M.check_tma_zc(zc[1:129])
 
 
-# launch_plan and live_plan as they were before min2 and compact_mask
-# took the wgmma tiles: kstats and min_count keep them up to 64 bp; past
-# it live_plan is long_plan's over the live rows (at either kernel's item
-# cost, these shapes plan alike), and launch_plan refuses.
-LAUNCH = {(1, 70016, 256): ("split", 264), (77, 1 << 20, 256): ("split", 264),
-          (512, 1 << 20, 256): ("split", 132), (4096, 1 << 20, 256): ("split", 16),
-          (16384, 70016, 256): ("split", 4), (32768, 1 << 20, 256): ("split", 2)}
-LIVE = {(1, 37, 256): ("split", 1), (77, 3001, 256): ("split", 47),
-        (2048, 29321, 256): ("split", 33), (32768, 29321, 256): ("split", 2),
-        (8192, 16384, 256): ("split", 8), (16384, (1 << 20) + 37, 256): ("split", 4),
-        (4096, (1 << 20) + 37, 256): ("split", 16), (0, 5, 256): ("none", 0),
+# kstats' and min_count's plans (live_plan over the live rows) at the
+# main shapes: the K-mode passes (16384 and 4096 reads x 2^20 + 37 rows),
+# the cluster's batches against its centroids, the chip smoke's timed
+# min_count shapes; (kstats, min_count) where their item costs differ.
+# Past 64 bp live_plan is long_plan's over the live rows.
+LIVE = {(1, 37, 256): ("wgmma", 1), (77, 3001, 256): ("wgmma", 47),
+        (2048, 29321, 256): ("wgmma", 16), (32768, 29321, 256): ("wgmma", 1),
+        (32768, 32768, 256): ("wgmma", 1), (8192, 16384, 256): ("wgmma", 4),
+        (2048, 4096, 256): ("wgmma", 16),
+        (16384, (1 << 20) + 37, 256): (("wgmma", 33), ("wgmma", 2)),
+        (4096, (1 << 20) + 37, 256): (("wgmma", 33), ("wgmma", 8)),
+        (1, (1 << 20) + 37, 256): ("wgmma", 132), (0, 5, 256): ("none", 0),
         (5, 0, 256): ("none", 0), (1024, 32768, 1216): ("wg_kchunk_stream", 33),
         (32768, 32768, 608): ("wg_kchunk", 1)}
 
 
 def test_split_tile_plan_unchanged(port):
-    """launch_plan and live_plan give their earlier values up to 64 bp,
-    at either kernel's item cost; past it live_plan takes the long
-    routes and launch_plan raises; and the hist kernel's plan, which
-    shares ``splits_for``, its 33 splits."""
+    """kstats' and min_count's plans at the main shapes, each kernel at
+    its item cost: the short route up to 64 bp with ``short_plan``'s
+    splits over the live rows (kstats, whose items restart nothing,
+    takes more splits than min_count where the waves even out), the
+    long routes past it, nothing at B = 0 or n_valid = 0; and the hist
+    kernel's plan, which shares ``splits_for``, its 33 splits."""
     M = port.M
-    for (b, wp, ep), want in LAUNCH.items():
-        assert M.launch_plan(b, wp, ep, H100_SMS) == want
-    for item in (M.KSTATS_ITEM_STEPS, M.MIN_COUNT_ITEM_STEPS):
+    for i, item in enumerate((M.KSTATS_ITEM_STEPS, M.MIN_COUNT_ITEM_STEPS)):
         for (b, n, ep), want in LIVE.items():
+            want = want[i] if isinstance(want[0], tuple) else want
             assert M.live_plan(b, n, ep, H100_SMS, item) == want
-    with pytest.raises(ValueError):
-        M.launch_plan(4096, 1 << 20, 608, H100_SMS)
+            if want[0] == M.WG_ROUTE:
+                live = -(-n // WP_MULTIPLE) * WP_MULTIPLE
+                assert want[1] == M.short_plan(b, live, H100_SMS, item)
+    assert not hasattr(M, "launch_plan") and not hasattr(M, "split_count")
+    assert not hasattr(M, "BM") and not hasattr(M, "BLOCKS_PER_SM")
     assert port.H.launch_plan(16384, (1 << 20) + 37, 60, H100_SMS).splits == 33
     assert port.H.launch_plan(4096, (1 << 20) + 37, 60, H100_SMS).splits == 33
